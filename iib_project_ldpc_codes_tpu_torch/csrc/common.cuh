@@ -1,0 +1,43 @@
+// Shared helpers of the hand-written Hopper kernels (sm_90a).
+//
+// Every packed plane is int32[rows, W] in row-major order: word w of row r
+// holds trials 32*w .. 32*w+31, trial b in bit b % 32 (the JAX package's
+// layout, ops/bitops.py:3-5).  Kernels read and write the words as uint32
+// bit patterns; the int32 type is only what PyTorch stores.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ldpc {
+
+constexpr int kThreads = 256;
+
+// Blocks for a grid-stride loop over `total` items: enough to fill the
+// 132 SMs several times over, never more than the items need.
+inline unsigned int grid_for(long long total) {
+  long long blocks = (total + kThreads - 1) / kThreads;
+  const long long cap = 132LL * 32;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return static_cast<unsigned int>(blocks);
+}
+
+// Philox4x32-10 (Salmon et al., SC'11; the Random123 reference rounds):
+// counter (c0, c1, c2, c3), key (k0, k1).  Known answer: counter 0, key 0
+// gives (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
+  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(M0, ctr.x), lo0 = M0 * ctr.x;
+    const uint32_t hi1 = __umulhi(M1, ctr.z), lo1 = M1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
+    key.x += W0;
+    key.y += W1;
+  }
+  return ctr;
+}
+
+}  // namespace ldpc

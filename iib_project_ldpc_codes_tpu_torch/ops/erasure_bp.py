@@ -1,0 +1,268 @@
+"""BEC erasure message-passing (BP) decoder.
+
+The JAX package's decoder (``iib_project_ldpc_codes_tpu/ops/
+erasure_bp.py``), all-zero-codeword path first:
+
+  * :func:`bp_decode` -- one codeword in the {0,1,2} alphabet, the
+    readable oracle, plain torch.
+  * :func:`bp_decode_packed_allzero` -- the production path: 32 trials
+    per int32 word, batch in the trailing dimension.  One round is the
+    check pass :func:`check_exactly_one` (K2, ``csrc/check_exactly_one.cu``)
+    and the variable pass :func:`variable_or_update` (K3,
+    ``csrc/variable_or_update.cu``), which also counts the erasures left;
+    the final per-trial counts are K4 (``ops/bitops.py``).
+
+The fixed-point loop is a host loop that reads one 4-byte count per round
+and reproduces the JAX ``while_loop`` (erasure_bp.py:66-110) exactly:
+stop when the count is unchanged, zero, or the budget is spent;
+``iterations`` counts the last, unchanged round; the error array's tail
+holds the final count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Tuple
+
+import torch
+
+from ..kernels import check_int32, launch, use_kernel
+from ..models.code import LDPCCode
+from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
+from .channels import ERASURE
+
+
+def _check_packed_batch_bits(n: int, words: int) -> None:
+    """The packed decoder's counters are exact int32, so a batch whose
+    total bit count reaches 2^31 is out of contract (a worst-case erasure
+    count would wrap).  Split such workloads into chunks; the Monte Carlo
+    engine accumulates chunk counters in int64 on the host."""
+    total = n * words * 32
+    if total >= 2 ** 31:
+        raise ValueError(
+            f"packed batch of {total} total bits (n={n}, words={words}) "
+            "exceeds the exact-int32 counter range (2^31); split the "
+            "batch into chunks")
+
+
+def _run_to_fixed_point(step: Callable[[int], int], total0: int,
+                        max_iters: int) -> Tuple[List[int], int]:
+    """Host loop shared by the decoders of this module.
+
+    ``step(it)`` runs round ``it + 1`` and returns the summed error count
+    after it.  Rounds run until the count is unchanged for one round (on
+    the BEC the known set only grows, so that IS the fixed point), hits
+    zero, or ``max_iters`` is reached.  Returns ``(errors, iterations)``:
+    ``errors[t]`` is the count after round t for t <= iterations and the
+    final count after it, ``len(errors) == max_iters + 1``.
+    """
+    errors = [total0]
+    it, total, changed = 0, total0, True
+    while it < max_iters and changed and total > 0:
+        new_total = step(it)
+        errors.append(new_total)
+        it += 1
+        changed = new_total != total
+        total = new_total
+    errors += [total] * (max_iters - it)
+    return errors, it
+
+
+# ---------------------------------------------------------------------------
+# Single-codeword oracle ({0,1,2} alphabet)
+# ---------------------------------------------------------------------------
+
+def _bp_iteration(code: LDPCCode, val: torch.Tensor, known: torch.Tensor):
+    """One parallel BP round on one codeword: returns (val, known)."""
+    row_val = val[code.chk_to_var.long()]               # [m, dc]
+    row_kn = known[code.chk_to_var.long()].to(torch.int32)
+    cnt = row_kn.sum(dim=1, keepdim=True)
+    masked = row_val & row_kn
+    xor_all = masked.sum(dim=1, keepdim=True) & 1        # XOR of 0/1 values
+    others_known = (cnt - row_kn) == (code.dc - 1)       # [m, dc]
+    mcv_val = xor_all ^ masked                           # extrinsic XOR
+    edges = code.var_to_edge.long()
+    e_valid = others_known.reshape(-1)[edges]            # [n, dv]
+    e_val = mcv_val.reshape(-1)[edges]
+    any_valid = e_valid.any(dim=1)
+    adopt = (e_valid & (e_val == 1)).any(dim=1).to(val.dtype)
+    new_known = known | any_valid
+    new_val = torch.where(known, val, adopt * any_valid.to(val.dtype))
+    return new_val, new_known
+
+
+def bp_decode(code: LDPCCode, channel_output: torch.Tensor, max_iters: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Decode one codeword in the {0,1,2} wire format.
+
+    Returns ``(decoded, errors, iterations)``: ``decoded`` in {0,1,2}
+    (2 = still erased), ``errors`` int32[max_iters + 1] with the initial
+    erasure count first, ``iterations`` the rounds computed.
+    """
+    channel_output = channel_output.to(torch.int32)
+    known = channel_output != ERASURE
+    val = torch.where(known, channel_output, 0)
+
+    def step(_it: int) -> int:
+        nonlocal val, known
+        val, known = _bp_iteration(code, val, known)
+        return int((~known).sum())
+
+    errors, it = _run_to_fixed_point(step, int((~known).sum()), max_iters)
+    decoded = torch.where(known, val, ERASURE)
+    return decoded, torch.tensor(errors, dtype=torch.int32), it
+
+
+# ---------------------------------------------------------------------------
+# Packed all-zero path: K2 (check pass) and K3 (variable pass)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PackedBPResult:
+    """Result of a packed batch decode of B = 32*W trials."""
+
+    known: torch.Tensor         # int32[n, W] resolved mask
+    error_totals: torch.Tensor  # int32[max_iters+1] erased bits, whole batch
+    iterations: int             # rounds computed before the fixed point
+
+    @property
+    def bit_errors(self) -> torch.Tensor:
+        """int32[B]: unresolved erasures per trial (K4 on ~known)."""
+        return per_trial_counts(~self.known)
+
+    @property
+    def failed(self) -> torch.Tensor:
+        """bool[B]: trials with at least one unresolved erasure."""
+        return self.bit_errors > 0
+
+
+def _check_exactly_one_plain(chk_to_var: torch.Tensor,
+                             known: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: the JAX package's per-socket prefix/suffix
+    form (erasure_bp.py:203-220)."""
+    dc = chk_to_var.shape[1]
+    kns = [known.index_select(0, chk_to_var[:, j]) for j in range(dc)]
+    full = torch.full_like(kns[0], -1)
+    pre = [full]
+    for j in range(dc - 1):
+        pre.append(pre[-1] & kns[j])
+    suf = [full]
+    for j in range(dc - 1, 0, -1):
+        suf.append(suf[-1] & kns[j])
+    suf.reverse()
+    exactly_one = torch.zeros_like(kns[0])
+    for j in range(dc):
+        exactly_one |= ~kns[j] & pre[j] & suf[j]
+    return exactly_one
+
+
+def check_exactly_one(chk_to_var: torch.Tensor,
+                      known: torch.Tensor) -> torch.Tensor:
+    """int32[m, W]: per check and trial, whether exactly one of the dc
+    participants is still unknown (``known`` int32[n, W]).  The table's
+    entries must lie in [0, n), as :func:`..models.code.code_from_checks`
+    ensures."""
+    check_int32("chk_to_var", chk_to_var, 2)
+    check_int32("known", known, 2)
+    if not use_kernel(chk_to_var, known):
+        return _check_exactly_one_plain(chk_to_var, known)
+    m, dc = chk_to_var.shape
+    words = known.shape[1]
+    out = torch.empty((m, words), dtype=torch.int32, device=known.device)
+    launch("ldpc_check_exactly_one", known.device, known.data_ptr(),
+           chk_to_var.data_ptr(), out.data_ptr(), m, dc, words)
+    check_exactly_one.launches += 1
+    return out
+
+
+check_exactly_one.launches = 0
+
+
+def _variable_or_update_plain(var_to_chk: torch.Tensor,
+                              exactly_one: torch.Tensor, known: torch.Tensor,
+                              errors: torch.Tensor, slot: int) -> None:
+    """Plain version of K3 (erasure_bp.py:231-236, 279-288)."""
+    acc = exactly_one.index_select(0, var_to_chk[:, 0])
+    for j in range(1, var_to_chk.shape[1]):
+        acc |= exactly_one.index_select(0, var_to_chk[:, j])
+    known |= acc
+    errors[slot] = popcount(~known).sum(dtype=torch.int64).to(torch.int32)
+
+
+def variable_or_update(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
+                       known: torch.Tensor, errors: torch.Tensor,
+                       slot: int) -> None:
+    """``known |= OR_j exactly_one[var_to_chk[:, j]]`` in place, and
+    ``errors[slot]`` = erasures left in ``known`` (``errors[slot]`` must
+    be 0 on entry)."""
+    check_int32("var_to_chk", var_to_chk, 2)
+    check_int32("known", known, 2)
+    check_int32("exactly_one", exactly_one, 2)
+    check_int32("errors", errors, 1)
+    if exactly_one.shape[1] != known.shape[1]:
+        raise ValueError("exactly_one and known differ in words")
+    if var_to_chk.shape[0] != known.shape[0]:
+        raise ValueError("var_to_chk and known differ in rows")
+    if not 0 <= slot < errors.shape[0]:
+        raise ValueError(f"slot {slot} outside errors[{errors.shape[0]}]")
+    if not use_kernel(var_to_chk, exactly_one, known, errors):
+        _variable_or_update_plain(var_to_chk, exactly_one, known, errors,
+                                  slot)
+        return
+    n, dv = var_to_chk.shape
+    launch("ldpc_variable_or_update", known.device, known.data_ptr(),
+           exactly_one.data_ptr(), var_to_chk.data_ptr(),
+           errors[slot:].data_ptr(), n, dv, known.shape[1])
+    variable_or_update.launches += 1
+
+
+variable_or_update.launches = 0
+
+
+def _decode_allzero(code: LDPCCode, erased: torch.Tensor, max_iters: int,
+                    check, variable, counts) -> PackedBPResult:
+    """The packed all-zero decode, parametrised by its three passes."""
+    check_int32("erased", erased, 2)
+    if erased.shape[0] != code.n:
+        raise ValueError(f"erased has {erased.shape[0]} rows, code n={code.n}")
+    _check_packed_batch_bits(code.n, erased.shape[1])
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    known = ~erased
+    total0 = int(counts(erased).sum(dtype=torch.int64))
+    errors = torch.zeros(max_iters + 1, dtype=torch.int32,
+                         device=erased.device)
+
+    def step(it: int) -> int:
+        exactly_one = check(code.chk_to_var, known)
+        variable(code.var_to_chk, exactly_one, known, errors, it + 1)
+        return int(errors[it + 1])
+
+    totals, it = _run_to_fixed_point(step, total0, max_iters)
+    return PackedBPResult(
+        known=known,
+        error_totals=torch.tensor(totals, dtype=torch.int32,
+                                  device=erased.device),
+        iterations=it)
+
+
+def bp_decode_packed_allzero(code: LDPCCode, erased: torch.Tensor,
+                             max_iters: int) -> PackedBPResult:
+    """Decode 32*W all-zero-codeword trials at once on one code.
+
+    ``erased`` is int32[n, W] (1 = erased), e.g. from
+    :func:`..channels.bec_packed_channel`.  On CUDA tensors every pass is
+    a hand-written kernel (K4 for the initial count, K2 and K3 per round);
+    on CPU tensors their plain versions run.
+    """
+    return _decode_allzero(code, erased, max_iters, check_exactly_one,
+                           variable_or_update, per_trial_counts)
+
+
+def bp_decode_packed_allzero_plain(code: LDPCCode, erased: torch.Tensor,
+                                   max_iters: int) -> PackedBPResult:
+    """:func:`bp_decode_packed_allzero` through the plain PyTorch version
+    of every pass, on any device: the reference the kernels are held to."""
+    return _decode_allzero(code, erased, max_iters, _check_exactly_one_plain,
+                           _variable_or_update_plain,
+                           _per_trial_counts_plain)
