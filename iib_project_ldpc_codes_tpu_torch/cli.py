@@ -8,7 +8,10 @@ Two invocation styles, as in the JAX package:
            <erasure_prob> <num_tests> <iterations> <n> <dv> <dc> <mode> \\
            [seed|filenumber] [expurgation]
 
-     The port runs mode 3 (fixed code, erasure BP) so far.
+     The port runs mode 0 (a fresh code per group of trials, erasure BP;
+     the 8th argument is the seed) and mode 3 (a fixed code, erasure BP;
+     the 8th argument is the code number).  Modes 1, 2, 4 and 5 (ML)
+     raise, naming their ROADMAP item.
 
   2. A JSON config:
        python -m iib_project_ldpc_codes_tpu_torch.cli --config cfg.json

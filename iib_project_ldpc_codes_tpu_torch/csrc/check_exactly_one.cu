@@ -24,7 +24,7 @@ namespace {
 __global__ void check_exactly_one_kernel(const int32_t* __restrict__ known,
                                          const int32_t* __restrict__ chk_to_var,
                                          int32_t* __restrict__ out, int m,
-                                         int dc, int words) {
+                                         int dc, int words, int wpc) {
   const long long total = static_cast<long long>(m) * words;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -32,7 +32,8 @@ __global__ void check_exactly_one_kernel(const int32_t* __restrict__ known,
        t < total; t += stride) {
     const int c = static_cast<int>(t / words);
     const int w = static_cast<int>(t - static_cast<long long>(c) * words);
-    const int32_t* row = chk_to_var + static_cast<long long>(c) * dc;
+    const int32_t* row =
+        chk_to_var + (static_cast<long long>(w / wpc) * m + c) * dc;
     uint32_t once = 0, twice = 0;
     for (int j = 0; j < dc; ++j) {
       const uint32_t unknown = ~static_cast<uint32_t>(
@@ -48,14 +49,15 @@ __global__ void check_exactly_one_kernel(const int32_t* __restrict__ known,
 
 extern "C" int ldpc_check_exactly_one(const void* known,
                                       const void* chk_to_var, void* out,
-                                      int m, int dc, int words, void* stream) {
+                                      int m, int dc, int words, int wpc,
+                                      void* stream) {
   const long long total = static_cast<long long>(m) * words;
   if (total > 0) {
     check_exactly_one_kernel<<<ldpc::grid_for(total), ldpc::kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(known),
         static_cast<const int32_t*>(chk_to_var), static_cast<int32_t*>(out),
-        m, dc, words);
+        m, dc, words, wpc);
   }
   return static_cast<int>(cudaGetLastError());
 }

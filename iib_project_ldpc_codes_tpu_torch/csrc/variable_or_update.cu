@@ -19,6 +19,10 @@
 // decode converges.  The count is reduced in registers across the warp
 // and added with one atomicAdd per warp; integer atomics are exact in any
 // order, so the total does not depend on scheduling.
+//
+// A batch of C codes: `var_to_chk` is int32[C, n, dv] and word w reads the
+// slice of code w / wpc (wpc = W / C), as K2 does; C = 1 is the
+// single-code call.  The error count stays one total over all codes.
 #include "common.cuh"
 
 namespace {
@@ -27,7 +31,8 @@ __global__ void variable_or_update_kernel(int32_t* __restrict__ known,
                                           const int32_t* __restrict__ exactly_one,
                                           const int32_t* __restrict__ var_to_chk,
                                           int32_t* __restrict__ errors_slot,
-                                          int n, int dv, int words) {
+                                          int n, int dv, int words,
+                                          int wpc) {
   const long long total = static_cast<long long>(n) * words;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   int unknown = 0;
@@ -38,7 +43,8 @@ __global__ void variable_or_update_kernel(int32_t* __restrict__ known,
     if (k != 0xFFFFFFFFu) {
       const int v = static_cast<int>(t / words);
       const int w = static_cast<int>(t - static_cast<long long>(v) * words);
-      const int32_t* row = var_to_chk + static_cast<long long>(v) * dv;
+      const int32_t* row =
+          var_to_chk + (static_cast<long long>(w / wpc) * n + v) * dv;
       uint32_t acc = 0;
       for (int j = 0; j < dv; ++j) {
         acc |= static_cast<uint32_t>(__ldg(
@@ -63,14 +69,14 @@ __global__ void variable_or_update_kernel(int32_t* __restrict__ known,
 extern "C" int ldpc_variable_or_update(void* known, const void* exactly_one,
                                        const void* var_to_chk,
                                        void* errors_slot, int n, int dv,
-                                       int words, void* stream) {
+                                       int words, int wpc, void* stream) {
   const long long total = static_cast<long long>(n) * words;
   if (total > 0) {
     variable_or_update_kernel<<<ldpc::grid_for(total), ldpc::kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<int32_t*>(known), static_cast<const int32_t*>(exactly_one),
         static_cast<const int32_t*>(var_to_chk),
-        static_cast<int32_t*>(errors_slot), n, dv, words);
+        static_cast<int32_t*>(errors_slot), n, dv, words, wpc);
   }
   return static_cast<int>(cudaGetLastError());
 }

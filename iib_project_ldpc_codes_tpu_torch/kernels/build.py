@@ -40,9 +40,11 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "ldpc_bernoulli_packed": (_P, _LL, _U, _U, _U, _U, ctypes.c_ulonglong,
                               _P),
-    "ldpc_check_exactly_one": (_P, _P, _P, _I, _I, _I, _P),
-    "ldpc_variable_or_update": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ldpc_check_exactly_one": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ldpc_variable_or_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ldpc_per_trial_counts": (_P, _P, _I, _I, _P),
+    "ldpc_sample_regular_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _U, _U, _U, _I, _P),
 }
 
 

@@ -17,6 +17,14 @@ and reproduces the JAX ``while_loop`` (erasure_bp.py:66-110) exactly:
 stop when the count is unchanged, zero, or the budget is spent;
 ``iterations`` counts the last, unchanged round; the error array's tail
 holds the final count.
+
+A batch of C codes (ensemble mode) decodes in the same call: the code's
+tables carry a leading ``[C]`` axis and word w of the ``[n, W]`` planes
+belongs to code ``w // (W // C)``.  One loop over the summed count stays
+exact: each code's count never increases, so the sum is unchanged only
+when every code's count is unchanged, and on the BEC an unchanged count is
+an absorbing fixed point.  ``error_totals`` is then the sum of the JAX
+package's per-code (vmapped) arrays, tails included.
 """
 
 from __future__ import annotations
@@ -123,7 +131,11 @@ class PackedBPResult:
 
     known: torch.Tensor         # int32[n, W] resolved mask
     error_totals: torch.Tensor  # int32[max_iters+1] erased bits, whole batch
-    iterations: int             # rounds computed before the fixed point
+    # rounds computed before the fixed point; for a batch of codes the
+    # largest per-code count, or one more when the last code to move
+    # reached zero erasures (the summed count then needs one unchanged
+    # round to stop)
+    iterations: int
 
     @property
     def bit_errors(self) -> torch.Tensor:
@@ -136,12 +148,48 @@ class PackedBPResult:
         return self.bit_errors > 0
 
 
+def _words_per_code(name: str, table, words: int) -> int:
+    """Check a code table, int32[rows, k] for one code or [C, rows, k]
+    for a batch, and return the words per code of a ``words``-word
+    plane."""
+    rank = 3 if isinstance(table, torch.Tensor) and table.dim() == 3 else 2
+    check_int32(name, table, rank)
+    num = table.shape[0] if rank == 3 else 1
+    if num == 0 or words % num:
+        raise ValueError(f"{words} words do not split evenly over {num} "
+                         "codes")
+    return words // num
+
+
+def _gather_rows(plane: torch.Tensor, table: torch.Tensor, j: int
+                 ) -> torch.Tensor:
+    """Rows ``table[g, :, j]`` of code g's words of ``plane`` [rows, W],
+    for every code g at once: int32[C * table rows, W // C] (code-major).
+    One code is the plain ``index_select`` of the whole rows."""
+    if table.dim() == 2:
+        return plane.index_select(0, table[:, j])
+    num = table.shape[0]
+    rows = plane.reshape(plane.shape[0] * num, -1)     # row r, code g -> r*C+g
+    codes = torch.arange(num, dtype=torch.int32, device=table.device)
+    return rows.index_select(0, (table[:, :, j] * num
+                                 + codes[:, None]).reshape(-1))
+
+
+def _code_major_to_plane(x: torch.Tensor, num: int) -> torch.Tensor:
+    """Inverse of :func:`_gather_rows`' layout: [C * rows, wpc] ->
+    [rows, C * wpc]."""
+    if num == 1:
+        return x
+    return x.reshape(num, -1, x.shape[1]).transpose(0, 1).contiguous() \
+        .reshape(x.shape[0] // num, -1)
+
+
 def _check_exactly_one_plain(chk_to_var: torch.Tensor,
                              known: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: the JAX package's per-socket prefix/suffix
-    form (erasure_bp.py:203-220)."""
-    dc = chk_to_var.shape[1]
-    kns = [known.index_select(0, chk_to_var[:, j]) for j in range(dc)]
+    form (erasure_bp.py:203-220), per code of a batch."""
+    dc = chk_to_var.shape[-1]
+    kns = [_gather_rows(known, chk_to_var, j) for j in range(dc)]
     full = torch.full_like(kns[0], -1)
     pre = [full]
     for j in range(dc - 1):
@@ -153,24 +201,26 @@ def _check_exactly_one_plain(chk_to_var: torch.Tensor,
     exactly_one = torch.zeros_like(kns[0])
     for j in range(dc):
         exactly_one |= ~kns[j] & pre[j] & suf[j]
-    return exactly_one
+    num = chk_to_var.shape[0] if chk_to_var.dim() == 3 else 1
+    return _code_major_to_plane(exactly_one, num)
 
 
 def check_exactly_one(chk_to_var: torch.Tensor,
                       known: torch.Tensor) -> torch.Tensor:
     """int32[m, W]: per check and trial, whether exactly one of the dc
-    participants is still unknown (``known`` int32[n, W]).  The table's
-    entries must lie in [0, n), as :func:`..models.code.code_from_checks`
-    ensures."""
-    check_int32("chk_to_var", chk_to_var, 2)
+    participants is still unknown (``known`` int32[n, W]).  ``chk_to_var``
+    is one code's int32[m, dc] table or a batch's int32[C, m, dc], word w
+    then belonging to code ``w // (W // C)``.  The table's entries must
+    lie in [0, n), as :func:`..models.code.code_from_checks` ensures."""
     check_int32("known", known, 2)
+    wpc = _words_per_code("chk_to_var", chk_to_var, known.shape[1])
     if not use_kernel(chk_to_var, known):
         return _check_exactly_one_plain(chk_to_var, known)
-    m, dc = chk_to_var.shape
+    m, dc = chk_to_var.shape[-2:]
     words = known.shape[1]
     out = torch.empty((m, words), dtype=torch.int32, device=known.device)
     launch("ldpc_check_exactly_one", known.device, known.data_ptr(),
-           chk_to_var.data_ptr(), out.data_ptr(), m, dc, words)
+           chk_to_var.data_ptr(), out.data_ptr(), m, dc, words, wpc)
     check_exactly_one.launches += 1
     return out
 
@@ -181,11 +231,13 @@ check_exactly_one.launches = 0
 def _variable_or_update_plain(var_to_chk: torch.Tensor,
                               exactly_one: torch.Tensor, known: torch.Tensor,
                               errors: torch.Tensor, slot: int) -> None:
-    """Plain version of K3 (erasure_bp.py:231-236, 279-288)."""
-    acc = exactly_one.index_select(0, var_to_chk[:, 0])
-    for j in range(1, var_to_chk.shape[1]):
-        acc |= exactly_one.index_select(0, var_to_chk[:, j])
-    known |= acc
+    """Plain version of K3 (erasure_bp.py:231-236, 279-288), per code of
+    a batch."""
+    acc = _gather_rows(exactly_one, var_to_chk, 0)
+    for j in range(1, var_to_chk.shape[-1]):
+        acc |= _gather_rows(exactly_one, var_to_chk, j)
+    num = var_to_chk.shape[0] if var_to_chk.dim() == 3 else 1
+    known |= _code_major_to_plane(acc, num)
     errors[slot] = popcount(~known).sum(dtype=torch.int64).to(torch.int32)
 
 
@@ -194,14 +246,15 @@ def variable_or_update(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
                        slot: int) -> None:
     """``known |= OR_j exactly_one[var_to_chk[:, j]]`` in place, and
     ``errors[slot]`` = erasures left in ``known`` (``errors[slot]`` must
-    be 0 on entry)."""
-    check_int32("var_to_chk", var_to_chk, 2)
+    be 0 on entry).  ``var_to_chk`` is int32[n, dv] or a batch's
+    int32[C, n, dv], as in :func:`check_exactly_one`."""
     check_int32("known", known, 2)
     check_int32("exactly_one", exactly_one, 2)
     check_int32("errors", errors, 1)
+    wpc = _words_per_code("var_to_chk", var_to_chk, known.shape[1])
     if exactly_one.shape[1] != known.shape[1]:
         raise ValueError("exactly_one and known differ in words")
-    if var_to_chk.shape[0] != known.shape[0]:
+    if var_to_chk.shape[-2] != known.shape[0]:
         raise ValueError("var_to_chk and known differ in rows")
     if not 0 <= slot < errors.shape[0]:
         raise ValueError(f"slot {slot} outside errors[{errors.shape[0]}]")
@@ -209,10 +262,10 @@ def variable_or_update(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
         _variable_or_update_plain(var_to_chk, exactly_one, known, errors,
                                   slot)
         return
-    n, dv = var_to_chk.shape
+    n, dv = var_to_chk.shape[-2:]
     launch("ldpc_variable_or_update", known.device, known.data_ptr(),
            exactly_one.data_ptr(), var_to_chk.data_ptr(),
-           errors[slot:].data_ptr(), n, dv, known.shape[1])
+           errors[slot:].data_ptr(), n, dv, known.shape[1], wpc)
     variable_or_update.launches += 1
 
 
@@ -248,7 +301,8 @@ def _decode_allzero(code: LDPCCode, erased: torch.Tensor, max_iters: int,
 
 def bp_decode_packed_allzero(code: LDPCCode, erased: torch.Tensor,
                              max_iters: int) -> PackedBPResult:
-    """Decode 32*W all-zero-codeword trials at once on one code.
+    """Decode 32*W all-zero-codeword trials at once on one code, or on a
+    batch of C codes (word w on code ``w // (W // C)``).
 
     ``erased`` is int32[n, W] (1 = erased), e.g. from
     :func:`..channels.bec_packed_channel`.  On CUDA tensors every pass is

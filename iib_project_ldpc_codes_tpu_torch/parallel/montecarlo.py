@@ -1,17 +1,26 @@
-"""Batched Monte Carlo BER/FER engine, fixed-code BEC erasure BP.
+"""Batched Monte Carlo BER/FER engine, BEC erasure BP.
 
 The JAX package's engine (``iib_project_ldpc_codes_tpu/parallel/
-montecarlo.py``) for its main path: each chunk decodes ``cfg.batch``
-trials bit-packed on one device, and the host loop applies the reference's
-stopping rules at chunk granularity (>= max_block_errors block errors /
-num_tests / wall clock, parallel_simulator.py:198).
+montecarlo.py``) for its BEC+bp all-zero path: each chunk decodes
+``cfg.batch`` trials bit-packed on one device, and the host loop applies
+the reference's stopping rules at chunk granularity (>= max_block_errors
+block errors / num_tests / wall clock, parallel_simulator.py:198).  Two
+code modes:
+
+  * ``fixed`` (reference mode 3): one code for the whole run.
+  * ``ensemble`` (reference mode 0, the default): every chunk samples
+    ``codes_per_chunk`` fresh codes (``models/ensemble.py::sample_codes``,
+    K5 on the GPU) and decodes them in one batched call, each code on its
+    own ``32 * words_per_code`` trials, as the JAX engine's
+    ``_fresh_codes_chunk`` (montecarlo.py:268-299).
 
 Seeding: chunk ``c`` draws its erasures with Philox key ``philox_key(seed)``
-and offset ``c`` (``ops/bitops.py`` gives the full scheme), so any run is
-reproducible from (seed, batch) alone, on the CPU and the GPU alike, and a
-resumed run is bit-identical to an uninterrupted one.  This replaces the
-JAX engine's ``fold_in(key(seed), c)``; the two engines draw different
-erasures and agree in distribution.
+and offset ``c`` (``ops/bitops.py`` gives the full scheme), and in ensemble
+mode its codes from the sampler's own Philox stream of (seed, c), so any
+run is reproducible from (seed, batch, codes_per_chunk) alone, on the CPU
+and the GPU alike, and a resumed run is bit-identical to an uninterrupted
+one.  This replaces the JAX engine's ``fold_in(key(seed), c)``; the two
+engines draw different erasures and codes and agree in distribution.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models.code import LDPCCode
+from ..models.ensemble import sample_codes
 from ..ops.bitops import pack_bits
 from ..ops.channels import bec_packed_channel
 from ..ops.erasure_bp import bp_decode_packed_allzero
@@ -42,6 +52,10 @@ class ChunkStats:
     per-trial final error counts, for the block-level BER variance -- is
     float64, exact below 2^53, where the JAX engine sums it in float32
     (montecarlo.py:129): the two agree to float32's ~1e-7 relative.
+    ``code_bit_errors_sq``, ensemble mode only, is the sum over the
+    chunk's codes of (per-code counted bit errors)^2: the cluster second
+    moment of the clustered BER interval (JAX ``_reduce_code_stats``,
+    montecarlo.py:288-299), float64 as well.
     """
 
     error_totals: torch.Tensor   # int32[iterations+1], counted trials
@@ -49,11 +63,14 @@ class ChunkStats:
     bit_errors: torch.Tensor     # int64 scalar (final erasures, counted)
     excluded: torch.Tensor       # int64 scalar (expurgation-gated trials)
     bit_errors_sq: torch.Tensor  # float64 scalar
+    code_bit_errors_sq: Optional[torch.Tensor] = None  # float64 scalar
 
 
 def _bp_chunk(code: LDPCCode, erased: torch.Tensor, *, iterations: int,
               expurgation: Optional[int]) -> ChunkStats:
-    """Chunk statistics of the all-zero decode of ``erased`` int32[n, W].
+    """Chunk statistics of the all-zero decode of ``erased`` int32[n, W]
+    on one code, or on a batch of C codes (word w on code ``w // (W //
+    C)``, which also records ``code_bit_errors_sq``).
 
     With ``expurgation = s``, trials with <= s final erasures are dropped
     from *all* statistics while still counted as trials
@@ -64,33 +81,48 @@ def _bp_chunk(code: LDPCCode, erased: torch.Tensor, *, iterations: int,
     """
     res = bp_decode_packed_allzero(code, erased, iterations)
     final = res.bit_errors.to(torch.int64)                   # [B]
-    if expurgation is None:
-        return ChunkStats(
-            error_totals=res.error_totals,
-            block_errors=(final > 0).sum(),
-            bit_errors=final.sum(),
-            excluded=torch.zeros((), dtype=torch.int64, device=final.device),
-            bit_errors_sq=(final.to(torch.float64) ** 2).sum())
-    include = final > expurgation
-    include_words = pack_bits(include[None, :])[0]           # int32[W]
-    res2 = bp_decode_packed_allzero(code, erased & include_words[None, :],
-                                    iterations)
+    error_totals = res.error_totals
+    include = torch.ones_like(final, dtype=torch.bool)
+    if expurgation is not None:
+        include = final > expurgation
+        include_words = pack_bits(include[None, :])[0]       # int32[W]
+        error_totals = bp_decode_packed_allzero(
+            code, erased & include_words[None, :], iterations).error_totals
     gated = final * include
+    code_sq = None
+    if code.batched:
+        per_code = gated.reshape(code.num_codes, -1).sum(1)
+        code_sq = (per_code.to(torch.float64) ** 2).sum()
     return ChunkStats(
-        error_totals=res2.error_totals,
+        error_totals=error_totals,
         block_errors=(include & (final > 0)).sum(),
         bit_errors=gated.sum(),
         excluded=(~include).sum(),
-        bit_errors_sq=(gated.to(torch.float64) ** 2).sum())
+        bit_errors_sq=(gated.to(torch.float64) ** 2).sum(),
+        code_bit_errors_sq=code_sq)
+
+
+def _ensemble_layout(cfg: SimulationConfig) -> tuple[int, int]:
+    """(codes per chunk, words per code) of ensemble mode: the JAX
+    engine's rule (montecarlo.py:322-331) on one device, in one place so
+    the chunk and the cluster-size accounting (trials_per_code = 32 *
+    words per code) never disagree."""
+    words = cfg.batch // 32
+    num_codes = max(cfg.codes_per_chunk, 1)
+    while words % num_codes:
+        num_codes -= 1
+    return num_codes, words // num_codes
 
 
 def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
                   device="cuda") -> Callable[[int], ChunkStats]:
     """``fn(chunk_idx) -> ChunkStats`` decoding ``cfg.batch`` trials.
 
-    The port runs fixed-code BEC erasure BP with all-zero transmit (the
-    reference's mode 3); every other combination raises, naming the
-    ROADMAP item that ports it.
+    The port runs BEC erasure BP with all-zero transmit on a fixed code
+    (the reference's mode 3) or on fresh regular codes per chunk (mode 0);
+    every other combination raises, naming the ROADMAP item that ports it.
+    ``code`` is the fixed code; ensemble mode ignores it, as the JAX
+    engine does.
     """
     pair = (cfg.channel, cfg.decoder)
     if pair in (("BEC", "ml"), ("BEC", "both")):
@@ -109,9 +141,6 @@ def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
     if cfg.irregular:
         raise NotImplementedError(
             "irregular codes are not ported yet (ROADMAP queue 1 item 8)")
-    if cfg.code_mode != "fixed":
-        raise NotImplementedError(
-            "ensemble code mode is not ported yet (ROADMAP queue 1 item 7)")
     if cfg.transmit != "zero":
         raise NotImplementedError(
             "random-codeword transmit is not ported yet (ROADMAP queue 1 "
@@ -119,6 +148,20 @@ def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
     if cfg.edge_sharded:
         raise NotImplementedError(
             "edge sharding is not ported yet (ROADMAP queue 1 item 13)")
+    words = cfg.batch // 32
+    if cfg.code_mode == "ensemble":
+        num_codes, _ = _ensemble_layout(cfg)
+
+        def ensemble_chunk(chunk_idx: int) -> ChunkStats:
+            codes = sample_codes(cfg.seed, chunk_idx, num_codes, cfg.n,
+                                 cfg.dv, cfg.dc, cfg.sampler, device=device)
+            erased = bec_packed_channel(cfg.channel_param, (cfg.n, words),
+                                        seed=cfg.seed, offset=chunk_idx,
+                                        device=device)
+            return _bp_chunk(codes, erased, iterations=cfg.iterations,
+                             expurgation=cfg.expurgation)
+
+        return ensemble_chunk
     if code is None:
         raise ValueError("fixed code_mode requires a code")
     if not isinstance(code, LDPCCode):
@@ -129,7 +172,6 @@ def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
         raise ValueError(f"code (n, dv, dc) = {(code.n, code.dv, code.dc)} "
                          f"!= config {(cfg.n, cfg.dv, cfg.dc)}")
     code = code.to(device)
-    words = cfg.batch // 32
 
     def chunk(chunk_idx: int) -> ChunkStats:
         erased = bec_packed_channel(cfg.channel_param, (cfg.n, words),
@@ -150,7 +192,9 @@ def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
     the three stopping rules.  With ``cfg.checkpoint_path`` set, the
     counters are snapshotted every ``cfg.checkpoint_every_chunks`` chunks
     and at the end, and a run with the same (seed, batch) resumes from the
-    snapshot.
+    snapshot.  Ensemble runs also accumulate the per-code cluster moment
+    ``code_bit_errors_sq``, kept only when the whole run used one cluster
+    size (``trials_per_code``), as in the JAX engine.
     """
     chunk_fn = make_chunk_fn(cfg, code, device)
 
@@ -159,7 +203,10 @@ def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
     chunk_idx = 0
     error_totals = np.zeros(cfg.iterations + 1, np.int64)
     block_errors = bit_errors = excluded = 0
-    bit_errors_sq = 0.0
+    bit_errors_sq = code_bit_errors_sq = 0.0
+    cluster_ok = True
+    ensemble = cfg.code_mode == "ensemble"
+    trials_per_code = 32 * _ensemble_layout(cfg)[1] if ensemble else None
     stopped_by = "num_tests"
 
     if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
@@ -173,6 +220,12 @@ def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
             bit_errors = ck["bit_errors"]
             excluded = ck["excluded"]
             bit_errors_sq = ck.get("bit_errors_sq", 0.0)
+            code_bit_errors_sq = ck.get("code_bit_errors_sq", 0.0)
+            # the cluster moment means something only if the whole run
+            # accumulated it at one cluster size
+            if ensemble and ("code_bit_errors_sq" not in ck or
+                             ck.get("trials_per_code") != trials_per_code):
+                cluster_ok = False
 
     def write_checkpoint():
         tmp = cfg.checkpoint_path + ".tmp"
@@ -182,7 +235,12 @@ def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
                            error_totals=error_totals.tolist(),
                            block_errors=block_errors,
                            bit_errors=bit_errors, excluded=excluded,
-                           bit_errors_sq=bit_errors_sq), f)
+                           bit_errors_sq=bit_errors_sq,
+                           code_bit_errors_sq=code_bit_errors_sq,
+                           # null once the moment mixes cluster sizes, so
+                           # a later resume drops it too
+                           trials_per_code=(trials_per_code if cluster_ok
+                                            else None)), f)
         os.replace(tmp, cfg.checkpoint_path)
 
     while trials < cfg.num_tests:
@@ -192,6 +250,8 @@ def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
         bit_errors += int(stats.bit_errors)
         excluded += int(stats.excluded)
         bit_errors_sq += float(stats.bit_errors_sq)
+        if stats.code_bit_errors_sq is not None:
+            code_bit_errors_sq += float(stats.code_bit_errors_sq)
         trials += cfg.batch
         chunk_idx += 1
         if cfg.checkpoint_path and \
@@ -219,8 +279,9 @@ def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
         error_counts_per_iteration=error_totals.tolist(),
         excluded_trials=excluded,
         bit_errors_sq=bit_errors_sq,
-        code_bit_errors_sq=None,
-        trials_per_code=None,
+        code_bit_errors_sq=(code_bit_errors_sq if ensemble and cluster_ok
+                            else None),
+        trials_per_code=trials_per_code if cluster_ok else None,
         elapsed_seconds=elapsed,
         timestamp=datetime.now().strftime("%d-%m-%Y-%H-%M-%S"),
         stopped_by=stopped_by,

@@ -17,8 +17,8 @@ The reference's positional argv (parallel_simulator.py:403-445:
   mode 4 -> decoder="ml",   code_mode="fixed"
   mode 5 -> decoder="both", code_mode="fixed"
 
-The port runs mode 3 so far; the Monte Carlo engine names the ROADMAP item
-of every other combination.
+The port runs modes 0 and 3 so far; the Monte Carlo engine names the
+ROADMAP item of every other combination.
 """
 
 from __future__ import annotations

@@ -209,5 +209,6 @@ def test_import_builds_nothing():
     assert build.source_files(), "no CUDA sources found"
     names = {p.name for p in build.source_files()}
     assert {"bernoulli_packed.cu", "check_exactly_one.cu",
-            "variable_or_update.cu", "per_trial_counts.cu"} <= names
+            "variable_or_update.cu", "per_trial_counts.cu",
+            "sample_regular_codes.cu"} <= names
     assert len(build.source_hash()) == 16

@@ -8,14 +8,16 @@ not installed; there, skip the repository's conftest (which imports JAX):
 
 The shapes are ragged on purpose (word counts that are not multiples of
 32, row counts below one block of walkers, sizes that do not fill a
-block), so that every kernel's edge masking is exercised; the headline
-shape is covered by chip_smoke.py.
+block, words per code of 1, 3 and 24), so that every kernel's edge masking
+is exercised; the headline shapes are covered by chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from iib_project_ldpc_codes_tpu_torch.models import ensemble
+from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
 from iib_project_ldpc_codes_tpu_torch.models.ensemble import sample_code
 from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
 from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
@@ -121,4 +123,75 @@ def test_run_simulation_gpu_equals_cpu(cuda, expurgation):
     for field in ("num_trials", "block_errors", "bit_errors",
                   "excluded_trials", "bit_errors_sq",
                   "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+def _assert_same_codes(got, want):
+    for name in ("chk_to_var", "var_to_edge", "var_to_chk"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+
+
+@pytest.mark.parametrize("method, n, num", [
+    ("raw", 12, 3), ("raw", 1002, 40), ("repair", 96, 5),
+    ("repair", 2000, 64), ("reject", 60, 4), ("reject", 300, 8)])
+def test_sampler_kernel_equals_plain(cuda, method, n, num):
+    got = ensemble.sample_codes(9, 5, num, n, 3, 6, method, device=cuda)
+    assert got.chk_to_var.is_cuda and got.batched
+    _assert_same_codes(got, ensemble.sample_codes(9, 5, num, n, 3, 6,
+                                                  method))
+    if method != "raw":
+        assert validate_code(got) == (True, "ok")
+
+
+@pytest.mark.parametrize("method", ["raw", "repair", "reject"])
+def test_sampler_kernel_global_memory_path(cuda, method, monkeypatch):
+    # a permutation too large for shared memory lives in a global scratch
+    # buffer; force that path at a small size
+    monkeypatch.setattr(ensemble, "SHARED_PERM_MAX_SOCKETS", 0)
+    got = ensemble.sample_codes(3, 1, 6, 200, 3, 6, method, device=cuda)
+    _assert_same_codes(got, ensemble.sample_codes(3, 1, 6, 200, 3, 6,
+                                                  method))
+
+
+@pytest.mark.parametrize("wpc", [1, 3, 24])
+@pytest.mark.parametrize("eps", [0.3, 0.45])
+def test_batched_check_and_variable_kernels_equal_plain(cuda, wpc, eps):
+    n, num = 600, 7
+    codes = ensemble.sample_codes(1, 0, num, n, 3, 6, "raw")
+    erased = bitops.bernoulli_packed(eps, (n, num * wpc), seed=wpc)
+    known = ~erased
+    ex_cpu = erasure_bp.check_exactly_one(codes.chk_to_var, known)
+    gpu = codes.to(cuda)
+    ex_gpu = erasure_bp.check_exactly_one(gpu.chk_to_var, known.to(cuda))
+    assert torch.equal(ex_gpu.cpu(), ex_cpu)
+    errors_cpu = torch.zeros(2, dtype=torch.int32)
+    erasure_bp.variable_or_update(codes.var_to_chk, ex_cpu, known,
+                                  errors_cpu, 1)
+    known_gpu = (~erased).to(cuda)
+    errors_gpu = torch.zeros(2, dtype=torch.int32, device=cuda)
+    erasure_bp.variable_or_update(gpu.var_to_chk, ex_gpu, known_gpu,
+                                  errors_gpu, 1)
+    assert torch.equal(known_gpu.cpu(), known)
+    assert torch.equal(errors_gpu.cpu(), errors_cpu)
+    # a batch of one code equals the single-code call
+    one = gpu.select(0)
+    plane = known_gpu[:, :wpc].contiguous()
+    assert torch.equal(
+        erasure_bp.check_exactly_one(one.chk_to_var[None], plane),
+        erasure_bp.check_exactly_one(one.chk_to_var, plane))
+
+
+@pytest.mark.parametrize("sampler, expurgation", [
+    ("repair", None), ("raw", 1), ("reject", None)])
+def test_ensemble_run_gpu_equals_cpu(cuda, sampler, expurgation):
+    cfg = SimulationConfig(channel_param=0.42, n=504, code_mode="ensemble",
+                           iterations=40, batch=640, num_tests=1920, seed=4,
+                           codes_per_chunk=10, sampler=sampler,
+                           max_block_errors=10**9, expurgation=expurgation)
+    gpu = mc.run_simulation(cfg, device="cuda")
+    cpu = mc.run_simulation(cfg, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
+                  "trials_per_code", "error_counts_per_iteration"):
         assert getattr(gpu, field) == getattr(cpu, field), field
