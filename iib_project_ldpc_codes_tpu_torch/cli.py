@@ -13,8 +13,14 @@ Two invocation styles, as in the JAX package:
      the 8th argument is the code number).  Modes 1, 2, 4 and 5 (ML)
      raise, naming their ROADMAP item.
 
-  2. A JSON config:
+  2. A JSON config (``SimulationConfig`` fields, the JAX package's JSON):
        python -m iib_project_ldpc_codes_tpu_torch.cli --config cfg.json
+
+     Beyond the positional modes this runs BSC Gallager-A/B (``"channel":
+     "BSC", "decoder": "gallager"``, ``gallager_threshold`` null for A)
+     and irregular ensembles (``"lam"``, ``"rho"``: edge-perspective
+     degree fractions) with erasure BP or Gallager, in either code mode
+     (``"code_mode": "ensemble"`` or ``"fixed"``).
 
 Optional flags (either style):
   --device=cuda|cpu      where to decode (default cuda; without a GPU the

@@ -79,31 +79,37 @@ def _first_duplicate(perm: torch.Tensor, dv: int, dc: int) -> int:
     return int(first[0]) if bool(dup[0]) else -1
 
 
+def match_on_host(generator: torch.Generator, num_sockets: int,
+                  first_duplicate, method: str) -> torch.Tensor:
+    """A socket permutation int64[E] on the host, conditioned on
+    simplicity by ``method`` (``first_duplicate(perm)``: the offending
+    socket index or -1)."""
+    perm = torch.randperm(num_sockets, generator=generator)
+    if method == "reject":
+        tries = 0
+        while first_duplicate(perm) >= 0 and tries < MAX_REJECT_TRIES:
+            perm = torch.randperm(num_sockets, generator=generator)
+            tries += 1
+    elif method == "repair":
+        for _ in range(MAX_REPAIR_PASSES):
+            s = first_duplicate(perm)
+            if s < 0:
+                break
+            j = int(torch.randint(0, num_sockets, (), generator=generator))
+            perm[s], perm[j] = perm[j].clone(), perm[s].clone()
+    return perm
+
+
 def sample_check_table(generator: torch.Generator, n: int, dv: int, dc: int,
                        method: str = "repair") -> torch.Tensor:
     """Sample a (dv,dc)-regular check->variable table, int32[m, dc] on
     the CPU; simple unless ``method == "raw"``."""
     if (n * dv) % dc != 0:
         raise ValueError("n*dv must be divisible by dc")
-    if method not in ("reject", "repair", "raw"):
+    if method not in METHODS:
         raise ValueError(f"unknown sampling method {method!r}")
-    E = n * dv
-    perm = torch.randperm(E, generator=generator)
-    if method == "reject":
-        tries = 0
-        while _first_duplicate(perm, dv, dc) >= 0 and \
-                tries < MAX_REJECT_TRIES:
-            perm = torch.randperm(E, generator=generator)
-            tries += 1
-    elif method == "repair":
-        passes = 0
-        while passes < MAX_REPAIR_PASSES:
-            s = _first_duplicate(perm, dv, dc)
-            if s < 0:
-                break
-            j = int(torch.randint(0, E, (), generator=generator))
-            perm[s], perm[j] = perm[j].clone(), perm[s].clone()
-            passes += 1
+    perm = match_on_host(generator, n * dv,
+                         lambda p: _first_duplicate(p, dv, dc), method)
     return _perm_to_checks(perm, dv, dc)
 
 
@@ -122,17 +128,23 @@ def code_seed(code_number: int, n: int, dv: int, dc: int) -> int:
                           "little") & ((1 << 63) - 1)
 
 
-def code_for_config(cfg, device="cpu") -> LDPCCode:
-    """Deterministic fixed code keyed by (code_number, n, dv, dc).
+def code_for_config(cfg, device="cpu"):
+    """Deterministic fixed code keyed by (code_number, n, dv, dc), or by
+    (code_number, n, lam, rho) for an irregular configuration (an
+    :class:`.irregular.IrregularLDPCCode`).
 
     Regenerating from the seed is exact, so nothing needs storing.  The
     code differs from the JAX package's ``code_for_config`` for the same
-    numbers (another generator); irregular configurations come later.
+    numbers (another generator).
     """
     if cfg.lam is not None:
-        raise NotImplementedError(
-            "irregular (lam, rho) codes are not ported yet "
-            "(ROADMAP queue 1 item 8)")
+        from . import irregular
+
+        g = torch.Generator().manual_seed(irregular.irregular_code_seed(
+            cfg.code_number, cfg.n, cfg.lam, cfg.rho))
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(cfg.n, cfg.lam,
+                                                            cfg.rho)
+        return irregular.sample_irregular_code(g, spec, cfg.sampler, device)
     g = torch.Generator().manual_seed(
         code_seed(cfg.code_number, cfg.n, cfg.dv, cfg.dc))
     return sample_code(g, cfg.n, cfg.dv, cfg.dc, cfg.sampler, device=device)
@@ -203,14 +215,15 @@ def _first_duplicates(perm: torch.Tensor, dv: int, dc: int
     return first < num_sockets, first
 
 
-def _repair_plain(perm: torch.Tensor, key, codes: torch.Tensor, chunk: int,
-                  dv: int, dc: int,
-                  max_passes: int = MAX_REPAIR_PASSES) -> torch.Tensor:
+def _repair_with(perm: torch.Tensor, key, codes: torch.Tensor, chunk: int,
+                 first_duplicates,
+                 max_passes: int = MAX_REPAIR_PASSES) -> torch.Tensor:
     """``repair`` on int64[C, E] in place: every code with a duplicate
-    swaps its first offender with ``mulhi64(draw p, E)`` in pass p, until
-    it is simple or ``max_passes`` passes ran."""
+    swaps its first offender (``first_duplicates(perm) -> (has one,
+    socket index)``) with ``mulhi64(draw p, E)`` in pass p, until it is
+    simple or ``max_passes`` passes ran."""
     num_sockets = perm.shape[1]
-    active, first = _first_duplicates(perm, dv, dc)
+    active, first = first_duplicates(perm)
     rows = torch.nonzero(active).reshape(-1)
     for p in range(max_passes):
         if rows.numel() == 0:
@@ -222,20 +235,28 @@ def _repair_plain(perm: torch.Tensor, key, codes: torch.Tensor, chunk: int,
         at_s = perm[rows, s].clone()
         perm[rows, s] = perm[rows, j]
         perm[rows, j] = at_s
-        dup, first_sub = _first_duplicates(perm[rows], dv, dc)
+        dup, first_sub = first_duplicates(perm[rows])
         first[rows] = first_sub
         rows = rows[dup]
     return perm
 
 
-def _reject_plain(key, codes: torch.Tensor, chunk: int, num_sockets: int,
-                  dv: int, dc: int) -> torch.Tensor:
+def _repair_plain(perm: torch.Tensor, key, codes: torch.Tensor, chunk: int,
+                  dv: int, dc: int,
+                  max_passes: int = MAX_REPAIR_PASSES) -> torch.Tensor:
+    """:func:`_repair_with` for (dv,dc)-regular rows."""
+    return _repair_with(perm, key, codes, chunk,
+                        lambda p: _first_duplicates(p, dv, dc), max_passes)
+
+
+def _reject_with(key, codes: torch.Tensor, chunk: int, num_sockets: int,
+                 first_duplicates) -> torch.Tensor:
     """``reject`` for int64[C] codes: attempt a* = the first simple
-    attempt, or MAX_REJECT_TRIES when none is, as the sequential loop
-    (draw 0, redraw while a duplicate remains and fewer than
-    MAX_REJECT_TRIES redraws ran) picks it.  Attempts are drawn in
-    blocks that double (128, 256, ...) within an element budget, all
-    pending codes at once."""
+    attempt (``first_duplicates`` finds none), or MAX_REJECT_TRIES when
+    none is, as the sequential loop (draw 0, redraw while a duplicate
+    remains and fewer than MAX_REJECT_TRIES redraws ran) picks it.
+    Attempts are drawn in blocks that double (128, 256, ...) within an
+    element budget, all pending codes at once."""
     out = torch.empty((codes.shape[0], num_sockets), dtype=torch.int64,
                       device=codes.device)
     pending = torch.arange(codes.shape[0], device=codes.device)
@@ -248,7 +269,7 @@ def _reject_plain(key, codes: torch.Tensor, chunk: int, num_sockets: int,
         perms = _shuffle_plain(key, codes[pending].repeat_interleave(block),
                                chunk, attempts.repeat(pending.numel()),
                                num_sockets)
-        dup, _ = _first_duplicates(perms, dv, dc)
+        dup, _ = first_duplicates(perms)
         take = ~dup.reshape(-1, block)
         if start + block == MAX_REJECT_TRIES + 1:
             take[:, -1] = True          # the cap keeps the last draw
@@ -302,7 +323,8 @@ def _sample_codes_plain(seed: int, chunk: int, num: int, n: int, dv: int,
     codes = torch.arange(num, dtype=torch.int64, device=device)
     num_sockets = n * dv
     if method == "reject":
-        perm = _reject_plain(key, codes, chunk, num_sockets, dv, dc)
+        perm = _reject_with(key, codes, chunk, num_sockets,
+                            lambda p: _first_duplicates(p, dv, dc))
     else:
         perm = _shuffle_plain(key, codes, chunk, torch.zeros_like(codes),
                               num_sockets)

@@ -25,6 +25,12 @@ exact: each code's count never increases, so the sum is unchanged only
 when every code's count is unchanged, and on the BEC an unchanged count is
 an absorbing fixed point.  ``error_totals`` is then the sum of the JAX
 package's per-code (vmapped) arrays, tails included.
+
+Irregular codes (:class:`..models.irregular.IrregularLDPCCode`, one or a
+batch) decode through the same K2/K3 on a phantom view of their padded
+tables (:func:`bp_decode_packed_allzero_irregular`): the planes gain the
+phantom variable's row n, never erased, so it never blocks a check, the
+phantom check's summary is zero, and K3 counts no erasure for it.
 """
 
 from __future__ import annotations
@@ -320,3 +326,74 @@ def bp_decode_packed_allzero_plain(code: LDPCCode, erased: torch.Tensor,
     return _decode_allzero(code, erased, max_iters, _check_exactly_one_plain,
                            _variable_or_update_plain,
                            _per_trial_counts_plain)
+
+
+# ---------------------------------------------------------------------------
+# Irregular codes: K2/K3 unchanged on the phantom-padded tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _PhantomView:
+    """What the packed decode reads of a code (duck-typed
+    :class:`LDPCCode`): ``n`` counts the phantom row; K2 and K3 take the
+    check and variable counts from the table shapes."""
+
+    chk_to_var: torch.Tensor   # int32[(C,) m+1, dc_max]
+    var_to_chk: torch.Tensor   # int32[(C,) n+1, dv_max]
+    n: int
+
+
+def _phantom_view(code) -> _PhantomView:
+    return _PhantomView(chk_to_var=code.chk_to_var,
+                        var_to_chk=code.var_to_chk, n=code.n + 1)
+
+
+def _pad_phantom_row(plane: torch.Tensor) -> torch.Tensor:
+    """Append the phantom variable's plane (all zero: not erased)."""
+    return torch.cat([plane, plane.new_zeros((1,) + plane.shape[1:])])
+
+
+def _strip_phantom(res: PackedBPResult) -> PackedBPResult:
+    return dataclasses.replace(res, known=res.known[:-1])
+
+
+def bp_decode_packed_allzero_irregular(code, erased: torch.Tensor,
+                                       max_iters: int) -> PackedBPResult:
+    """:func:`bp_decode_packed_allzero` for an irregular code or a batch
+    of them; ``erased`` and the result's planes are [n, W]."""
+    return _strip_phantom(bp_decode_packed_allzero(
+        _phantom_view(code), _pad_phantom_row(erased), max_iters))
+
+
+def bp_decode_irregular(code, channel_output: torch.Tensor, max_iters: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Single-codeword {0,1,2} oracle for one irregular code, the
+    semantics of :func:`bp_decode`.  Unlike the packed path it masks the
+    variable sockets: the all-known phantom check would otherwise send
+    (vacuously valid) zero messages."""
+    channel_output = channel_output.to(torch.int32)
+    pad = channel_output.new_zeros(1)
+    known = torch.cat([channel_output != ERASURE, pad == 0])
+    val = torch.where(known, torch.cat([channel_output, pad]), 0)
+    chk, sock = code.chk_to_var.long(), code.var_to_sock.long()
+
+    def step(_it: int) -> int:
+        nonlocal val, known
+        row_val = val[chk]                                  # [m+1, dc_max]
+        row_kn = known[chk].to(torch.int32)
+        cnt = row_kn.sum(dim=1, keepdim=True)
+        masked = row_val & row_kn
+        xor_all = masked.sum(dim=1, keepdim=True) & 1      # XOR of 0/1
+        others_known = (cnt - row_kn) == (code.dc_max - 1)
+        mcv_val = xor_all ^ masked
+        e_valid = others_known.reshape(-1)[sock] & code.var_mask
+        e_val = mcv_val.reshape(-1)[sock]
+        any_valid = e_valid.any(dim=1)
+        adopt = (e_valid & (e_val == 1)).any(dim=1).to(val.dtype)
+        val = torch.where(known, val, adopt * any_valid.to(val.dtype))
+        known = known | any_valid
+        return int((~known).sum())
+
+    errors, it = _run_to_fixed_point(step, int((~known).sum()), max_iters)
+    decoded = torch.where(known, val, ERASURE)[:-1]
+    return decoded, torch.tensor(errors, dtype=torch.int32), it

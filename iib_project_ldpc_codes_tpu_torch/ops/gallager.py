@@ -1,0 +1,491 @@
+"""Gallager-A/B hard-decision decoding for the BSC (bit-packed).
+
+The JAX package's decoder (``iib_project_ldpc_codes_tpu/ops/gallager.py``)
+on the all-zero codeword: ``received`` is int32[n, W], bit set = the
+channel flipped that trial's bit.  One flooding round is two hand-written
+kernels:
+
+  * the check pass :func:`gallager_check` (``csrc/gallager_check.cu``):
+    ``parity[c]`` = XOR of check c's incoming messages; the extrinsic
+    message on a socket is ``parity ^ msg`` (JAX: prefix/suffix XOR);
+  * the variable pass :func:`gallager_variable`
+    (``csrc/gallager_variable.cu``): per socket, flip the channel bit iff
+    at least t of the other incoming messages disagree with it (Gallager-A
+    is t = dv-1), decide by majority over all of them, write the new
+    messages in place, and count the decision errors and the changed
+    message words per code.
+
+Messages live in int32[rows * dc, W], one row per flat check-socket
+position (``var_to_edge`` of a regular code, ``var_to_sock`` of an
+irregular one); padded sockets of an irregular code hold 0.  Irregular
+codes clamp the threshold per degree, t_d = min(b, max(d-1, 1)) (b = None:
+max(d-1, 1)), and decide with d // 2 + 1; regular codes use the raw
+threshold (``threshold > dv-1`` never flips, ``<= 0`` always does).
+
+The loop is a host loop with the JAX ``while_loop`` semantics
+(``_gallager_loop``): stop after ``max_iters`` rounds, or when the decision
+has no error, or when no message changed -- per code of a batch, as the
+JAX engine's vmapped decode stops each code on its own round (a stopped
+code's messages and decision stay frozen while the others run on).
+``error_totals[0]`` is the raw channel error count, its tail after a code
+stops holds that code's final count, and the totals are summed over codes.
+The host reads one flag a round.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional
+
+import torch
+
+from ..kernels import check_int32, launch, use_kernel
+from ..models.irregular import IrregularLDPCCode
+from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
+from .erasure_bp import (_check_packed_batch_bits, _code_major_to_plane,
+                         _pad_phantom_row, _words_per_code)
+
+#: largest variable degree the variable kernel takes (registers per thread)
+MAX_DEGREE = 32
+
+
+def _bitsliced_count_ge(bits: List[torch.Tensor], threshold: int
+                        ) -> torch.Tensor:
+    """A plane whose bit is set iff >= ``threshold`` of the input planes
+    have it set: ripple-carry sum planes, then an MSB-first compare (JAX
+    ``_bitsliced_count_ge``)."""
+    k = len(bits)
+    if threshold <= 0:
+        return torch.full_like(bits[0], -1)
+    if threshold > k:
+        return torch.zeros_like(bits[0])
+    planes: List[torch.Tensor] = []
+    for b in bits:
+        carry = b
+        for i in range(len(planes)):
+            planes[i], carry = planes[i] ^ carry, planes[i] & carry
+        planes.append(carry)
+    ge = torch.zeros_like(bits[0])                 # sum > prefix
+    eq = torch.full_like(bits[0], -1)              # equal so far
+    for i in range(len(planes) - 1, -1, -1):
+        p = planes[i]
+        if (threshold >> i) & 1 == 0:
+            ge = ge | (eq & p)
+            eq = eq & ~p
+        else:
+            eq = eq & p
+    return ge | eq
+
+
+def _flip_at_threshold(others: List[torch.Tensor], threshold
+                       ) -> torch.Tensor:
+    """:func:`_bitsliced_count_ge` with an int threshold, or with a
+    threshold per variable (an int tensor broadcasting against the
+    planes): compute the count planes for every candidate and select, as
+    JAX does for a traced threshold."""
+    if isinstance(threshold, int):
+        return _bitsliced_count_ge(others, threshold)
+    out = torch.where(threshold <= 0, -1, torch.zeros_like(others[0]))
+    for b in range(1, len(others) + 1):
+        out = torch.where(threshold == b, _bitsliced_count_ge(others, b), out)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GallagerResult:
+    """Result of a packed Gallager decode of B = 32*W trials."""
+
+    decided: torch.Tensor       # int32[n, W]; set bit = decision error
+    error_totals: torch.Tensor  # int32[max_iters+1] decision errors
+    iterations: int             # rounds run (a batch: the most of any code)
+    # int32[max_iters+1, B] per-trial error trajectories, with
+    # record="per_trial" only (the expurgated chunks)
+    traj: Optional[torch.Tensor] = None
+
+    @property
+    def bit_errors(self) -> torch.Tensor:
+        """int32[B]: decision errors per trial (K4 on ``decided``)."""
+        return per_trial_counts(self.decided)
+
+    @property
+    def failed(self) -> torch.Tensor:
+        """bool[B]: trials with at least one decision error."""
+        return self.bit_errors > 0
+
+
+# ---------------------------------------------------------------------------
+# Batched row gathers (word w on code w // (W // C), as K2/K3)
+# ---------------------------------------------------------------------------
+
+def _index(rows: torch.Tensor, num: int) -> torch.Tensor:
+    """Flat row index of ``rows`` int64[C, k] in the code-major view
+    [R * C, W // C] of an [R, W] plane (row r, code g -> r*C + g)."""
+    codes = torch.arange(num, device=rows.device)[:, None]
+    return (rows * num + codes).reshape(-1)
+
+
+def _gather(plane: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """[k, W]: row ``rows[g, i]`` of ``plane`` [R, W] in code g's words,
+    for ``rows`` int64[C, k]; or plainly ``plane[rows]`` for int64[k]."""
+    if rows.dim() == 1:
+        return plane.index_select(0, rows)
+    num = rows.shape[0]
+    view = plane.reshape(plane.shape[0] * num, -1)
+    return _code_major_to_plane(view.index_select(0, _index(rows, num)), num)
+
+
+def _scatter(plane: torch.Tensor, rows: torch.Tensor, src: torch.Tensor
+             ) -> None:
+    """Inverse of :func:`_gather`: ``plane[rows[g, i]]`` in code g's words
+    = ``src[i]`` in code g's words, in place."""
+    if rows.dim() == 1:
+        plane.index_copy_(0, rows, src)
+        return
+    num = rows.shape[0]
+    wpc = src.shape[1] // num
+    code_major = src.reshape(src.shape[0], num, wpc).transpose(0, 1)
+    plane.view(plane.shape[0] * num, wpc).index_copy_(
+        0, _index(rows, num), code_major.reshape(-1, wpc))
+
+
+def _per_word(x: torch.Tensor, words: int) -> torch.Tensor:
+    """Per-variable values ``x`` [n] or [C, n] as a plane [n, 1] or
+    [n, W] (code g's value in its W // C words)."""
+    if x.dim() == 1:
+        return x[:, None]
+    return x.t().repeat_interleave(words // x.shape[0], dim=1)
+
+
+def _initial_messages(chk_to_var: torch.Tensor, channel: torch.Tensor
+                      ) -> torch.Tensor:
+    """int32[rows * dc, W]: every socket's first message is its variable's
+    channel word (``channel`` with the phantom row for irregular codes,
+    which puts 0 on padded sockets)."""
+    return _gather(channel, chk_to_var.long().flatten(-2)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Check pass
+# ---------------------------------------------------------------------------
+
+def _gallager_check_plain(msg: torch.Tensor, dc: int) -> torch.Tensor:
+    """Plain version of the check kernel."""
+    planes = msg.reshape(-1, dc, msg.shape[1])
+    parity = planes[:, 0].clone()
+    for j in range(1, dc):
+        parity ^= planes[:, j]
+    return parity
+
+
+def gallager_check(msg: torch.Tensor, dc: int) -> torch.Tensor:
+    """int32[rows, W]: the XOR of each check's ``dc`` message rows of
+    ``msg`` int32[rows * dc, W]."""
+    check_int32("msg", msg, 2)
+    if dc < 1 or msg.shape[0] % dc:
+        raise ValueError(f"{msg.shape[0]} message rows do not split into "
+                         f"checks of {dc}")
+    if not use_kernel(msg):
+        return _gallager_check_plain(msg, dc)
+    rows, words = msg.shape[0] // dc, msg.shape[1]
+    parity = torch.empty((rows, words), dtype=torch.int32, device=msg.device)
+    launch("ldpc_gallager_check", msg.device, msg.data_ptr(),
+           parity.data_ptr(), rows, dc, words)
+    gallager_check.launches += 1
+    return parity
+
+
+gallager_check.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Variable pass
+# ---------------------------------------------------------------------------
+
+def _gallager_variable_plain(msg, parity, channel, var_to_sock, active,
+                             decided, counts, *, dc: int, pad_pos: int,
+                             threshold: int, clamp: bool) -> None:
+    """Plain version of the variable kernel, in JAX's bit-sliced form:
+    masked disagreement planes, per-variable thresholds selected over the
+    candidate counts, majority by the same count."""
+    n, words = channel.shape
+    num = active.shape[0]
+    table = var_to_sock[..., :n, :].long()             # [(C,) n, dv]
+    real = table < pad_pos
+    dv = table.shape[-1]
+    degree = real.sum(-1)
+    on = active.bool().repeat_interleave(words // num)[None, :]
+    socks = [table[..., p] for p in range(dv)]
+    old = [_gather(msg, s) for s in socks]
+    masks = [torch.where(_per_word(real[..., p], words), -1, 0)
+             .to(torch.int32) for p in range(dv)]
+    dis = [(_gather(parity, s // dc) ^ o ^ channel) & mask
+           for s, o, mask in zip(socks, old, masks)]
+    if clamp:
+        t = _per_word(torch.clamp(degree - 1, min=1).clamp(max=threshold),
+                      words)
+        majority = _per_word(degree // 2 + 1, words)
+    else:
+        t, majority = threshold, dv // 2 + 1
+    changed = torch.zeros(words, dtype=torch.int64, device=msg.device)
+    for p in range(dv):
+        flip = _flip_at_threshold([dis[l] for l in range(dv) if l != p], t)
+        new = torch.where(on, (channel ^ flip) & masks[p], old[p])
+        changed += (new != old[p]).sum(0)
+        _scatter(msg, socks[p], new)
+    dec = torch.where(on, channel ^ _flip_at_threshold(dis, majority),
+                      decided)
+    errors = popcount(dec).sum(0, dtype=torch.int64)
+    decided.copy_(dec)
+    per_code = torch.stack([errors, changed], 1).reshape(num, -1, 2).sum(1)
+    counts += torch.where(active.bool()[:, None], per_code, 0) \
+        .to(torch.int32)
+
+
+def gallager_variable(msg: torch.Tensor, parity: torch.Tensor,
+                      channel: torch.Tensor, var_to_sock: torch.Tensor,
+                      active: torch.Tensor, decided: torch.Tensor,
+                      counts: torch.Tensor, *, dc: int, pad_pos: int,
+                      threshold: int, clamp: bool) -> None:
+    """One variable pass, in place: new messages into ``msg`` int32[rows
+    * dc, W] (socket positions below ``pad_pos`` only), the decision into
+    ``decided`` int32[n, W], and ``counts[g] +=`` (decision errors,
+    changed message words) of code g, for the codes whose ``active[g]`` is
+    nonzero.  ``parity`` is :func:`gallager_check` of ``msg``;
+    ``var_to_sock`` is int32[(C,) >= n, dv]; ``active`` int32[C],
+    ``counts`` int32[C, 2]; ``clamp`` selects the irregular per-degree
+    threshold."""
+    for name, t in (("msg", msg), ("parity", parity), ("channel", channel),
+                    ("decided", decided), ("counts", counts)):
+        check_int32(name, t, 2)
+    check_int32("active", active, 1)
+    n, words = channel.shape
+    wpc = _words_per_code("var_to_sock", var_to_sock, words)
+    num = words // wpc
+    if msg.shape[1] != words or parity.shape[1] != words or \
+            decided.shape != channel.shape:
+        raise ValueError("msg, parity, channel and decided differ in words")
+    if parity.shape[0] * dc != msg.shape[0] or var_to_sock.shape[-2] < n:
+        raise ValueError("msg, parity and var_to_sock do not fit together")
+    if active.shape[0] != num or counts.shape != (num, 2):
+        raise ValueError(f"active and counts must hold {num} codes")
+    if not use_kernel(msg, parity, channel, var_to_sock, active, decided,
+                      counts):
+        _gallager_variable_plain(msg, parity, channel, var_to_sock, active,
+                                 decided, counts, dc=dc, pad_pos=pad_pos,
+                                 threshold=threshold, clamp=clamp)
+        return
+    dv = var_to_sock.shape[-1]
+    if dv > MAX_DEGREE:
+        raise ValueError(f"variable degree {dv} above the kernel's "
+                         f"{MAX_DEGREE}")
+    launch("ldpc_gallager_variable", msg.device, msg.data_ptr(),
+           parity.data_ptr(), channel.data_ptr(), var_to_sock.data_ptr(),
+           active.data_ptr(), decided.data_ptr(), counts.data_ptr(), n,
+           var_to_sock.shape[-2], dv, dc, pad_pos, words, wpc, threshold,
+           int(clamp))
+    gallager_variable.launches += 1
+
+
+gallager_variable.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The decode loop
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Graph:
+    """What the two passes read of a code (one, or a batch)."""
+
+    chk_to_var: torch.Tensor    # [(C,) rows, dc]; irregular: rows = m+1
+    var_to_sock: torch.Tensor   # [(C,) n or n+1, dv] flat socket positions
+    n: int
+    dc: int
+    pad_pos: int                # socket positions >= this are padding
+    irregular: bool             # phantom row, per-degree threshold clamp
+
+    @property
+    def num_codes(self) -> int:
+        return self.chk_to_var.shape[0] if self.chk_to_var.dim() == 3 else 1
+
+
+def _graph(code) -> _Graph:
+    """The passes' view of a regular or an irregular code (one or a
+    batch)."""
+    if isinstance(code, IrregularLDPCCode):
+        return _Graph(chk_to_var=code.chk_to_var,
+                      var_to_sock=code.var_to_sock, n=code.n, dc=code.dc_max,
+                      pad_pos=code.m * code.dc_max, irregular=True)
+    return _Graph(chk_to_var=code.chk_to_var, var_to_sock=code.var_to_edge,
+                  n=code.n, dc=code.dc, pad_pos=code.m * code.dc,
+                  irregular=False)
+
+
+def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
+                   threshold_of: Callable[[int], int],
+                   change_ahead: Callable[[int], bool], record: str,
+                   passes) -> GallagerResult:
+    """Host loop shared by the decoders: the JAX ``_gallager_loop``
+    semantics, per code of a batch (module docstring)."""
+    check, variable, counts_of = passes
+    if record not in ("total", "per_trial"):
+        raise ValueError(f"unknown record mode {record!r}")
+    check_int32("received", received, 2)
+    n, words = received.shape
+    if n != graph.n:
+        raise ValueError(f"received has {n} rows, code n={graph.n}")
+    _check_packed_batch_bits(n, words)
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    _words_per_code("chk_to_var", graph.chk_to_var, words)
+    num = graph.num_codes
+    device = received.device
+    msg = _initial_messages(graph.chk_to_var, _pad_phantom_row(received)
+                            if graph.irregular else received)
+    decided = received.clone()
+    if record == "per_trial":
+        traj = [counts_of(received)]
+        current = traj[0].reshape(num, -1).sum(1, dtype=torch.int64)
+    else:
+        current = popcount(received).sum(0, dtype=torch.int64) \
+            .reshape(num, -1).sum(1)
+    errors = torch.zeros(max_iters + 1, dtype=torch.int64, device=device)
+    errors[0] = current.sum()
+    active = (current > 0).to(torch.int32)
+    counts = torch.zeros((num, 2), dtype=torch.int32, device=device)
+    it = 0
+    while it < max_iters and bool(active.any()):
+        counts.zero_()
+        parity = check(msg, graph.dc)
+        variable(msg, parity, received, graph.var_to_sock, active, decided,
+                 counts, dc=graph.dc, pad_pos=graph.pad_pos,
+                 threshold=threshold_of(it), clamp=graph.irregular)
+        ran = active.bool()
+        current = torch.where(ran, counts[:, 0].long(), current)
+        errors[it + 1] = current.sum()
+        if record == "per_trial":
+            traj.append(counts_of(decided))
+        moving = (counts[:, 1] > 0) | change_ahead(it)
+        active = (ran & (counts[:, 0] > 0) & moving).to(torch.int32)
+        it += 1
+    errors[it + 1:] = current.sum()
+    if record == "total":
+        return GallagerResult(decided=decided,
+                              error_totals=errors.to(torch.int32),
+                              iterations=it)
+    traj = torch.stack(traj + [traj[-1]] * (max_iters - it))
+    return GallagerResult(decided=decided,
+                          error_totals=traj.sum(1, dtype=torch.int64)
+                          .to(torch.int32),
+                          iterations=it, traj=traj)
+
+
+_KERNEL_PASSES = (gallager_check, gallager_variable, per_trial_counts)
+_PLAIN_PASSES = (_gallager_check_plain, _gallager_variable_plain,
+                 _per_trial_counts_plain)
+
+
+def _no_random_transmit(tx_bits) -> None:
+    if tx_bits is not None:
+        raise NotImplementedError(
+            "random-codeword transmit (tx_bits) is not ported yet (ROADMAP "
+            "queue 1 item 11)")
+
+
+def _regular(code, received, max_iters, threshold, schedule, record,
+             tx_bits, passes) -> GallagerResult:
+    _no_random_transmit(tx_bits)
+    dv = code.dv
+    if schedule is None:
+        # any t <= 0 always flips, any t >= dv never does: clip into int32
+        t = min(max(dv - 1 if threshold is None else int(threshold), 0), dv)
+
+        def threshold_of(_it):
+            return t
+
+        def change_ahead(_it):
+            return False
+    else:
+        sched = [int(s) for s in torch.as_tensor(schedule).reshape(-1)
+                 .tolist()]
+        if len(sched) < max_iters:
+            raise ValueError(
+                f"schedule has {len(sched)} entries but max_iters="
+                f"{max_iters}; pass at least max_iters thresholds")
+        sched = [min(max(s, 1), dv - 1) for s in sched[:max_iters]]
+        # a fixed point under the current threshold is not one of the run
+        # while a later entry differs
+        ahead = [False] * max_iters
+        for i in range(max_iters - 2, -1, -1):
+            ahead[i] = ahead[i + 1] or sched[i + 1] != sched[i]
+
+        def threshold_of(it):
+            return sched[it]
+
+        def change_ahead(it):
+            return ahead[it]
+    return _gallager_loop(_graph(code), received, max_iters, threshold_of,
+                          change_ahead, record, passes)
+
+
+def _irregular(code, received, max_iters, threshold, record, tx_bits,
+               passes) -> GallagerResult:
+    _no_random_transmit(tx_bits)
+    # t_d = min(b, max(d-1, 1)) <= dv_max - 1, so b = dv_max is Gallager-A
+    b = code.dv_max if threshold is None else \
+        min(max(int(threshold), 0), code.dv_max)
+    return _gallager_loop(_graph(code), received, max_iters, lambda _it: b,
+                          lambda _it: False, record, passes)
+
+
+def gallager_decode_packed(code, received: torch.Tensor, max_iters: int,
+                           threshold: Optional[int] = None, schedule=None,
+                           record: str = "total",
+                           tx_bits=None) -> GallagerResult:
+    """Decode 32*W BSC trials on a regular code, or on a batch of C codes
+    (word w on code ``w // (W // C)``); ``received`` is int32[n, W], set
+    bit = the channel flipped the (all-zero) codeword's bit.
+
+    ``threshold=None`` is Gallager-A (t = dv-1); smaller t gives
+    Gallager-B.  ``schedule`` (>= max_iters ints, clipped into [1, dv-1])
+    overrides it with a threshold per round (``utils.theory
+    .gallager_b_schedule`` in the JAX package).  ``record="per_trial"``
+    also fills ``traj``.  On CUDA tensors the rounds run the two kernels
+    (K4 for per-trial counts); on CPU tensors their plain versions.
+    """
+    return _regular(code, received, max_iters, threshold, schedule, record,
+                    tx_bits, _KERNEL_PASSES)
+
+
+def gallager_decode_packed_plain(code, received: torch.Tensor,
+                                 max_iters: int,
+                                 threshold: Optional[int] = None,
+                                 schedule=None, record: str = "total",
+                                 tx_bits=None) -> GallagerResult:
+    """:func:`gallager_decode_packed` through the plain version of every
+    pass, on any device: the reference the kernels are held to."""
+    return _regular(code, received, max_iters, threshold, schedule, record,
+                    tx_bits, _PLAIN_PASSES)
+
+
+def gallager_decode_packed_irregular(code, received: torch.Tensor,
+                                     max_iters: int,
+                                     threshold: Optional[int] = None,
+                                     record: str = "total",
+                                     tx_bits=None) -> GallagerResult:
+    """Gallager-A/B on an :class:`..models.irregular.IrregularLDPCCode`
+    (one or a batch): the contract of :func:`gallager_decode_packed` with
+    the per-degree threshold t_d = min(b, max(d-1, 1)) (``threshold=None``:
+    max(d-1, 1)) and majority d // 2 + 1."""
+    return _irregular(code, received, max_iters, threshold, record, tx_bits,
+                      _KERNEL_PASSES)
+
+
+def gallager_decode_packed_irregular_plain(code, received: torch.Tensor,
+                                           max_iters: int,
+                                           threshold: Optional[int] = None,
+                                           record: str = "total",
+                                           tx_bits=None) -> GallagerResult:
+    """:func:`gallager_decode_packed_irregular` through the plain passes."""
+    return _irregular(code, received, max_iters, threshold, record, tx_bits,
+                      _PLAIN_PASSES)

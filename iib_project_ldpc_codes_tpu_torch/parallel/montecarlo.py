@@ -1,26 +1,30 @@
-"""Batched Monte Carlo BER/FER engine, BEC erasure BP.
+"""Batched Monte Carlo BER/FER engine: BEC erasure BP and BSC Gallager-A/B.
 
 The JAX package's engine (``iib_project_ldpc_codes_tpu/parallel/
-montecarlo.py``) for its BEC+bp all-zero path: each chunk decodes
-``cfg.batch`` trials bit-packed on one device, and the host loop applies
-the reference's stopping rules at chunk granularity (>= max_block_errors
-block errors / num_tests / wall clock, parallel_simulator.py:198).  Two
-code modes:
+montecarlo.py``) for its all-zero-codeword device decoders: each chunk
+decodes ``cfg.batch`` trials bit-packed on one device, and the host loop
+applies the reference's stopping rules at chunk granularity (>=
+max_block_errors block errors / num_tests / wall clock,
+parallel_simulator.py:198).  Decoders: erasure BP on the BEC and
+Gallager-A/B on the BSC, each on (dv,dc)-regular or irregular (lam, rho)
+codes.  Two code modes:
 
   * ``fixed`` (reference mode 3): one code for the whole run.
   * ``ensemble`` (reference mode 0, the default): every chunk samples
-    ``codes_per_chunk`` fresh codes (``models/ensemble.py::sample_codes``,
-    K5 on the GPU) and decodes them in one batched call, each code on its
-    own ``32 * words_per_code`` trials, as the JAX engine's
+    ``codes_per_chunk`` fresh codes (``models/ensemble.py::sample_codes``
+    or ``models/irregular.py::sample_irregular_codes``, kernels on the
+    GPU) and decodes them in one batched call, each code on its own
+    ``32 * words_per_code`` trials, as the JAX engine's
     ``_fresh_codes_chunk`` (montecarlo.py:268-299).
 
-Seeding: chunk ``c`` draws its erasures with Philox key ``philox_key(seed)``
-and offset ``c`` (``ops/bitops.py`` gives the full scheme), and in ensemble
-mode its codes from the sampler's own Philox stream of (seed, c), so any
-run is reproducible from (seed, batch, codes_per_chunk) alone, on the CPU
-and the GPU alike, and a resumed run is bit-identical to an uninterrupted
-one.  This replaces the JAX engine's ``fold_in(key(seed), c)``; the two
-engines draw different erasures and codes and agree in distribution.
+Seeding: chunk ``c`` draws its erasures or flips with Philox key
+``philox_key(seed)`` and offset ``c`` (``ops/bitops.py`` gives the full
+scheme), and in ensemble mode its codes from the sampler's own Philox
+stream of (seed, c), so any run is reproducible from (seed, batch,
+codes_per_chunk) alone, on the CPU and the GPU alike, and a resumed run is
+bit-identical to an uninterrupted one.  This replaces the JAX engine's
+``fold_in(key(seed), c)``; the two engines draw different planes and codes
+and agree in distribution.
 """
 
 from __future__ import annotations
@@ -37,9 +41,13 @@ import torch
 
 from ..models.code import LDPCCode
 from ..models.ensemble import sample_codes
-from ..ops.bitops import pack_bits
-from ..ops.channels import bec_packed_channel
-from ..ops.erasure_bp import bp_decode_packed_allzero
+from ..models.irregular import (IrregularEnsembleSpec, IrregularLDPCCode,
+                                sample_irregular_codes)
+from ..ops.bitops import bernoulli_packed, pack_bits
+from ..ops.erasure_bp import (bp_decode_packed_allzero,
+                              bp_decode_packed_allzero_irregular)
+from ..ops.gallager import (gallager_decode_packed,
+                            gallager_decode_packed_irregular)
 from ..utils.config import SimulationConfig
 from ..utils.results import SimulationResult
 
@@ -66,32 +74,38 @@ class ChunkStats:
     code_bit_errors_sq: Optional[torch.Tensor] = None  # float64 scalar
 
 
-def _bp_chunk(code: LDPCCode, erased: torch.Tensor, *, iterations: int,
-              expurgation: Optional[int]) -> ChunkStats:
-    """Chunk statistics of the all-zero decode of ``erased`` int32[n, W]
-    on one code, or on a batch of C codes (word w on code ``w // (W //
-    C)``, which also records ``code_bit_errors_sq``).
+def _allzero_decode(code, erased: torch.Tensor, iterations: int):
+    """The all-zero packed erasure decode of a code's family."""
+    if isinstance(code, IrregularLDPCCode):
+        return bp_decode_packed_allzero_irregular(code, erased, iterations)
+    return bp_decode_packed_allzero(code, erased, iterations)
 
-    With ``expurgation = s``, trials with <= s final erasures are dropped
+
+def _final_count_stats(error_totals: torch.Tensor, final: torch.Tensor,
+                       expurgation: Optional[int],
+                       traj: Optional[torch.Tensor] = None,
+                       num_codes: Optional[int] = None) -> ChunkStats:
+    """ChunkStats from the per-trial final error counts ``final`` [B].
+
+    With ``expurgation = s``, trials with <= s final errors are dropped
     from *all* statistics while still counted as trials
-    (parallel_simulator_expurgated.py:238-243), by the JAX engine's
-    two-pass form: decode, read the final per-trial counts, then re-decode
-    with the excluded trials' erasures masked out, so they add zero to
-    every per-iteration total.
+    (parallel_simulator_expurgated.py:238-243); given the per-trial
+    trajectories ``traj`` [iterations+1, B], the per-iteration series is
+    summed over the included trials only (JAX ``_final_count_stats``).
+    ``num_codes`` (a batch of codes, trials split evenly, code-major)
+    also records ``code_bit_errors_sq``.
     """
-    res = bp_decode_packed_allzero(code, erased, iterations)
-    final = res.bit_errors.to(torch.int64)                   # [B]
-    error_totals = res.error_totals
+    final = final.to(torch.int64)
     include = torch.ones_like(final, dtype=torch.bool)
     if expurgation is not None:
         include = final > expurgation
-        include_words = pack_bits(include[None, :])[0]       # int32[W]
-        error_totals = bp_decode_packed_allzero(
-            code, erased & include_words[None, :], iterations).error_totals
+        if traj is not None:
+            error_totals = (traj * include).sum(1, dtype=torch.int64) \
+                .to(torch.int32)
     gated = final * include
     code_sq = None
-    if code.batched:
-        per_code = gated.reshape(code.num_codes, -1).sum(1)
+    if num_codes is not None:
+        per_code = gated.reshape(num_codes, -1).sum(1)
         code_sq = (per_code.to(torch.float64) ** 2).sum()
     return ChunkStats(
         error_totals=error_totals,
@@ -100,6 +114,47 @@ def _bp_chunk(code: LDPCCode, erased: torch.Tensor, *, iterations: int,
         excluded=(~include).sum(),
         bit_errors_sq=(gated.to(torch.float64) ** 2).sum(),
         code_bit_errors_sq=code_sq)
+
+
+def _codes_in(code) -> Optional[int]:
+    """C for a batch of codes (ensemble mode), None for one code."""
+    return code.num_codes if code.batched else None
+
+
+def _bp_chunk(code, erased: torch.Tensor, *, iterations: int,
+              expurgation: Optional[int]) -> ChunkStats:
+    """Chunk statistics of the all-zero decode of ``erased`` int32[n, W]
+    on one code (regular or irregular), or on a batch of C codes (word w
+    on code ``w // (W // C)``, which also records ``code_bit_errors_sq``).
+
+    Expurgation by the JAX engine's two-pass form: decode, read the final
+    per-trial counts, then re-decode with the excluded trials' erasures
+    masked out, so they add zero to every per-iteration total.
+    """
+    res = _allzero_decode(code, erased, iterations)
+    final = res.bit_errors
+    error_totals = res.error_totals
+    if expurgation is not None:
+        include_words = pack_bits((final > expurgation)[None, :])[0]
+        error_totals = _allzero_decode(
+            code, erased & include_words[None, :], iterations).error_totals
+    return _final_count_stats(error_totals, final, expurgation,
+                              num_codes=_codes_in(code))
+
+
+def _gallager_chunk(code, received: torch.Tensor, *, iterations: int,
+                    threshold: Optional[int],
+                    expurgation: Optional[int]) -> ChunkStats:
+    """BSC hard-decision chunk (JAX ``_gallager_chunk``): Gallager-A/B on
+    the flip planes ``received`` int32[n, W] of one code (regular or
+    irregular) or a batch; expurgated chunks record per-trial
+    trajectories."""
+    decode = gallager_decode_packed_irregular \
+        if isinstance(code, IrregularLDPCCode) else gallager_decode_packed
+    res = decode(code, received, iterations, threshold=threshold,
+                 record="total" if expurgation is None else "per_trial")
+    return _final_count_stats(res.error_totals, res.bit_errors, expurgation,
+                              traj=res.traj, num_codes=_codes_in(code))
 
 
 def _ensemble_layout(cfg: SimulationConfig) -> tuple[int, int]:
@@ -114,15 +169,17 @@ def _ensemble_layout(cfg: SimulationConfig) -> tuple[int, int]:
     return num_codes, words // num_codes
 
 
-def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
+def make_chunk_fn(cfg: SimulationConfig, code,
                   device="cuda") -> Callable[[int], ChunkStats]:
     """``fn(chunk_idx) -> ChunkStats`` decoding ``cfg.batch`` trials.
 
-    The port runs BEC erasure BP with all-zero transmit on a fixed code
-    (the reference's mode 3) or on fresh regular codes per chunk (mode 0);
-    every other combination raises, naming the ROADMAP item that ports it.
-    ``code`` is the fixed code; ensemble mode ignores it, as the JAX
-    engine does.
+    The port runs, with all-zero transmit, BEC erasure BP and BSC
+    Gallager-A/B on (dv,dc)-regular or irregular (lam, rho) codes, on a
+    fixed code (the reference's mode 3) or on fresh codes per chunk (mode
+    0); every other combination raises, naming the ROADMAP item that ports
+    it.  ``code`` is the fixed code (an ``LDPCCode``, or an
+    ``IrregularLDPCCode`` for an irregular configuration); ensemble mode
+    ignores it, as the JAX engine does.
     """
     pair = (cfg.channel, cfg.decoder)
     if pair in (("BEC", "ml"), ("BEC", "both")):
@@ -132,15 +189,9 @@ def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
     if pair == ("BEC", "peeling"):
         raise NotImplementedError(
             "the peeling decoder is not ported yet (ROADMAP queue 1 item 14)")
-    if pair == ("BSC", "gallager"):
-        raise NotImplementedError(
-            "Gallager decoding is not ported yet (ROADMAP queue 1 item 9)")
-    if pair != ("BEC", "bp"):
+    if pair not in (("BEC", "bp"), ("BSC", "gallager")):
         raise NotImplementedError(
             f"soft BP {pair} is not ported yet (ROADMAP queue 1 item 10)")
-    if cfg.irregular:
-        raise NotImplementedError(
-            "irregular codes are not ported yet (ROADMAP queue 1 item 8)")
     if cfg.transmit != "zero":
         raise NotImplementedError(
             "random-codeword transmit is not ported yet (ROADMAP queue 1 "
@@ -149,42 +200,55 @@ def make_chunk_fn(cfg: SimulationConfig, code: Optional[LDPCCode],
         raise NotImplementedError(
             "edge sharding is not ported yet (ROADMAP queue 1 item 13)")
     words = cfg.batch // 32
+
+    def decode(codes, chunk_idx: int) -> ChunkStats:
+        # the same K1 planes are erasures on the BEC, flips on the BSC
+        planes = bernoulli_packed(cfg.channel_param, (cfg.n, words),
+                                  seed=cfg.seed, offset=chunk_idx,
+                                  device=device)
+        if cfg.channel == "BEC":
+            return _bp_chunk(codes, planes, iterations=cfg.iterations,
+                             expurgation=cfg.expurgation)
+        return _gallager_chunk(codes, planes, iterations=cfg.iterations,
+                               threshold=cfg.gallager_threshold,
+                               expurgation=cfg.expurgation)
+
     if cfg.code_mode == "ensemble":
         num_codes, _ = _ensemble_layout(cfg)
+        if cfg.irregular:
+            spec = IrregularEnsembleSpec.from_lam_rho(cfg.n, cfg.lam, cfg.rho,
+                                                      device=device)
 
-        def ensemble_chunk(chunk_idx: int) -> ChunkStats:
-            codes = sample_codes(cfg.seed, chunk_idx, num_codes, cfg.n,
-                                 cfg.dv, cfg.dc, cfg.sampler, device=device)
-            erased = bec_packed_channel(cfg.channel_param, (cfg.n, words),
-                                        seed=cfg.seed, offset=chunk_idx,
-                                        device=device)
-            return _bp_chunk(codes, erased, iterations=cfg.iterations,
-                             expurgation=cfg.expurgation)
+            def sample(chunk_idx: int):
+                return sample_irregular_codes(cfg.seed, chunk_idx, num_codes,
+                                              spec, cfg.sampler,
+                                              device=device)
+        else:
+            def sample(chunk_idx: int):
+                return sample_codes(cfg.seed, chunk_idx, num_codes, cfg.n,
+                                    cfg.dv, cfg.dc, cfg.sampler,
+                                    device=device)
 
-        return ensemble_chunk
+        return lambda chunk_idx: decode(sample(chunk_idx), chunk_idx)
     if code is None:
         raise ValueError("fixed code_mode requires a code")
-    if not isinstance(code, LDPCCode):
+    if cfg.irregular:
+        if not isinstance(code, IrregularLDPCCode) or code.n != cfg.n:
+            raise ValueError(f"an irregular config needs an "
+                             f"IrregularLDPCCode of n={cfg.n}, got a "
+                             f"{type(code).__name__}")
+    elif not isinstance(code, LDPCCode):
         raise NotImplementedError(
             f"{type(code).__name__} codes are not ported yet (ROADMAP "
             "queue 1 item 12)")
-    if (code.n, code.dv, code.dc) != (cfg.n, cfg.dv, cfg.dc):
+    elif (code.n, code.dv, code.dc) != (cfg.n, cfg.dv, cfg.dc):
         raise ValueError(f"code (n, dv, dc) = {(code.n, code.dv, code.dc)} "
                          f"!= config {(cfg.n, cfg.dv, cfg.dc)}")
     code = code.to(device)
-
-    def chunk(chunk_idx: int) -> ChunkStats:
-        erased = bec_packed_channel(cfg.channel_param, (cfg.n, words),
-                                    seed=cfg.seed, offset=chunk_idx,
-                                    device=device)
-        return _bp_chunk(code, erased, iterations=cfg.iterations,
-                         expurgation=cfg.expurgation)
-
-    return chunk
+    return lambda chunk_idx: decode(code, chunk_idx)
 
 
-def run_simulation(cfg: SimulationConfig, code: Optional[LDPCCode] = None,
-                   device="cuda") -> SimulationResult:
+def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> SimulationResult:
     """Run the Monte Carlo to the reference's stopping rules and reduce.
 
     Each loop pass decodes one chunk of ``cfg.batch`` trials on

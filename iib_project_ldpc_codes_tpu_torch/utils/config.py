@@ -17,8 +17,9 @@ The reference's positional argv (parallel_simulator.py:403-445:
   mode 4 -> decoder="ml",   code_mode="fixed"
   mode 5 -> decoder="both", code_mode="fixed"
 
-The port runs modes 0 and 3 so far; the Monte Carlo engine names the
-ROADMAP item of every other combination.
+The port runs modes 0 and 3 so far, and through a JSON config BSC
+Gallager-A/B and irregular (lam, rho) codes on the BEC and the BSC; the
+Monte Carlo engine names the ROADMAP item of every other combination.
 """
 
 from __future__ import annotations
@@ -121,9 +122,11 @@ class SimulationConfig:
     @property
     def k(self) -> int:
         if self.irregular:
-            raise NotImplementedError(
-                "irregular (lam, rho) ensembles are not ported yet "
-                "(ROADMAP queue 1 item 8)")
+            from ..models.irregular import degree_sequences_from_lam_rho
+
+            _, chk_degrees = degree_sequences_from_lam_rho(
+                self.n, self.lam, self.rho)
+            return self.n - int(chk_degrees.size)
         return self.n * (self.dc - self.dv) // self.dc
 
     def __post_init__(self):

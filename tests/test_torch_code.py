@@ -140,10 +140,16 @@ def test_code_for_config_is_deterministic():
     assert validate_code(a) == (True, "ok")
     other = ensemble.code_for_config(dataclasses.replace(cfg, code_number=4))
     assert not torch.equal(a.chk_to_var, other.chk_to_var)
-    irregular = SimulationConfig(n=512, code_mode="fixed", lam=[0.5, 0.5],
+    # an irregular configuration gets its own deterministic code
+    irregular = SimulationConfig(n=512, code_mode="fixed", lam=[0, 0.5, 0.5],
                                  rho=[0, 0, 0, 0, 0, 1.0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ensemble.code_for_config(irregular)
+    a = ensemble.code_for_config(irregular)
+    assert torch.equal(a.chk_to_var,
+                       ensemble.code_for_config(irregular).chk_to_var)
+    assert (a.n, a.dv_max, a.dc_max) == (512, 3, 6)
+    with pytest.raises(ValueError, match="degree-1"):
+        ensemble.code_for_config(dataclasses.replace(irregular,
+                                                     lam=[0.5, 0.5]))
 
 
 @pytest.mark.parametrize("argv", [

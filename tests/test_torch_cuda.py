@@ -16,10 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from iib_project_ldpc_codes_tpu_torch.models import ensemble
+from iib_project_ldpc_codes_tpu_torch.models import ensemble, irregular
 from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
 from iib_project_ldpc_codes_tpu_torch.models.ensemble import sample_code
-from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
+from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp, gallager
 from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
 from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
 
@@ -191,6 +191,186 @@ def test_ensemble_run_gpu_equals_cpu(cuda, sampler, expurgation):
                            max_block_errors=10**9, expurgation=expurgation)
     gpu = mc.run_simulation(cfg, device="cuda")
     cpu = mc.run_simulation(cfg, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
+                  "trials_per_code", "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+# ---------------------------------------------------------------------------
+# Irregular codes and Gallager-A/B
+# ---------------------------------------------------------------------------
+
+LAM, RHO = [0, 1 / 3, 0, 2 / 3], [0, 0, 0, 0, 0, 1.0]
+MIXED = ([0, 0, 0.5, 0.5], [0, 0, 0, 0, 0.5, 0.5])
+
+
+def _assert_same_irregular(got, want):
+    for name in ("chk_to_var", "var_to_chk", "var_to_sock"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+
+
+@pytest.mark.parametrize("method, n, num, dist", [
+    ("raw", 40, 3, MIXED), ("raw", 1000, 33, (LAM, RHO)),
+    ("repair", 110, 5, MIXED), ("repair", 2000, 40, (LAM, RHO)),
+    ("reject", 60, 4, (LAM, RHO)), ("reject", 110, 6, MIXED)])
+def test_irregular_sampler_kernel_equals_plain(cuda, method, n, num, dist):
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *dist)
+    got = irregular.sample_irregular_codes(9, 5, num, spec, method,
+                                           device=cuda)
+    assert got.chk_to_var.is_cuda and got.batched
+    _assert_same_irregular(got, irregular.sample_irregular_codes(
+        9, 5, num, spec, method))
+    if method != "raw":
+        for i in range(num):
+            assert irregular.validate_irregular_code(got.select(i), spec) \
+                == (True, "ok")
+
+
+@pytest.mark.parametrize("method", ["raw", "repair", "reject"])
+def test_irregular_sampler_kernel_regular_spec_and_global_path(
+        cuda, method, monkeypatch):
+    spec = irregular.IrregularEnsembleSpec.regular(120, 3, 6, device=cuda)
+    got = irregular.sample_irregular_codes(4, 2, 5, spec, method, device=cuda)
+    want = ensemble.sample_codes(4, 2, 5, 120, 3, 6, method, device=cuda)
+    assert torch.equal(got.chk_to_var[:, :-1], want.chk_to_var)
+    assert torch.equal(got.var_to_sock[:, :-1].sort(-1).values,
+                       want.var_to_edge)
+    monkeypatch.setattr(ensemble, "SHARED_PERM_MAX_SOCKETS", 0)
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(200, *MIXED)
+    _assert_same_irregular(
+        irregular.sample_irregular_codes(3, 1, 6, spec, method, device=cuda),
+        irregular.sample_irregular_codes(3, 1, 6, spec, method))
+
+
+@pytest.mark.parametrize("wpc", [1, 24])
+@pytest.mark.parametrize("batched", [False, True])
+def test_irregular_decode_on_gpu_equals_cpu(cuda, wpc, batched):
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(600, LAM, RHO)
+    codes = irregular.sample_irregular_codes(1, 0, 7, spec, "repair")
+    code = codes if batched else codes.select(0)
+    words = wpc * code.num_codes
+    erased = bitops.bernoulli_packed(0.45, (600, words), seed=wpc)
+    cpu = erasure_bp.bp_decode_packed_allzero_irregular(code, erased, 50)
+    gpu = erasure_bp.bp_decode_packed_allzero_irregular(
+        code.to(cuda), erased.to(cuda), 50)
+    assert torch.equal(gpu.known.cpu(), cpu.known)
+    assert torch.equal(gpu.error_totals.cpu(), cpu.error_totals)
+    assert gpu.iterations == cpu.iterations
+
+
+@pytest.mark.parametrize("rows, dc, words", [(1, 1, 1), (13, 6, 33),
+                                             (301, 5, 96)])
+def test_gallager_check_kernel_equals_plain(cuda, rows, dc, words):
+    rng = np.random.default_rng(rows)
+    msg = torch.from_numpy(rng.integers(-2**31, 2**31, size=(rows * dc, words),
+                                        dtype=np.int64).astype(np.int32))
+    got = gallager.gallager_check(msg.to(cuda), dc)
+    assert torch.equal(got.cpu(), gallager.gallager_check(msg, dc))
+
+
+def _variable_case(family, wpc, num, seed=0):
+    """Tables, random messages (padding rows 0), channel and the pass's
+    other arguments for one variable-pass comparison."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    if family == "regular":
+        codes = ensemble.sample_codes(seed, 0, num, n, 3, 6, "repair")
+        table, dc, rows = codes.var_to_edge, 6, codes.m
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
+        codes = irregular.sample_irregular_codes(seed, 0, num, spec)
+        table, dc, rows = codes.var_to_sock, codes.dc_max, codes.m + 1
+    if num == 1:
+        table = table[0]
+    words = wpc * num
+    msg = torch.from_numpy(rng.integers(-2**31, 2**31, size=(rows * dc, words),
+                                        dtype=np.int64).astype(np.int32))
+    if family == "irregular":
+        pad = ~(codes.chk_to_var.flatten(1) < n)                 # [C, rows*dc]
+        msg.view(rows * dc, num, wpc)[pad.t()] = 0
+    channel = bitops.bernoulli_packed(0.2, (n, words), seed=seed)
+    active = torch.from_numpy((rng.random(num) < 0.7).astype(np.int32))
+    active[0] = 1
+    decided = bitops.bernoulli_packed(0.5, (n, words), seed=seed + 1)
+    pad_pos = (codes.m) * dc
+    return dict(msg=msg, channel=channel, table=table, active=active,
+                decided=decided, dc=dc, pad_pos=pad_pos,
+                clamp=family == "irregular")
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("wpc, num", [(33, 1), (1, 40), (24, 5)])
+@pytest.mark.parametrize("threshold", [None, 1])
+def test_gallager_variable_kernel_equals_plain(cuda, family, wpc, num,
+                                               threshold):
+    case = _variable_case(family, wpc, num)
+    dv = case["table"].shape[-1]
+    t = (dv if case["clamp"] else dv - 1) if threshold is None else threshold
+    out = []
+    for device in (cuda, "cpu"):
+        msg = case["msg"].clone().to(device)
+        decided = case["decided"].clone().to(device)
+        counts = torch.zeros((num, 2), dtype=torch.int32, device=device)
+        parity = gallager.gallager_check(msg, case["dc"])
+        gallager.gallager_variable(
+            msg, parity, case["channel"].to(device), case["table"].to(device),
+            case["active"].to(device), decided, counts, dc=case["dc"],
+            pad_pos=case["pad_pos"], threshold=t, clamp=case["clamp"])
+        out.append((msg.cpu(), decided.cpu(), counts.cpu()))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    assert int(out[1][2][:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("record", ["total", "per_trial"])
+@pytest.mark.parametrize("wpc, num", [(9, 1), (1, 24), (24, 3)])
+def test_gallager_decodes_on_gpu_equal_cpu(cuda, record, wpc, num):
+    n = 600
+    regular = ensemble.sample_codes(2, 0, num, n, 3, 6, "repair")
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
+    irreg = irregular.sample_irregular_codes(2, 0, num, spec)
+    rx = bitops.bernoulli_packed(0.04, (n, wpc * num), seed=num)
+    for code, decode, kw in (
+            (regular, gallager.gallager_decode_packed, dict(threshold=None)),
+            (regular, gallager.gallager_decode_packed, dict(threshold=1)),
+            (regular, gallager.gallager_decode_packed,
+             dict(schedule=[1] * 5 + [2] * 45)),
+            (irreg, gallager.gallager_decode_packed_irregular,
+             dict(threshold=None)),
+            (irreg, gallager.gallager_decode_packed_irregular,
+             dict(threshold=1))):
+        one = code if num > 1 else code.select(0)
+        cpu = decode(one, rx, 50, record=record, **kw)
+        gpu = decode(one.to(cuda), rx.to(cuda), 50, record=record, **kw)
+        assert torch.equal(gpu.decided.cpu(), cpu.decided)
+        assert torch.equal(gpu.error_totals.cpu(), cpu.error_totals)
+        assert gpu.iterations == cpu.iterations
+        if record == "per_trial":
+            assert torch.equal(gpu.traj.cpu(), cpu.traj)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(lam=LAM, rho=RHO, code_mode="ensemble", expurgation=None),
+    dict(lam=LAM, rho=RHO, code_mode="fixed", expurgation=2),
+    dict(channel="BSC", decoder="gallager", channel_param=0.04,
+         code_mode="ensemble", expurgation=2),
+    dict(channel="BSC", decoder="gallager", channel_param=0.04,
+         code_mode="fixed", gallager_threshold=1, expurgation=None),
+    dict(channel="BSC", decoder="gallager", channel_param=0.05,
+         lam=MIXED[0], rho=RHO, code_mode="ensemble", expurgation=None),
+    dict(channel="BSC", decoder="gallager", channel_param=0.05,
+         lam=MIXED[0], rho=RHO, code_mode="fixed", expurgation=1)])
+def test_new_paths_run_simulation_gpu_equals_cpu(cuda, fields):
+    base = dict(channel_param=0.42, n=504, iterations=40, batch=640,
+                num_tests=1920, seed=4, codes_per_chunk=10,
+                max_block_errors=10**9)
+    cfg = SimulationConfig(**{**base, **fields})
+    code = ensemble.code_for_config(cfg) if cfg.code_mode == "fixed" \
+        else None
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    cpu = mc.run_simulation(cfg, code, device="cpu")
     for field in ("num_trials", "block_errors", "bit_errors",
                   "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
                   "trials_per_code", "error_counts_per_iteration"):
