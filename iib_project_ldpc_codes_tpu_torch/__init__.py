@@ -16,7 +16,7 @@ __version__ = "0.1.0"
 from .models.code import LDPCCode, code_from_checks, code_from_numpy, \
     dense_parity_check
 from .models.ensemble import sample_code
-from .ops.channels import BEC, ERASURE
+from .ops.channels import AWGN, BEC, BSC, ERASURE
 
 __all__ = [
     "LDPCCode",
@@ -24,6 +24,8 @@ __all__ = [
     "code_from_numpy",
     "dense_parity_check",
     "sample_code",
+    "AWGN",
     "BEC",
+    "BSC",
     "ERASURE",
 ]

@@ -17,9 +17,12 @@ Two invocation styles, as in the JAX package:
        python -m iib_project_ldpc_codes_tpu_torch.cli --config cfg.json
 
      Beyond the positional modes this runs BSC Gallager-A/B (``"channel":
-     "BSC", "decoder": "gallager"``, ``gallager_threshold`` null for A)
+     "BSC", "decoder": "gallager"``, ``gallager_threshold`` null for A),
+     soft BP on the AWGN channel or the BSC (``"decoder": "sumproduct"``
+     or ``"minsum"``, ``"channel_param"`` sigma or p, ``"minsum_alpha"``,
+     ``"minsum_beta"``, ``"soft_msg_dtype"`` float32, bfloat16 or int8)
      and irregular ensembles (``"lam"``, ``"rho"``: edge-perspective
-     degree fractions) with erasure BP or Gallager, in either code mode
+     degree fractions) with any of these decoders, in either code mode
      (``"code_mode": "ensemble"`` or ``"fixed"``).
 
 Optional flags (either style):

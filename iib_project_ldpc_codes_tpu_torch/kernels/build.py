@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+process per source and all at once, and links the objects into one shared
+library with a plain C interface, loaded with :mod:`ctypes`.  The
 library lands in ``_build/<hash>/`` beside the package, keyed by a hash of
 the sources and flags, so an edited kernel is rebuilt and an unchanged one
 is reused.  The build runs at the first kernel launch, never at import:
@@ -30,12 +31,14 @@ SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIBRARY_NAME = "libldpc_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _LL = ctypes.c_longlong
+#: a float argument must be declared, or ctypes passes a double
+_F = ctypes.c_float
 #: argtypes of each C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "ldpc_bernoulli_packed": (_P, _LL, _U, _U, _U, _U, ctypes.c_ulonglong,
@@ -50,6 +53,11 @@ SIGNATURES = {
     "ldpc_gallager_check": (_P, _P, _I, _I, _I, _P),
     "ldpc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P),
+    "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P),
+    "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _P),
+    "ldpc_soft_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _P),
 }
 
 
@@ -87,32 +95,44 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     """Compile ``csrc/*.cu`` unless the hashed library exists.
 
     Returns ``(library path, seconds spent compiling)`` (0.0 when the
-    library was already built).  The library is written under a temporary
-    name and renamed into place, so a concurrent or interrupted build never
-    leaves a partial file where a loader would find it.
+    library was already built).  Every source compiles in its own ``nvcc``
+    process, all started together, then one ``nvcc`` links the objects.
+    The library is written under a temporary name and renamed into place,
+    so a concurrent or interrupted build never leaves a partial file where
+    a loader would find it.
     """
     path = library_path()
     if path.exists():
         return path, 0.0
     path.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in source_files() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    nvcc = find_nvcc()
     start = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(dir=path.parent) as work:
+        jobs, objects = [], []
+        for src in (p for p in source_files() if p.suffix == ".cu"):
+            objects.append(os.path.join(work, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objects[-1], str(src)]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+            elif verbose:
+                print(out, flush=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(work, LIBRARY_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return path, time.perf_counter() - start
 
 

@@ -1,10 +1,26 @@
-"""Channels: the BEC and the BSC, in oracle form and packed form.
+"""Channels: the BEC, the BSC and the AWGN channel.
 
 The canonical alphabet is the JAX package's: bits in {0,1}, erasure = 2
-(``ERASURE``).  Packed planes (32 trials per int32 word) of either channel
-come from K1 (``ops/bitops.py::bernoulli_packed``): erasures on the BEC,
-flips against the all-zero codeword on the BSC.  AWGN comes with the soft
-decoders.
+(``ERASURE``).  Packed planes (32 trials per int32 word) of the BEC and the
+BSC come from K1 (``ops/bitops.py::bernoulli_packed``): erasures on the
+BEC, flips against the all-zero codeword on the BSC; the soft decoders read
+the BSC as LLR planes of those flips (:meth:`BSC.llr_of_flips`).  The AWGN
+channel's LLR planes of the all-zero codeword come from kernel A
+(:func:`awgn_llr`, ``csrc/awgn_llr.cu``).
+
+AWGN draws: element i of the row-major float32[n, B] plane is lane i % 4 of
+the Philox4x32-10 block at counter (g mod 2^32, g >> 32, offset mod 2^32,
+offset >> 32), g = i // 4, under key ``philox_key(seed)`` with
+``AWGN_KEY_TAG`` XORed into word 0 -- a stream of its own, apart from K1's
+(untweaked key) and the code sampler's (word 1 tweaked), so noise never
+shares counters with a flip or a code draw.  Box-Muller in float64 on the
+word pairs (0, 1) and (2, 3): u1 = (x + 0.5) 2^-32, u2 = y 2^-32, r =
+sqrt(-2 ln u1), lanes (r cos 2 pi u2, r sin 2 pi u2), rounded to float32.
+Then JAX's float32 arithmetic (ops/channels.py:86-93), one rounding a step:
+noise = z sigma, y = 1 + noise, llr = (2 y) / (sigma sigma).  The kernel's
+float64 ``log``/``sincos`` and the CPU's may round differently, so a CPU
+and a GPU plane agree to one float32 ulp, equal in all but a tiny share of
+entries.
 """
 
 from __future__ import annotations
@@ -14,9 +30,12 @@ import math
 
 import torch
 
-from .bitops import bernoulli_packed
+from ..kernels import launch, use_kernel
+from .bitops import MASK32, bernoulli_packed, philox4x32_10, philox_key, \
+    unpack_bits
 
 ERASURE = 2  # sentinel in the {0,1,2} erasure alphabet
+AWGN_KEY_TAG = 0xB7E15162   # XORed into Philox key word 0 for AWGN noise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +79,49 @@ class BSC:
         mag = math.log((1 - p) / p)
         return torch.where(received == 0, mag, -mag).to(torch.float32)
 
+    def llr_of_flips(self, flips: torch.Tensor) -> torch.Tensor:
+        """float32[n, 32W] channel LLRs of the all-zero codeword from K1's
+        packed flip planes int32[n, W] (trial b in bit b % 32 of word
+        b // 32): -mag where the bit flipped, +mag elsewhere.  The
+        magnitude log((1-p)/p) is taken in float64 and rounded once to
+        float32 (JAX: float32 ``log``, which may differ by an ulp)."""
+        mag = math.log((1 - self.crossover_prob) / self.crossover_prob)
+        return torch.where(unpack_bits(flips), -mag, mag).to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AWGN:
+    """Binary-input AWGN channel, BPSK mapping 0 -> +1, 1 -> -1.
+
+    ``sigma`` is the per-dimension noise standard deviation, taken as
+    float32 in the arithmetic (JAX traces it as a float32 scalar); Eb/N0 in
+    dB for a rate-R code satisfies sigma^2 = 1 / (2 R 10^(EbN0_dB/10)).
+    """
+
+    sigma: float
+
+    def _sigma(self, device) -> torch.Tensor:
+        return torch.tensor(self.sigma, dtype=torch.float32, device=device)
+
+    def transmit(self, bits: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+        """Soft channel outputs y = (1 - 2b) + sigma z (float32)."""
+        z = torch.randn(bits.shape, generator=generator,
+                        device=generator.device).to(bits.device)
+        noise = z * self._sigma(bits.device)
+        return (1.0 - 2.0 * bits.to(torch.float32)) + noise
+
+    def llr(self, received: torch.Tensor) -> torch.Tensor:
+        """Channel LLRs 2y/sigma^2 (positive favours bit 0)."""
+        sigma = self._sigma(received.device)
+        return 2.0 * received / (sigma * sigma)
+
+    @staticmethod
+    def sigma_from_ebn0_db(ebn0_db: float, rate: float) -> float:
+        """sigma of Eb/N0 ``ebn0_db`` at code rate ``rate`` (float64; JAX
+        evaluates the same formula in float32)."""
+        return (2.0 * rate * 10.0 ** (ebn0_db / 10.0)) ** -0.5
+
 
 def bec_packed_channel(erasure_prob: float, shape, *, seed: int,
                        offset: int = 0, device="cpu") -> torch.Tensor:
@@ -68,3 +130,71 @@ def bec_packed_channel(erasure_prob: float, shape, *, seed: int,
     of the packed decoder.  Deterministic in (seed, offset)."""
     return bernoulli_packed(erasure_prob, shape, seed=seed, offset=offset,
                             device=device)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: AWGN LLR planes straight from Philox
+# ---------------------------------------------------------------------------
+
+def awgn_key(seed: int) -> tuple[int, int]:
+    """Philox key of the AWGN noise for ``seed`` (module docstring)."""
+    k0, k1 = philox_key(seed)
+    return k0 ^ AWGN_KEY_TAG, k1
+
+
+def _box_muller(a: torch.Tensor, b: torch.Tensor):
+    """float64 Box-Muller pair of two int64 tensors of uint32 words."""
+    u1 = (a.to(torch.float64) + 0.5) * 2.0 ** -32
+    u2 = b.to(torch.float64) * 2.0 ** -32
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = 2.0 * math.pi * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def _awgn_normals(total: int, key: tuple[int, int], offset: int,
+                  device) -> torch.Tensor:
+    """The float32 normals z of elements 0 .. total-1 (the kernel's draw,
+    before sigma)."""
+    g = torch.arange((total + 3) // 4, dtype=torch.int64, device=device)
+    lanes = philox4x32_10((g & MASK32, g >> 32, offset & MASK32,
+                           (offset >> 32) & MASK32), key)
+    z0, z1 = _box_muller(lanes[0], lanes[1])
+    z2, z3 = _box_muller(lanes[2], lanes[3])
+    return torch.stack([z0, z1, z2, z3], 1).reshape(-1)[:total] \
+        .to(torch.float32)
+
+
+def _awgn_llr_plain(sigma: float, shape, key: tuple[int, int], offset: int,
+                    device) -> torch.Tensor:
+    """Plain version of kernel A: the same Philox words and float64
+    transform, then JAX's float32 steps."""
+    z = _awgn_normals(math.prod(shape), key, offset, device).reshape(shape)
+    ch = AWGN(sigma)
+    return ch.llr(1.0 + z * ch._sigma(device))
+
+
+def awgn_llr(sigma: float, shape, *, seed: int, offset: int = 0,
+             device="cpu") -> torch.Tensor:
+    """float32[*shape] AWGN channel LLRs of the all-zero codeword, noise
+    standard deviation ``sigma``: deterministic in (seed, offset) by the
+    scheme of the module docstring.  On a CUDA device kernel A writes the
+    plane; on the CPU its plain version computes it."""
+    shape = tuple(int(s) for s in shape)
+    if any(s < 0 for s in shape):
+        raise ValueError(f"negative shape {shape}")
+    if not 0 <= offset < (1 << 64):
+        raise ValueError(f"offset {offset} outside [0, 2^64)")
+    if not sigma > 0:
+        raise ValueError(f"sigma must be positive, got {sigma}")
+    key = awgn_key(seed)
+    device = torch.device(device)
+    if not use_kernel(device):
+        return _awgn_llr_plain(sigma, shape, key, offset, device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    launch("ldpc_awgn_llr", device, out.data_ptr(), out.numel(), key[0],
+           key[1], offset & MASK32, offset >> 32, float(sigma))
+    awgn_llr.launches += 1
+    return out
+
+
+awgn_llr.launches = 0

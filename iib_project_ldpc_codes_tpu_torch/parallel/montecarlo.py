@@ -1,13 +1,14 @@
-"""Batched Monte Carlo BER/FER engine: BEC erasure BP and BSC Gallager-A/B.
+"""Batched Monte Carlo BER/FER engine: BEC erasure BP, BSC Gallager-A/B,
+and soft BP (sum-product, min-sum, int8 min-sum) on AWGN and BSC LLRs.
 
 The JAX package's engine (``iib_project_ldpc_codes_tpu/parallel/
 montecarlo.py``) for its all-zero-codeword device decoders: each chunk
-decodes ``cfg.batch`` trials bit-packed on one device, and the host loop
+decodes ``cfg.batch`` trials on one device (bit-packed for the BEC and
+Gallager decoders, one column per trial for soft BP), and the host loop
 applies the reference's stopping rules at chunk granularity (>=
 max_block_errors block errors / num_tests / wall clock,
-parallel_simulator.py:198).  Decoders: erasure BP on the BEC and
-Gallager-A/B on the BSC, each on (dv,dc)-regular or irregular (lam, rho)
-codes.  Two code modes:
+parallel_simulator.py:198).  Every decoder runs on (dv,dc)-regular or
+irregular (lam, rho) codes.  Two code modes:
 
   * ``fixed`` (reference mode 3): one code for the whole run.
   * ``ensemble`` (reference mode 0, the default): every chunk samples
@@ -19,12 +20,14 @@ codes.  Two code modes:
 
 Seeding: chunk ``c`` draws its erasures or flips with Philox key
 ``philox_key(seed)`` and offset ``c`` (``ops/bitops.py`` gives the full
-scheme), and in ensemble mode its codes from the sampler's own Philox
-stream of (seed, c), so any run is reproducible from (seed, batch,
-codes_per_chunk) alone, on the CPU and the GPU alike, and a resumed run is
-bit-identical to an uninterrupted one.  This replaces the JAX engine's
-``fold_in(key(seed), c)``; the two engines draw different planes and codes
-and agree in distribution.
+scheme), its AWGN noise from the same offset on a key of its own
+(``ops/channels.py``), and in ensemble mode its codes from the sampler's
+own Philox stream of (seed, c), so any run is reproducible from (seed,
+batch, codes_per_chunk) alone, on the CPU and the GPU alike (AWGN LLRs to
+one float32 ulp: the float64 transcendentals of the two devices may round
+apart), and a resumed run is bit-identical to an uninterrupted one.  This
+replaces the JAX engine's ``fold_in(key(seed), c)``; the two engines draw
+different planes, noise and codes and agree in distribution.
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ from ..models.ensemble import sample_codes
 from ..models.irregular import (IrregularEnsembleSpec, IrregularLDPCCode,
                                 sample_irregular_codes)
 from ..ops.bitops import bernoulli_packed, pack_bits
+from ..ops.channels import BSC, awgn_llr
 from ..ops.erasure_bp import (bp_decode_packed_allzero,
                               bp_decode_packed_allzero_irregular)
 from ..ops.gallager import (gallager_decode_packed,
                             gallager_decode_packed_irregular)
+from ..ops.soft_bp import soft_bp_decode, soft_bp_decode_irregular
 from ..utils.config import SimulationConfig
 from ..utils.results import SimulationResult
 
@@ -157,6 +162,22 @@ def _gallager_chunk(code, received: torch.Tensor, *, iterations: int,
                               traj=res.traj, num_codes=_codes_in(code))
 
 
+def _soft_chunk(code, llr: torch.Tensor, *, iterations: int, method: str,
+                alpha: float, beta: float, msg_dtype: str,
+                expurgation: Optional[int]) -> ChunkStats:
+    """AWGN/BSC soft-decision chunk (JAX ``_soft_chunk`` after its
+    channel): soft BP on the LLRs ``llr`` float32[n, B] of one code
+    (regular or irregular) or a batch (trial b on code ``b // (B // C)``);
+    expurgated chunks record per-trial trajectories."""
+    decode = soft_bp_decode_irregular \
+        if isinstance(code, IrregularLDPCCode) else soft_bp_decode
+    res = decode(code, llr, iterations, method=method, alpha=alpha,
+                 beta=beta, msg_dtype=msg_dtype,
+                 record="total" if expurgation is None else "per_trial")
+    return _final_count_stats(res.error_totals, res.bit_errors, expurgation,
+                              traj=res.traj, num_codes=_codes_in(code))
+
+
 def _ensemble_layout(cfg: SimulationConfig) -> tuple[int, int]:
     """(codes per chunk, words per code) of ensemble mode: the JAX
     engine's rule (montecarlo.py:322-331) on one device, in one place so
@@ -173,13 +194,15 @@ def make_chunk_fn(cfg: SimulationConfig, code,
                   device="cuda") -> Callable[[int], ChunkStats]:
     """``fn(chunk_idx) -> ChunkStats`` decoding ``cfg.batch`` trials.
 
-    The port runs, with all-zero transmit, BEC erasure BP and BSC
-    Gallager-A/B on (dv,dc)-regular or irregular (lam, rho) codes, on a
-    fixed code (the reference's mode 3) or on fresh codes per chunk (mode
-    0); every other combination raises, naming the ROADMAP item that ports
-    it.  ``code`` is the fixed code (an ``LDPCCode``, or an
-    ``IrregularLDPCCode`` for an irregular configuration); ensemble mode
-    ignores it, as the JAX engine does.
+    The port runs, with all-zero transmit, BEC erasure BP, BSC
+    Gallager-A/B and soft BP on BSC or AWGN LLRs (sum-product, min-sum;
+    float32, bfloat16 or int8 messages) on (dv,dc)-regular or irregular
+    (lam, rho) codes, on a fixed code (the reference's mode 3) or on fresh
+    codes per chunk (mode 0); ML, peeling, random transmit, edge sharding
+    and QC codes raise, naming the ROADMAP item that ports them.  ``code``
+    is the fixed code (an ``LDPCCode``, or an ``IrregularLDPCCode`` for an
+    irregular configuration); ensemble mode ignores it, as the JAX engine
+    does.
     """
     pair = (cfg.channel, cfg.decoder)
     if pair in (("BEC", "ml"), ("BEC", "both")):
@@ -189,9 +212,6 @@ def make_chunk_fn(cfg: SimulationConfig, code,
     if pair == ("BEC", "peeling"):
         raise NotImplementedError(
             "the peeling decoder is not ported yet (ROADMAP queue 1 item 14)")
-    if pair not in (("BEC", "bp"), ("BSC", "gallager")):
-        raise NotImplementedError(
-            f"soft BP {pair} is not ported yet (ROADMAP queue 1 item 10)")
     if cfg.transmit != "zero":
         raise NotImplementedError(
             "random-codeword transmit is not ported yet (ROADMAP queue 1 "
@@ -201,11 +221,24 @@ def make_chunk_fn(cfg: SimulationConfig, code,
             "edge sharding is not ported yet (ROADMAP queue 1 item 13)")
     words = cfg.batch // 32
 
+    def soft(codes, llr: torch.Tensor) -> ChunkStats:
+        return _soft_chunk(codes, llr, iterations=cfg.iterations,
+                           method=cfg.decoder, alpha=cfg.minsum_alpha,
+                           beta=cfg.minsum_beta,
+                           msg_dtype=cfg.soft_msg_dtype,
+                           expurgation=cfg.expurgation)
+
     def decode(codes, chunk_idx: int) -> ChunkStats:
+        if cfg.channel == "AWGN":
+            llr = awgn_llr(cfg.channel_param, (cfg.n, cfg.batch),
+                           seed=cfg.seed, offset=chunk_idx, device=device)
+            return soft(codes, llr)
         # the same K1 planes are erasures on the BEC, flips on the BSC
         planes = bernoulli_packed(cfg.channel_param, (cfg.n, words),
                                   seed=cfg.seed, offset=chunk_idx,
                                   device=device)
+        if cfg.decoder in ("sumproduct", "minsum"):
+            return soft(codes, BSC(cfg.channel_param).llr_of_flips(planes))
         if cfg.channel == "BEC":
             return _bp_chunk(codes, planes, iterations=cfg.iterations,
                              expurgation=cfg.expurgation)

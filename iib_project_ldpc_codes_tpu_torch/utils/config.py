@@ -18,8 +18,9 @@ The reference's positional argv (parallel_simulator.py:403-445:
   mode 5 -> decoder="both", code_mode="fixed"
 
 The port runs modes 0 and 3 so far, and through a JSON config BSC
-Gallager-A/B and irregular (lam, rho) codes on the BEC and the BSC; the
-Monte Carlo engine names the ROADMAP item of every other combination.
+Gallager-A/B, soft BP on the AWGN channel and the BSC, and irregular (lam,
+rho) codes with each of these decoders; the Monte Carlo engine names the
+ROADMAP item of every other combination.
 """
 
 from __future__ import annotations

@@ -19,7 +19,9 @@ import torch
 from iib_project_ldpc_codes_tpu_torch.models import ensemble, irregular
 from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
 from iib_project_ldpc_codes_tpu_torch.models.ensemble import sample_code
-from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp, gallager
+from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
+                                                  erasure_bp, gallager,
+                                                  soft_bp)
 from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
 from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
 
@@ -374,4 +376,189 @@ def test_new_paths_run_simulation_gpu_equals_cpu(cuda, fields):
     for field in ("num_trials", "block_errors", "bit_errors",
                   "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
                   "trials_per_code", "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+# ---------------------------------------------------------------------------
+# Soft BP: kernels A, B and C
+# ---------------------------------------------------------------------------
+
+SOFT = [("minsum", torch.float32), ("minsum", torch.bfloat16),
+        ("minsum", torch.int8), ("sumproduct", torch.float32),
+        ("sumproduct", torch.bfloat16)]
+# sum-product: CUDA's tanhf/atanhf against the plain version's; one ulp of
+# a tanh product at the clip 0.999999 moves a message by up to 0.06
+SP_ATOL = {torch.float32: 0.1, torch.bfloat16: 0.5}
+
+
+def _ulps(a, b):
+    """float32 ulp distance of two same-signed planes, elementwise."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    return (ia - ib).abs()
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (97, 33), (600, 640)])
+def test_awgn_llr_kernel_equals_plain(cuda, shape):
+    got = channels.awgn_llr(0.8, shape, seed=2**40 + 3, offset=2**32 + 7,
+                            device=cuda).cpu()
+    want = channels.awgn_llr(0.8, shape, seed=2**40 + 3, offset=2**32 + 7)
+    assert got.shape == shape and got.dtype == torch.float32
+    # the same Philox words (any other word moves an LLR by far more than
+    # an ulp); float64 log/sincos may round a z apart by one float32 ulp
+    ulps = _ulps(got, want)
+    assert int(ulps.max()) <= 1
+    assert int((ulps > 0).sum()) <= max(1, got.numel() // 10**5)
+
+
+def _soft_case(family, num, dtype, seed=0):
+    """Tables and random planes for one pass comparison: n = 300, 32
+    trials a code (the padded rows of an irregular code's messages 0)."""
+    rng = np.random.default_rng(seed)
+    n, cpc = 300, 32
+    if family == "regular":
+        codes = ensemble.sample_codes(seed, 0, num, n, 3, 6, "repair")
+        var_table, dc, rows = codes.var_to_edge, 6, codes.m
+        pad_var, n_rows = -1, n
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
+        codes = irregular.sample_irregular_codes(seed, 0, num, spec)
+        var_table, dc, rows = codes.var_to_sock, codes.dc_max, codes.m + 1
+        pad_var, n_rows = n, n + 1
+    chk = codes.chk_to_var
+    if num == 1:
+        var_table, chk = var_table[0], chk[0]
+    cols = cpc * num
+    if dtype == torch.int8:
+        msg = torch.from_numpy(rng.integers(-127, 128, (rows * dc, cols))
+                               .astype(np.int8))
+        llr0 = torch.from_numpy(rng.integers(-127, 128, (n_rows, cols))
+                                .astype(np.int8))
+        pm = torch.from_numpy(rng.integers(-127, 128, (n_rows, cols))
+                              .astype(np.int8))
+    else:
+        msg = torch.from_numpy(rng.normal(0, 6, (rows * dc, cols))
+                               .astype(np.float32)).to(dtype)
+        llr0 = torch.from_numpy(rng.normal(2, 4, (n_rows, cols))
+                                .astype(np.float32))
+        pm = torch.from_numpy(rng.normal(0, 8, (n_rows, cols))
+                              .astype(np.float32)).to(dtype)
+    if family == "irregular":
+        pad = ~(codes.chk_to_var.flatten(1) < n)                 # [C, rows*dc]
+        msg.view(rows * dc, num, cpc)[pad.t()] = 0
+        llr0[n] = 127 if dtype == torch.int8 else 1e4
+    active = torch.from_numpy((rng.random(num) < 0.7).astype(np.int32))
+    active[0] = 1
+    return dict(msg=msg, llr0=llr0, pm=pm, var_table=var_table, chk=chk,
+                active=active, pad_pos=codes.m * dc, pad_var=pad_var, n=n)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("num", [1, 6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("final", [False, True])
+def test_soft_posterior_kernel_equals_plain(cuda, family, num, dtype, final):
+    case = _soft_case(family, num, dtype)
+    out = []
+    for device in (cuda, "cpu"):
+        pm = case["pm"].clone().to(device)
+        cols = pm.shape[1]
+        counts = torch.zeros(cols, dtype=torch.int32, device=device)
+        extra = {}
+        if final:
+            extra = dict(post=torch.zeros((case["n"], cols), device=device),
+                         hard=torch.zeros((case["n"], cols), dtype=torch.bool,
+                                          device=device), int8_scale=4.0)
+        soft_bp.soft_posterior(case["llr0"].to(device),
+                               case["msg"].to(device),
+                               case["var_table"].to(device),
+                               case["active"].to(device), pm, counts,
+                               pad_pos=case["pad_pos"], **extra)
+        out.append([pm.cpu(), counts.cpu()] + [t.cpu() for t in extra.values()
+                                              if isinstance(t, torch.Tensor)])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    assert int(out[1][1].sum()) > 0
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("num", [1, 6])
+@pytest.mark.parametrize("method, dtype", SOFT)
+def test_soft_check_kernel_equals_plain(cuda, family, num, method, dtype):
+    case = _soft_case(family, num, dtype, seed=1)
+    kw = dict(method=method, pad_var=case["pad_var"])
+    if method == "minsum" and dtype != torch.int8:
+        kw.update(alpha=0.8, beta=0.25)
+    out = []
+    for device in (cuda, "cpu"):
+        msg = case["msg"].clone().to(device)
+        unsat = torch.zeros(num, dtype=torch.int32, device=device)
+        soft_bp.soft_check(case["pm"].to(device), msg,
+                           case["chk"].to(device), case["active"].to(device),
+                           unsat, **kw)
+        out.append((msg.cpu(), unsat.cpu()))
+    (msg_k, unsat_k), (msg_p, unsat_p) = out
+    assert torch.equal(unsat_k, unsat_p) and int(unsat_p.sum()) > 0
+    if method == "sumproduct":
+        assert torch.allclose(msg_k.float(), msg_p.float(),
+                              atol=SP_ATOL[dtype], rtol=0)
+    else:
+        assert torch.equal(msg_k, msg_p)
+    # a stopped code's messages are untouched
+    for g in range(num):
+        if not case["active"][g]:
+            cols = slice(32 * g, 32 * (g + 1))
+            assert torch.equal(msg_k[:, cols], case["msg"][:, cols])
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("num", [1, 5])
+@pytest.mark.parametrize("method, dtype", SOFT)
+def test_soft_decodes_on_gpu_equal_plain_and_cpu(cuda, family, num, method,
+                                                 dtype):
+    n = 504
+    if family == "regular":
+        codes = ensemble.sample_codes(3, 0, num, n, 3, 6, "repair")
+        dec, plain = soft_bp.soft_bp_decode, soft_bp.soft_bp_decode_plain
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
+        codes = irregular.sample_irregular_codes(3, 0, num, spec)
+        dec, plain = (soft_bp.soft_bp_decode_irregular,
+                      soft_bp.soft_bp_decode_irregular_plain)
+    one = codes if num > 1 else codes.select(0)
+    llr = channels.awgn_llr(0.8, (n, 64 * num), seed=num)
+    kw = dict(method=method, msg_dtype=dtype, record="per_trial")
+    gpu = dec(one.to(cuda), llr.to(cuda), 30, **kw)
+    ref = plain(one.to(cuda), llr.to(cuda), 30, **kw)
+    cpu = dec(one, llr, 30, **kw)
+    for other in (ref, cpu):
+        if method == "sumproduct":
+            assert torch.allclose(gpu.posterior.cpu(), other.posterior.cpu(),
+                                  atol=SP_ATOL[dtype], rtol=0) or \
+                int((gpu.hard.cpu() != other.hard.cpu()).sum()) <= 8
+            continue
+        assert torch.equal(gpu.posterior.cpu(), other.posterior.cpu())
+        assert torch.equal(gpu.traj.cpu(), other.traj.cpu())
+        assert torch.equal(gpu.code_iterations.cpu(),
+                           other.code_iterations.cpu())
+
+
+@pytest.mark.parametrize("fields", [
+    dict(channel="BSC", decoder="minsum", channel_param=0.05,
+         code_mode="ensemble", expurgation=2),
+    dict(channel="BSC", decoder="minsum", soft_msg_dtype="int8",
+         channel_param=0.05, lam=MIXED[0], rho=RHO, code_mode="fixed"),
+    dict(channel="BSC", decoder="minsum", soft_msg_dtype="bfloat16",
+         minsum_alpha=0.8, channel_param=0.06, code_mode="fixed")])
+def test_soft_bsc_runs_gpu_equal_cpu(cuda, fields):
+    cfg = SimulationConfig(n=504, iterations=30, batch=640, num_tests=1280,
+                           seed=4, codes_per_chunk=10, max_block_errors=10**9,
+                           **fields)
+    code = ensemble.code_for_config(cfg) if cfg.code_mode == "fixed" \
+        else None
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    cpu = mc.run_simulation(cfg, code, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
+                  "error_counts_per_iteration"):
         assert getattr(gpu, field) == getattr(cpu, field), field

@@ -464,7 +464,8 @@ def test_fixed_irregular_run_and_engine_guards():
         mc.make_chunk_fn(cfg, ensemble.code_for_config(SimulationConfig(
             n=256, code_mode="fixed")), device="cpu")
     for kw, item in ((dict(decoder="peeling"), "item 14"),
-                     (dict(channel="AWGN", decoder="minsum"), "item 10"),
+                     (dict(channel="AWGN", decoder="minsum",
+                           transmit="random"), "item 11"),
                      (dict(transmit="random", expurgation=None), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             mc.make_chunk_fn(SimulationConfig(n=256, lam=LAM, rho=RHO, **kw),

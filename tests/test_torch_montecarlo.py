@@ -170,11 +170,11 @@ def test_result_loads_and_combines_in_jax(tmp_path):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(code_mode="ensemble", lam=[0, 0.5, 0.5], rho=[0, 0, 0, 0, 0, 1.0],
-          channel="BSC", decoder="minsum"), "item 10"),
+          channel="BSC", decoder="minsum", transmit="random"), "item 11"),
     (dict(decoder="ml"), "item 14"),
     (dict(decoder="peeling"), "item 14"),
     (dict(channel="BSC", decoder="gallager", transmit="random"), "item 11"),
-    (dict(channel="AWGN", decoder="minsum"), "item 10"),
+    (dict(channel="AWGN", decoder="minsum", transmit="random"), "item 11"),
     (dict(transmit="random"), "item 11"),
     (dict(edge_sharded=True), "item 13"),
 ])
