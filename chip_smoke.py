@@ -26,6 +26,21 @@ path at n = 8192, 24,576 trials (768 codes of 32 in ensemble mode), 50
 iterations, GPU runs against CPU runs, the new paths through the CLI with
 their BER anchors and threshold brackets, and their timing.
 
+Phases 23-27 do the same for random-codeword transmit (``transmit=
+"random"``): kernel E (the systematic encoder) and the two value-plane
+round kernels against their plain versions, kernels A, B and the Gallager
+variable kernel with a codeword plane, every encoded word checked against
+H, whole value-plane decodes against the plain path, GPU runs against CPU
+runs, the random paths through the CLI (the fixed (3,6) BEC and Gallager-A
+and irregular BEC paths at n = 10^4, AWGN sum-product and BSC bf16 min-sum
+at n = 8192, and the ensemble BEC and AWGN min-sum paths at the JAX
+package's validation scale, n = 2048, 32 codes of 768 trials a chunk, with
+an encoder derived per code and chunk), each held to its zero-transmit run
+at the same seed, and their timing: kernel E beside its bound and a
+library matmul, chunks against the zero-transmit chunks, and the encoder
+derivation at n = 10^4 and per ensemble chunk.  For kernel E and the two
+value kernels ``launches`` counts the fixed random BEC path.
+
 Every kernel row of the JSON line carries ``bound_ms``, the least time the
 card could take for the same work at the shape of its ``ms``: the larger
 of its bytes (each input read once, each output written once, counted from
@@ -78,11 +93,16 @@ SIGMA_STAR_SP, SIGMA_STAR_INT8 = 0.8747, 0.822
 # BSC min-sum (alpha 1) decodes (3,6) at p = 0.04 and fails at 0.05 (BER
 # 0.15, the JAX package's decoder alike at n = 2048)
 P_SOFT_BSC = 0.04
+# random-codeword transmit (phases 23-27): the fixed paths at the widths
+# above, the ensemble paths at the JAX package's validation scale (one
+# encoder per fresh code and chunk): (3,6), n = 2048, 32 codes of 768 trials
+N_RT_ENS, CODES_RT_ENS, EPS_RT_ENS, SIGMA_RT_ENS = 2048, 32, 0.40, 0.85
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # FP32 outside the tensor cores, and FP64 and INT32 at half that rate (64
 # such lanes an SM against 128 FP32 lanes)
 HBM_BYTES_S, FP32_OPS_S, FP64_OPS_S, INT32_OPS_S = 3.35e12, 67e12, 33.5e12, \
     33.5e12
+BF16_TENSOR_OPS_S = 989e12      # dense bf16 on the tensor cores
 PHILOX_OPS = 100                # 10 rounds of 4 multiplies, 4 XORs, 2 adds
 
 
@@ -1172,6 +1192,557 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         kernels), flush=True)
 
 
+def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
+    """Phases 23-27: random-codeword transmit (module docstring).  ``code``
+    is the fixed (3,6) code of n = 10^4 on ``dev``.  Kernel E, the two
+    value-round kernels and the Gallager variable kernel are held to their
+    plain versions exactly, kernel A with a codeword plane to one float32
+    ulp (as phase 18) and kernel B exactly."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models import encode, ensemble
+    from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
+                                                      erasure_bp, gallager,
+                                                      soft_bp)
+    from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
+    from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
+
+    def codewords_ok(c, x) -> bool:
+        """Every word of ``x`` satisfies every check of its code."""
+        syndrome = torch.zeros((c.chk_to_var.shape[-2], x.shape[1]),
+                               dtype=torch.int32, device=x.device)
+        for j in range(c.chk_to_var.shape[-1]):
+            syndrome ^= erasure_bp._code_major_to_plane(
+                erasure_bp._gather_rows(x, c.chk_to_var, j), c.num_codes)
+        return not bool(syndrome.any())
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- 23 -------------------------------------------------------------------
+    phase("23 kernel E and the value-round kernels against their plain "
+          "versions; kernels A, B and the Gallager variable kernel with a "
+          "codeword plane")
+    planes, derive_s = seconds(lambda: encode.code_encoder_planes(code))
+    enc, make_encoder_s = seconds(lambda: encode.make_encoder(code))
+    check(torch.equal(encode.encoder_planes(enc, dev).mask, planes.mask),
+          "make_encoder's planes differ from code_encoder_planes'")
+    print(f"encoder of the n={N_FULL} code: rank {planes.rank}, k_eff "
+          f"{planes.k}; code_encoder_planes {derive_s:.3f} s, make_encoder "
+          f"{make_encoder_s:.3f} s (elimination on {dev})", flush=True)
+    ens_codes = ensemble.sample_codes(1, 0, CODES_RT_ENS, N_RT_ENS, DV, DC,
+                                      "repair", device=dev)
+    ens_planes, ens_derive_s = seconds(
+        lambda: encode.code_encoder_planes(ens_codes))
+    print(f"encoders of {CODES_RT_ENS} codes of n={N_RT_ENS}: rank_max "
+          f"{ens_planes.rank}, k_max {ens_planes.k}; {ens_derive_s:.3f} s",
+          flush=True)
+    cases = {"one_code": (code, planes), "ensemble": (ens_codes, ens_planes)}
+    txs, err_e, err_x, err_v, value_ms = {}, 0, 0, 0, {}
+    for label, (c, pl) in cases.items():
+        info = bitops.info_planes(pl.k, WORDS_FULL, seed=1, offset=0,
+                                  device=dev)
+        tx = encode.encode_packed(pl, info)
+        err = max_abs_err(tx, encode._encode_packed_plain(pl, info))
+        check(err == 0, f"kernel E ({label}) differs from its plain version "
+                        f"(max |d| {err})")
+        check(codewords_ok(c, tx), f"kernel E ({label}): a word is not a "
+                                   "codeword")
+        check(int(bitops.total_popcount(tx)) > 0, f"{label}: all-zero tx")
+        err_e = max(err_e, err)
+        txs[label] = (c, pl, info, tx)
+        erased = bitops.bernoulli_packed(EPS_FULL, (c.n, WORDS_FULL), seed=7,
+                                         offset=3, device=dev)
+        known0 = ~erased
+        val0 = tx & known0
+        eo, ad = erasure_bp.check_exactly_one_xor(c.chk_to_var, known0, val0)
+        eo_p, ad_p = erasure_bp._check_exactly_one_xor_plain(
+            c.chk_to_var, known0, val0)
+        err = max(max_abs_err(eo, eo_p), max_abs_err(ad, ad_p))
+        check(err == 0, f"check_exactly_one_xor ({label}) differs from its "
+                        f"plain version (max |d| {err})")
+        err_x = max(err_x, err)
+        state = {}
+
+        def fresh():
+            state["known"], state["val"] = known0.clone(), val0.clone()
+            state["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def run(fn):
+            fn(c.var_to_chk, eo, ad, state["known"], state["val"],
+               state["errors"], 1)
+
+        fresh()
+        run(erasure_bp.variable_or_adopt)
+        got = (state["known"], state["val"], state["errors"])
+        fresh()
+        run(erasure_bp._variable_or_adopt_plain)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(
+            got, (state["known"], state["val"], state["errors"])))
+        check(err == 0, f"variable_or_adopt ({label}) differs from its plain "
+                        f"version (max |d| {err})")
+        err_v = max(err_v, err)
+        value_ms[label] = dict(
+            check_ms=time_ms(lambda: erasure_bp.check_exactly_one_xor(
+                c.chk_to_var, known0, val0)),
+            check_plain_ms=time_ms(
+                lambda: erasure_bp._check_exactly_one_xor_plain(
+                    c.chk_to_var, known0, val0), reps=2),
+            variable_ms=time_ms(lambda: run(erasure_bp.variable_or_adopt),
+                                prepare=fresh),
+            variable_plain_ms=time_ms(
+                lambda: run(erasure_bp._variable_or_adopt_plain),
+                prepare=fresh, reps=2),
+            check_bound=bound(nbytes(c.chk_to_var, known0, val0, eo, ad)),
+            variable_bound=bound(nbytes(c.var_to_chk, eo, ad, known0, known0,
+                                        val0, val0, state["errors"])))
+        print(f"{label}: E equal to plain, every word a codeword; value "
+              f"round equal to plain: check "
+              f"{value_ms[label]['check_ms']:.4f} ms (plain "
+              f"{value_ms[label]['check_plain_ms']:.3f}), variable "
+              f"{value_ms[label]['variable_ms']:.4f} ms (plain "
+              f"{value_ms[label]['variable_plain_ms']:.3f})", flush=True)
+    # kernel A with a codeword plane (any plane will do for the comparison)
+    shape = (N_SOFT, COLS_SOFT)
+    tx_soft = bitops.info_planes(N_SOFT, COLS_SOFT // 32, seed=2,
+                                 device=dev)
+    llr = channels.awgn_llr(SIGMA_SP, shape, seed=7, offset=3, device=dev,
+                            tx=tx_soft)
+    llr_p = channels._awgn_llr_plain(SIGMA_SP, shape, channels.awgn_key(7),
+                                     3, dev, tx_soft)
+    torch.cuda.synchronize()
+    ulps = (llr.view(torch.int32).long() - llr_p.view(torch.int32).long()) \
+        .abs()
+    ulp_max, ulp_share = int(ulps.max()), float((ulps > 0).double().mean())
+    check(ulp_max <= 1 and ulp_share < 1e-5,
+          f"kernel A with a codeword plane differs from its plain version: "
+          f"{ulp_max} ulps at most, in a share {ulp_share}")
+    raw = float(((llr < 0) ^ bitops.unpack_bits(tx_soft)).double().mean())
+    q_raw = 0.5 * math.erfc(1 / SIGMA_SP / math.sqrt(2))
+    check(abs(raw - q_raw) < 5 * (q_raw / llr.numel()) ** 0.5,
+          f"kernel A with tx: raw BER against tx {raw}, Q(1/sigma) {q_raw}")
+    measured["awgn_llr"].update(
+        ulp_max_tx=ulp_max, ulp_share_tx=ulp_share,
+        ms_tx=time_ms(lambda: channels.awgn_llr(
+            SIGMA_SP, shape, seed=7, offset=3, device=dev, tx=tx_soft)))
+    del llr_p, ulps
+    print(f"kernel A with tx: {ulp_max} ulp at most, share {ulp_share:.3e}; "
+          f"raw BER against tx {raw:.5f} (Q {q_raw:.5f}); "
+          f"{measured['awgn_llr']['ms_tx']:.4f} ms", flush=True)
+    # kernel B with a codeword plane: one pass and the final pass
+    soft_code = ensemble.code_for_config(SimulationConfig(
+        n=N_SOFT, dv=DV, dc=DC, code_mode="fixed")).to(dev)
+    graph = soft_bp._graph(soft_code)
+    active = torch.ones(1, dtype=torch.int32, device=dev)
+    err_b = 0
+    for dtype in (torch.float32, torch.int8):
+        llr0 = soft_bp._quantise(llr, 4.0) if dtype == torch.int8 else llr
+        msg = torch.zeros((graph.chk_to_var.shape[0] * graph.dc, COLS_SOFT),
+                          dtype=dtype, device=dev)
+        pm = torch.empty(llr0.shape, dtype=dtype, device=dev)
+        counts = torch.zeros(COLS_SOFT, dtype=torch.int32, device=dev)
+        unsat = torch.zeros(1, dtype=torch.int32, device=dev)
+        soft_bp._soft_posterior_plain(llr0, msg, graph.var_to_sock, active,
+                                      pm, counts, pad_pos=graph.pad_pos)
+        soft_bp._soft_check_plain(pm, msg, graph.chk_to_var, active, unsat,
+                                  method="minsum", alpha=1.0, beta=0.0,
+                                  pad_var=-1)
+        outs = []
+        for fn in (soft_bp.soft_posterior, soft_bp._soft_posterior_plain):
+            p_ = torch.empty_like(pm)
+            c_ = torch.zeros_like(counts)
+            post = torch.empty(shape, dtype=torch.float32, device=dev)
+            hard = torch.empty(shape, dtype=torch.bool, device=dev)
+            fn(llr0, msg, graph.var_to_sock, active, p_, c_,
+               pad_pos=graph.pad_pos, post=post, hard=hard, tx=tx_soft)
+            outs.append((p_, c_, post, hard))
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            err_b = max(err_b, float((a.float() - b.float()).abs().max()))
+        check(err_b == 0, f"kernel B with tx ({dtype}) differs from its "
+                          f"plain version (max |d| {err_b})")
+        check(torch.equal(outs[0][3], (outs[0][2] < 0)
+                          ^ bitops.unpack_bits(tx_soft)),
+              "kernel B: hard is not decisions ^ tx")
+        if dtype == torch.float32:
+            p_, c_ = torch.empty_like(pm), torch.zeros_like(counts)
+            measured["soft_posterior"]["fixed_ms_tx"] = time_ms(
+                lambda: soft_bp.soft_posterior(
+                    llr0, msg, graph.var_to_sock, active, p_, c_,
+                    pad_pos=graph.pad_pos, tx=tx_soft))
+        del msg, pm, outs
+    measured["soft_posterior"]["max_abs_err_tx"] = err_b
+    print(f"kernel B with tx (float32, int8; one pass and the final pass) "
+          f"equal to plain; {measured['soft_posterior']['fixed_ms_tx']:.4f} "
+          "ms (f32, one code)", flush=True)
+    del llr
+    # the Gallager variable kernel with a codeword plane
+    flips = bitops.bernoulli_packed(P_GAL, (N_FULL, WORDS_FULL), seed=7,
+                                    offset=3, device=dev)
+    tx_g = txs["one_code"][3]
+    rx = flips ^ tx_g
+    ggraph = gallager._graph(code)
+    msg0 = gallager._initial_messages(ggraph.chk_to_var, rx)
+    parity = gallager.gallager_check(msg0, ggraph.dc)
+    active = torch.ones(1, dtype=torch.int32, device=dev)
+    gstate = {}
+
+    def gfresh():
+        gstate["msg"], gstate["decided"] = msg0.clone(), rx.clone()
+        gstate["counts"] = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+
+    def grun(fn):
+        fn(gstate["msg"], parity, rx, ggraph.var_to_sock, active,
+           gstate["decided"], gstate["counts"], dc=ggraph.dc,
+           pad_pos=ggraph.pad_pos, threshold=DV - 1, clamp=False, tx=tx_g)
+
+    gfresh()
+    grun(gallager.gallager_variable)
+    got = (gstate["msg"], gstate["decided"], gstate["counts"])
+    gfresh()
+    grun(gallager._gallager_variable_plain)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(
+        got, (gstate["msg"], gstate["decided"], gstate["counts"])))
+    check(err == 0, f"Gallager variable kernel with tx differs from its "
+                    f"plain version (max |d| {err})")
+    measured["gallager_variable"].update(
+        max_abs_err_tx=err,
+        fixed_ms_tx=time_ms(lambda: grun(gallager.gallager_variable),
+                            prepare=gfresh))
+    print(f"Gallager variable kernel with tx equal to plain; "
+          f"{measured['gallager_variable']['fixed_ms_tx']:.4f} ms (one code)",
+          flush=True)
+
+    # -- 24 -------------------------------------------------------------------
+    phase("24 whole value-plane decodes against the plain path")
+    for label, (c, pl, info, tx) in txs.items():
+        erased = bitops.bernoulli_packed(EPS_FULL, (c.n, WORDS_FULL), seed=7,
+                                         offset=3, device=dev)
+        res_k, traj_k = erasure_bp.bp_decode_packed_traj(c, erased, tx, ITERS)
+        res_p, traj_p = erasure_bp.bp_decode_packed_traj_plain(c, erased, tx,
+                                                               ITERS)
+        one = erasure_bp.bp_decode_packed(c, erased, tx, ITERS)
+        zero = erasure_bp.bp_decode_packed_allzero(c, erased, ITERS)
+        torch.cuda.synchronize()
+        check(torch.equal(res_k.val, res_p.val)
+              and torch.equal(res_k.known, res_p.known)
+              and torch.equal(traj_k, traj_p)
+              and torch.equal(res_k.error_totals, res_p.error_totals)
+              and res_k.iterations == res_p.iterations,
+              f"value decode ({label}) differs from the plain path")
+        check(torch.equal(one.val, res_k.val)
+              and torch.equal(one.error_totals, res_k.error_totals),
+              f"bp_decode_packed ({label}) differs from the _traj decode")
+        check(torch.equal(zero.known, res_k.known)
+              and torch.equal(zero.error_totals, res_k.error_totals),
+              f"value decode ({label}): known differs from the all-zero "
+              "decode's")
+        check(not bool(((res_k.val ^ tx) & res_k.known).any()),
+              f"value decode ({label}): a resolved bit differs from tx")
+        print(f"value decode {label} (traj) equal to plain: iterations "
+              f"{res_k.iterations}, erasures {int(res_k.error_totals[0])} -> "
+              f"{int(res_k.error_totals[-1])}; known and totals equal the "
+              "all-zero decode's; every resolved bit is the codeword's",
+              flush=True)
+
+    # -- 25 -------------------------------------------------------------------
+    phase("25 random-transmit run_simulation on cuda against cpu")
+    for exact, fields in (
+            (True, dict(channel="BEC", decoder="bp", channel_param=EPS_FULL,
+                        code_mode="fixed")),
+            (True, dict(channel="BEC", decoder="bp", channel_param=EPS_FULL,
+                        lam=LAM_BEC, rho=RHO6, code_mode="ensemble")),
+            (True, dict(channel="BSC", decoder="gallager",
+                        channel_param=P_GAL_IRR, code_mode="ensemble")),
+            (True, dict(channel="BSC", decoder="minsum", soft_msg_dtype="int8",
+                        channel_param=0.05, code_mode="fixed")),
+            (False, dict(channel="AWGN", decoder="sumproduct",
+                         channel_param=SIGMA_SP, code_mode="ensemble"))):
+        cfg = SimulationConfig(**{
+            "n": 1024, "iterations": ITERS, "batch": 2048,
+            "num_tests": 2 * 2048, "seed": 7, "codes_per_chunk": 16,
+            "max_block_errors": 10**9, "transmit": "random", **fields})
+        fixed = ensemble.code_for_config(cfg) \
+            if cfg.code_mode == "fixed" else None
+        r_gpu = mc.run_simulation(cfg, fixed, device="cuda")
+        r_cpu = mc.run_simulation(cfg, fixed, device="cpu")
+        fields_eq = ("num_trials", "block_errors", "bit_errors",
+                     "bit_errors_sq", "code_bit_errors_sq",
+                     "error_counts_per_iteration")
+        same = all(getattr(r_gpu, f) == getattr(r_cpu, f) for f in fields_eq)
+        if exact or same:
+            check(same, f"random transmit: cuda and cpu differ ({fields})")
+            held = "counters equal"
+        else:
+            overlap = True
+            for a, b in ((r_gpu.block_errors, r_cpu.block_errors),
+                         (r_gpu.bit_errors / cfg.n, r_cpu.bit_errors / cfg.n)):
+                lo_a, hi_a = wilson(a, r_gpu.num_trials)
+                lo_b, hi_b = wilson(b, r_gpu.num_trials)
+                overlap &= lo_a <= hi_b and lo_b <= hi_a
+            check(overlap, f"random transmit: cuda and cpu disagree beyond "
+                           f"their 99% intervals ({fields})")
+            held = "counters differ, 99% intervals overlap"
+        print(f"random {cfg.channel} {cfg.decoder} {cfg.soft_msg_dtype} "
+              f"{'irregular' if cfg.irregular else '(3,6)'} {cfg.code_mode}: "
+              f"{held}; block_errors {r_gpu.block_errors} / "
+              f"{r_cpu.block_errors}, bit_errors {r_gpu.bit_errors} / "
+              f"{r_cpu.bit_errors}", flush=True)
+
+    # -- 26 -------------------------------------------------------------------
+    phase("26 the random-transmit paths through cli.main, each beside its "
+          "zero-transmit run")
+    rt_uses = ("bernoulli_packed", "encode_packed")
+    bec_uses = rt_uses + ("check_exactly_one_xor", "variable_or_adopt",
+                          "per_trial_counts")
+    soft_uses = rt_uses + ("soft_posterior", "soft_check")
+    paths = {
+        "bec_36_fixed": (dict(channel_param=EPS_FULL, n=N_FULL), bec_uses),
+        "gallager_36_fixed": (dict(channel="BSC", decoder="gallager",
+                                   channel_param=P_GAL, n=N_FULL),
+                              rt_uses + ("gallager_check",
+                                         "gallager_variable",
+                                         "per_trial_counts")),
+        "bec_irregular_fixed": (dict(channel_param=EPS_FULL, n=N_FULL,
+                                     lam=LAM_BEC, rho=RHO6), bec_uses),
+        "awgn_sp_f32_fixed": (dict(channel="AWGN", decoder="sumproduct",
+                                   channel_param=SIGMA_SP, n=N_SOFT),
+                              soft_uses + ("awgn_llr",)),
+        "bsc_minsum_bf16_fixed": (dict(channel="BSC", decoder="minsum",
+                                       soft_msg_dtype="bfloat16",
+                                       channel_param=P_SOFT_BSC, n=N_SOFT),
+                                  soft_uses),
+        "bec_36_ensemble": (dict(code_mode="ensemble", n=N_RT_ENS,
+                                 channel_param=EPS_RT_ENS,
+                                 codes_per_chunk=CODES_RT_ENS),
+                            bec_uses + ("sample_regular_codes",)),
+        "awgn_minsum_ensemble": (dict(code_mode="ensemble", n=N_RT_ENS,
+                                      channel="AWGN", decoder="minsum",
+                                      channel_param=SIGMA_RT_ENS,
+                                      codes_per_chunk=CODES_RT_ENS),
+                                 soft_uses + ("awgn_llr",
+                                              "sample_regular_codes"))}
+    by_path = {name: {} for name in kernels}
+    anchors = {}
+    with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
+        for name, (fields, needed) in paths.items():
+            common = dict(iterations=ITERS, batch=32 * WORDS_FULL,
+                          num_tests=2 * 32 * WORDS_FULL, seed=1, **fields)
+            for k in kernels.values():
+                k["wrapper"].launches = 0
+            t0 = time.perf_counter()
+            res = cli_run(tmp, name, transmit="random", **common)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {k: v["wrapper"].launches for k, v in kernels.items()}
+            for k in needed:
+                check(launches[k] > 0,
+                      f"kernel {k} was not launched on the random {name} "
+                      "path")
+                by_path[k][f"random_{name}"] = launches[k]
+            zero = cli_run(tmp, f"{name}_zero", transmit="zero", **common)
+            rates = res.error_rate_per_iteration
+            check(res.num_trials == 2 * 32 * WORDS_FULL
+                  and len(rates) == ITERS + 1
+                  and all(map(math.isfinite, rates))
+                  and res.config.transmit == "random",
+                  f"random {name}: {res.num_trials} trials, rates malformed")
+            check(0.0 <= res.bit_error_rate <= 1.0
+                  and 0.0 <= res.block_error_rate <= 1.0,
+                  f"random {name}: rates out of range")
+            counters = ("block_errors", "bit_errors", "bit_errors_sq",
+                        "code_bit_errors_sq", "error_counts_per_iteration")
+            if fields.get("channel", "BEC") == "AWGN":
+                overlap = True
+                for a, b in ((res.block_errors, zero.block_errors),
+                             (res.bit_errors / fields["n"],
+                              zero.bit_errors / fields["n"])):
+                    lo_a, hi_a = wilson(a, res.num_trials)
+                    lo_b, hi_b = wilson(b, res.num_trials)
+                    overlap &= lo_a <= hi_b and lo_b <= hi_a
+                check(overlap, f"random {name}: BER/FER outside the zero "
+                               "run's 99% interval")
+                anchor = "within the zero run's 99% intervals"
+            elif fields.get("decoder") == "minsum":
+                # posterior-0 ties decide 0: wrong only where tx is 1
+                check(res.block_errors == zero.block_errors
+                      and res.bit_errors >= zero.bit_errors,
+                      f"random {name}: block errors {res.block_errors} / "
+                      f"{zero.block_errors}, bit errors {res.bit_errors} / "
+                      f"{zero.bit_errors}")
+                anchor = ("block errors equal the zero run's, bit errors "
+                          f"{res.bit_errors} >= {zero.bit_errors}")
+            else:
+                for f in counters:
+                    check(getattr(res, f) == getattr(zero, f),
+                          f"random {name}: {f} differs from the zero run's")
+                anchor = "counters equal the zero run's"
+            anchors[name] = {"random": [res.block_errors, res.bit_errors],
+                             "zero": [zero.block_errors, zero.bit_errors],
+                             "held": anchor, "run_s": run_s}
+            print(f"random {name}: {res.num_trials} trials in {run_s:.4f} s "
+                  f"(encoder derivation included), FER "
+                  f"{res.block_error_rate:.5f} BER {res.bit_error_rate:.4e}; "
+                  f"{anchor}; launches "
+                  f"{ {k: launches[k] for k in needed} }", flush=True)
+    print(json.dumps({"random_anchors": anchors}), flush=True)
+    for k in ("encode_packed", "check_exactly_one_xor", "variable_or_adopt"):
+        measured[k]["launches"] = by_path[k]["random_bec_36_fixed"]
+    for k in kernels:
+        measured[k].setdefault("launches_by_path", {}).update(by_path[k])
+
+    # -- 27 -------------------------------------------------------------------
+    phase("27 random-transmit timing")
+    c, pl, info, tx = txs["one_code"]
+    e_ms = time_ms(lambda: encode.encode_packed(pl, info))
+    e_plain_ms = time_ms(lambda: encode._encode_packed_plain(pl, info),
+                         reps=1)
+    ec, epl, einfo, etx = txs["ensemble"]
+    e_ens_ms = time_ms(lambda: encode.encode_packed(epl, einfo))
+    # the library yardstick: one matmul of the unpacked 0/1 map and bits,
+    # mod 2 (integer sums below 2^24 are exact in a float32 accumulator)
+    mask01 = bitops.unpack_bits(pl.mask)[:, :pl.k].to(torch.bfloat16)
+    info01 = bitops.unpack_bits(info).to(torch.bfloat16)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        def library():
+            return torch.mm(mask01, info01, out_dtype=torch.float32)
+        library_call = "torch.mm(bf16, bf16, out_dtype=float32)"
+        sums = library()
+    except (TypeError, RuntimeError):
+        # this torch's mm has no bf16 -> float32 output: float32 inputs,
+        # full float32 products (exact on 0/1 entries)
+        mask32, info32 = mask01.float(), info01.float()
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+        def library():
+            return torch.mm(mask32, info32)
+        library_call = "torch.mm(float32, float32), TF32 off"
+        sums = library()
+    parity_rows = bitops.unpack_bits(tx.index_select(0, pl.pivots.long()))
+    check(torch.equal((sums.to(torch.int64) % 2).bool(), parity_rows),
+          f"the library yardstick ({library_call}) differs from kernel E")
+    library_ms = time_ms(library)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del mask01, info01, sums
+    # the least work for the function on this map: one word XOR per set
+    # map bit and word (kernel E's walk), or the same product on the tensor
+    # cores (2 operations a multiply-add over the unpacked bits)
+    e_bytes = nbytes(info, pl.mask, pl.free, pl.pivots, tx)
+    e_bound = min(
+        bound(e_bytes, int(bitops.total_popcount(pl.mask)) * WORDS_FULL,
+              INT32_OPS_S),
+        bound(e_bytes, 2.0 * pl.rank * pl.k * 32 * WORDS_FULL,
+              BF16_TENSOR_OPS_S),
+        key=lambda b: b["bound_ms"])
+    measured["encode_packed"].update(
+        max_abs_err=err_e, ms=e_ms, plain_ms=e_plain_ms,
+        library_ms=library_ms, library_call=library_call,
+        ensemble_ms=e_ens_ms, **e_bound)
+    print(f"kernel E at rank {pl.rank}, k_eff {pl.k}, W {WORDS_FULL}: "
+          f"{e_ms:.4f} ms (bound {measured['encode_packed']['bound_ms']:.4f} "
+          f"ms, {measured['encode_packed']['bound_by']}; plain "
+          f"{e_plain_ms:.2f} ms; {library_call} mod 2: {library_ms:.4f} ms); "
+          f"{CODES_RT_ENS} codes of n={N_RT_ENS}: {e_ens_ms:.4f} ms",
+          flush=True)
+    # whole decodes of one code (table rows 5 and 6): the value-plane
+    # decode, its _traj form (K4 a round) and the all-zero decode
+    erased = bitops.bernoulli_packed(EPS_FULL, (N_FULL, WORDS_FULL), seed=7,
+                                     offset=3, device=dev)
+    decode_ms = {}
+    for name, fn in (
+            ("allzero", lambda: erasure_bp.bp_decode_packed_allzero(
+                c, erased, ITERS)),
+            ("value", lambda: erasure_bp.bp_decode_packed(c, erased, tx,
+                                                          ITERS)),
+            ("traj", lambda: erasure_bp.bp_decode_packed_traj(
+                c, erased, tx, ITERS)),
+            ("traj_plain", lambda: erasure_bp.bp_decode_packed_traj_plain(
+                c, erased, tx, ITERS))):
+        decode_ms[name] = time_ms(fn, reps=1 if name.endswith("plain")
+                                  else 3)
+    print(f"decodes of one code, 50 rounds, ms: {json.dumps(decode_ms)}",
+          flush=True)
+    for name, key in (("check_exactly_one_xor", "check"),
+                      ("variable_or_adopt", "variable")):
+        t = value_ms["one_code"]
+        measured[name].update(
+            max_abs_err=err_x if key == "check" else err_v,
+            ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
+            library_ms=None, **t[f"{key}_bound"],
+            ensemble_ms=value_ms["ensemble"][f"{key}_ms"],
+            ensemble_plain_ms=value_ms["ensemble"][f"{key}_plain_ms"])
+
+    def config(**fields):
+        return SimulationConfig(**{
+            "iterations": ITERS, "batch": 32 * WORDS_FULL, "seed": 1,
+            "dv": DV, "dc": DC, "code_mode": "fixed", **fields})
+
+    cfgs = {}
+    for transmit in ("zero", "random"):
+        cfgs[f"bec_36_fixed_{transmit}"] = config(
+            n=N_FULL, channel_param=EPS_FULL, transmit=transmit)
+        cfgs[f"awgn_sp_f32_fixed_{transmit}"] = config(
+            n=N_SOFT, channel="AWGN", decoder="sumproduct",
+            channel_param=SIGMA_SP, transmit=transmit)
+        cfgs[f"bec_36_ensemble_{transmit}"] = config(
+            n=N_RT_ENS, channel_param=EPS_RT_ENS, code_mode="ensemble",
+            codes_per_chunk=CODES_RT_ENS, transmit=transmit)
+    chunk_fns, setup_s = {}, {}
+    for k, cfg in cfgs.items():
+        fixed = ensemble.code_for_config(cfg) \
+            if cfg.code_mode == "fixed" else None
+        chunk_fns[k], setup_s[k] = seconds(
+            lambda: mc.make_chunk_fn(cfg, fixed, device=dev))
+    chunk_s = {}
+    for pair in ("bec_36_fixed", "awgn_sp_f32_fixed", "bec_36_ensemble"):
+        for name in (f"{pair}_zero", f"{pair}_random", f"{pair}_random",
+                     f"{pair}_zero"):
+            chunk_fns[name](9)                   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for idx in range(2):
+                int(chunk_fns[name](idx).block_errors)
+            torch.cuda.synchronize()
+            chunk_s.setdefault(name, []).append((time.perf_counter() - t0) / 2)
+    trials_per_s = {k: 32 * WORDS_FULL / (sum(v) / len(v))
+                    for k, v in chunk_s.items()}
+    # an ensemble chunk's encoders: the batched elimination of its codes
+    ens_encoder_s = []
+    for idx in range(2):
+        codes = ensemble.sample_codes(1, idx, CODES_RT_ENS, N_RT_ENS, DV, DC,
+                                      "repair", device=dev)
+        ens_encoder_s.append(seconds(
+            lambda: encode.code_encoder_planes(codes))[1])
+    ens_chunk = sum(chunk_s["bec_36_ensemble_random"]) / 2
+    print(json.dumps({
+        "random_timing": {
+            "chunk_s": chunk_s, "chunk_trials_per_s": trials_per_s,
+            "make_chunk_fn_s": setup_s,
+            "encoder_s_n1e4": {"code_encoder_planes": derive_s,
+                               "make_encoder": make_encoder_s},
+            "encoder_s_per_ensemble_chunk": ens_encoder_s,
+            "ensemble_chunk_s_without_encoders":
+                ens_chunk - sum(ens_encoder_s) / len(ens_encoder_s),
+            "value_round_ms": value_ms, "decode_ms": decode_ms},
+        "n": N_FULL, "n_soft": N_SOFT, "n_ensemble": N_RT_ENS,
+        "words": WORDS_FULL, "codes_per_ensemble_chunk": CODES_RT_ENS,
+        "card": smi}), flush=True)
+    print(f"encoders of an ensemble chunk ({CODES_RT_ENS} codes, "
+          f"n={N_RT_ENS}): {ens_encoder_s[0]:.3f} / {ens_encoder_s[1]:.3f} s "
+          f"of a {ens_chunk:.3f} s chunk", flush=True)
+    rt_chunk_ms = sum(chunk_s["bec_36_fixed_random"]) / 2 * 1e3
+    print(device_time_breakdown(lambda: int(
+        chunk_fns["bec_36_fixed_random"](5).block_errors), rt_chunk_ms,
+        kernels), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1188,7 +1759,8 @@ def main() -> int:
 
     from iib_project_ldpc_codes_tpu_torch import cli
     from iib_project_ldpc_codes_tpu_torch.kernels.build import build
-    from iib_project_ldpc_codes_tpu_torch.models import ensemble, irregular
+    from iib_project_ldpc_codes_tpu_torch.models import (encode, ensemble,
+                                                         irregular)
     from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
     from iib_project_ldpc_codes_tpu_torch.models.ensemble import (
         code_for_config)
@@ -1250,6 +1822,20 @@ def main() -> int:
             wrapper=soft_bp.soft_check,
             source="iib_project_ldpc_codes_tpu_torch/csrc/soft_check.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/soft_bp.py:174"),
+        "encode_packed": dict(
+            wrapper=encode.encode_packed,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/encode_packed.cu",
+            replaces="iib_project_ldpc_codes_tpu/models/encode.py:110"),
+        "check_exactly_one_xor": dict(
+            wrapper=erasure_bp.check_exactly_one_xor,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "check_exactly_one_xor.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:239"),
+        "variable_or_adopt": dict(
+            wrapper=erasure_bp.variable_or_adopt,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "variable_or_adopt.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:239"),
     }
     measured = {name: {} for name in kernels}
     t_start = time.perf_counter()
@@ -1736,9 +2322,12 @@ def main() -> int:
               batch_codes[1], ens_res.bit_error_rate)
     t_slice3 = time.perf_counter() - t_start
     soft_paths(dev, smi, measured, kernels, scratch_root)
+    t_slice4 = time.perf_counter() - t_start
+    random_paths(dev, smi, measured, kernels, scratch_root, code)
     print(f"wall time: phases 1-12 {t_slice2:.1f} s, phases 13-17 "
           f"{t_slice3 - t_slice2:.1f} s, phases 18-22 "
-          f"{time.perf_counter() - t_start - t_slice3:.1f} s, total "
+          f"{t_slice4 - t_slice3:.1f} s, phases 23-27 "
+          f"{time.perf_counter() - t_start - t_slice4:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -23,8 +23,12 @@
 // codes) are skipped: their rows stay 0, the phantom variable is never
 // visited.
 //
-// Stop counts: counts[code] += (popcount of the decision, number of
-// message words that changed).  A code whose `active` flag is 0 has
+// Stop counts: counts[code] += (popcount of the decision's errors, number
+// of message words that changed).  The errors are the decision itself (the
+// all-zero codeword, tx == nullptr) or, for random-codeword transmit
+// (gallager.py:252-256), the decision XOR the packed codeword plane
+// tx int32[n, W], in an instantiation of their own; `decided` holds the
+// decision either way.  A code whose `active` flag is 0 has
 // stopped: its threads write nothing, so its messages and decision stay as
 // they were when it stopped (the JAX while_loop's per-code semantics under
 // vmap).
@@ -63,12 +67,14 @@ __device__ __forceinline__ uint32_t count_at_least(
   return ge | eq;
 }
 
+template <bool kTx>
 __global__ void gallager_variable_kernel(
     int32_t* msg, const int32_t* __restrict__ parity,
     const int32_t* __restrict__ channel, const int32_t* __restrict__ var_to_sock,
     const int32_t* __restrict__ active, int32_t* __restrict__ decided,
-    int32_t* __restrict__ counts, int n, int table_rows, int dv, int dc,
-    int pad_pos, int words, int wpc, int threshold, int clamp) {
+    int32_t* __restrict__ counts, const int32_t* __restrict__ tx, int n,
+    int table_rows, int dv, int dc, int pad_pos, int words, int wpc,
+    int threshold, int clamp) {
   const long long groups = (n + kVarsPerThread - 1) / kVarsPerThread;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -125,7 +131,12 @@ __global__ void gallager_variable_kernel(
         }
         const uint32_t dec = ch ^ count_at_least(planes, degree / 2 + 1);
         decided[static_cast<long long>(v) * words + w] = static_cast<int32_t>(dec);
-        errors += __popc(dec);
+        if (kTx) {
+          errors += __popc(dec ^ static_cast<uint32_t>(__ldg(
+                                     tx + static_cast<long long>(v) * words + w)));
+        } else {
+          errors += __popc(dec);
+        }
       }
     }
   }
@@ -145,22 +156,24 @@ __global__ void gallager_variable_kernel(
 extern "C" int ldpc_gallager_variable(
     void* msg, const void* parity, const void* channel,
     const void* var_to_sock, const void* active, void* decided, void* counts,
-    int n, int table_rows, int dv, int dc, int pad_pos, int words, int wpc,
-    int threshold, int clamp, void* stream) {
+    const void* tx, int n, int table_rows, int dv, int dc, int pad_pos,
+    int words, int wpc, int threshold, int clamp, void* stream) {
   const long long items =
       static_cast<long long>((n + kVarsPerThread - 1) / kVarsPerThread) * words;
   if (dv > kMaxDegree) return static_cast<int>(cudaErrorInvalidValue);
   if (items > 0) {
-    const long long blocks = (items + ldpc::kThreads - 1) / ldpc::kThreads;
-    gallager_variable_kernel<<<static_cast<unsigned int>(blocks),
-                               ldpc::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+    const auto blocks = static_cast<unsigned int>(
+        (items + ldpc::kThreads - 1) / ldpc::kThreads);
+    const auto s = static_cast<cudaStream_t>(stream);
+    auto kernel = tx == nullptr ? gallager_variable_kernel<false>
+                                : gallager_variable_kernel<true>;
+    kernel<<<blocks, ldpc::kThreads, 0, s>>>(
         static_cast<int32_t*>(msg), static_cast<const int32_t*>(parity),
         static_cast<const int32_t*>(channel),
         static_cast<const int32_t*>(var_to_sock),
         static_cast<const int32_t*>(active), static_cast<int32_t*>(decided),
-        static_cast<int32_t*>(counts), n, table_rows, dv, dc, pad_pos, words,
-        wpc, threshold, clamp);
+        static_cast<int32_t*>(counts), static_cast<const int32_t*>(tx), n,
+        table_rows, dv, dc, pad_pos, words, wpc, threshold, clamp);
   }
   return static_cast<int>(cudaGetLastError());
 }

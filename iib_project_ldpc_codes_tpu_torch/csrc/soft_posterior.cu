@@ -19,6 +19,12 @@
 // the first n_out rows, de-quantised by 1 / scale for int8
 // (soft_bp.py:315-317), and the decision post < 0 as a bool plane.
 //
+// Random-codeword transmit (soft_bp.py:275-285): given the packed codeword
+// plane tx int32[n_rows, cols / 32] (trial b in bit b % 32 of word b / 32),
+// the counts and the bool plane hold the errors (post < 0) ^ tx; pm and the
+// posterior are unchanged.  Without it (tx == nullptr) an instantiation
+// with the constant tx = 0 runs, the all-zero codeword's arithmetic.
+//
 // Bound on the H100: memory.  Per (variable, trial): the channel LLR
 // (4 bytes, 1 for int8), dv messages and one pm store in the working type;
 // at n = 8192, (3,6), B = 24,576 that is 4.03 GB a round in float32, 2.42 GB
@@ -35,13 +41,14 @@ using ldpc::soft::Vec;
 
 constexpr int kVarsPerThread = 32;
 
-template <typename T, typename L>
+template <typename T, typename L, bool kTx>
 __global__ void soft_posterior_kernel(
     const L* __restrict__ llr0, const T* __restrict__ msg,
     const int32_t* __restrict__ var_to_sock, const int32_t* __restrict__ active,
     T* __restrict__ pm, int32_t* __restrict__ counts, float* __restrict__ post,
-    bool* __restrict__ hard, int n_rows, int n_out, int table_rows, int dv,
-    int pad_pos, int cols, int cpc, float scale) {
+    bool* __restrict__ hard, const int32_t* __restrict__ tx, int n_rows,
+    int n_out, int table_rows, int dv, int pad_pos, int cols, int cpc,
+    float scale) {
   constexpr int K = 4 / sizeof(T);
   using E = Elem<T>;
   using Acc = typename E::Acc;
@@ -71,11 +78,19 @@ __global__ void soft_posterior_kernel(
 #pragma unroll
       for (int k = 0; k < K; ++k) acc[k] = E::add(acc[k], E::acc(m.v[k]));
     }
+    uint32_t tb = 0u;
+    if (kTx) {
+      tb = static_cast<uint32_t>(__ldg(
+               tx + static_cast<long long>(v) * (cols / 32) + col0 / 32)) >>
+           (col0 & 31);
+    }
     Vec<T, K> out;
+    bool err[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       out.v[k] = E::store(acc[k]);
-      cnt[k] += acc[k] < 0;
+      err[k] = (acc[k] < 0) != (kTx && ((tb >> k) & 1u));
+      cnt[k] += err[k];
     }
     ldpc::soft::store<T, K>(pm + row, out);
     if (post != nullptr && v < n_out) {
@@ -83,7 +98,7 @@ __global__ void soft_posterior_kernel(
       for (int k = 0; k < K; ++k) {
         const float f = static_cast<float>(acc[k]);
         post[row + k] = sizeof(T) == 1 ? __fdiv_rn(f, scale) : f;
-        hard[row + k] = acc[k] < 0;
+        hard[row + k] = err[k];
       }
     }
   }
@@ -92,26 +107,43 @@ __global__ void soft_posterior_kernel(
     if (cnt[k]) atomicAdd(counts + col0 + k, cnt[k]);
 }
 
-template <typename T, typename L>
+template <typename T, typename L, bool kTx>
 void launch_posterior(const void* llr0, const void* msg, const void* var_to_sock,
                       const void* active, void* pm, void* counts, void* post,
-                      void* hard, int n_rows, int n_out, int table_rows, int dv,
-                      int pad_pos, int cols, int cpc, float scale,
-                      cudaStream_t stream) {
+                      void* hard, const void* tx, int n_rows, int n_out,
+                      int table_rows, int dv, int pad_pos, int cols, int cpc,
+                      float scale, cudaStream_t stream) {
   constexpr int K = 4 / sizeof(T);
   const long long items =
       static_cast<long long>((n_rows + kVarsPerThread - 1) / kVarsPerThread) *
       (cols / K);
   if (items <= 0) return;
   const long long blocks = (items + ldpc::kThreads - 1) / ldpc::kThreads;
-  soft_posterior_kernel<T, L><<<static_cast<unsigned int>(blocks),
-                                ldpc::kThreads, 0, stream>>>(
+  soft_posterior_kernel<T, L, kTx><<<static_cast<unsigned int>(blocks),
+                                     ldpc::kThreads, 0, stream>>>(
       static_cast<const L*>(llr0), static_cast<const T*>(msg),
       static_cast<const int32_t*>(var_to_sock),
       static_cast<const int32_t*>(active), static_cast<T*>(pm),
       static_cast<int32_t*>(counts), static_cast<float*>(post),
-      static_cast<bool*>(hard), n_rows, n_out, table_rows, dv, pad_pos, cols,
-      cpc, scale);
+      static_cast<bool*>(hard), static_cast<const int32_t*>(tx), n_rows,
+      n_out, table_rows, dv, pad_pos, cols, cpc, scale);
+}
+
+template <typename T, typename L>
+void dispatch_tx(const void* llr0, const void* msg, const void* var_to_sock,
+                 const void* active, void* pm, void* counts, void* post,
+                 void* hard, const void* tx, int n_rows, int n_out,
+                 int table_rows, int dv, int pad_pos, int cols, int cpc,
+                 float scale, cudaStream_t stream) {
+  if (tx == nullptr) {
+    launch_posterior<T, L, false>(llr0, msg, var_to_sock, active, pm, counts,
+                                  post, hard, tx, n_rows, n_out, table_rows,
+                                  dv, pad_pos, cols, cpc, scale, stream);
+  } else {
+    launch_posterior<T, L, true>(llr0, msg, var_to_sock, active, pm, counts,
+                                 post, hard, tx, n_rows, n_out, table_rows,
+                                 dv, pad_pos, cols, cpc, scale, stream);
+  }
 }
 
 }  // namespace
@@ -119,30 +151,30 @@ void launch_posterior(const void* llr0, const void* msg, const void* var_to_sock
 extern "C" int ldpc_soft_posterior(const void* llr0, const void* msg,
                                    const void* var_to_sock, const void* active,
                                    void* pm, void* counts, void* post,
-                                   void* hard, int n_rows, int n_out,
-                                   int table_rows, int dv, int pad_pos,
-                                   int cols, int cpc, int dtype, float scale,
-                                   void* stream) {
+                                   void* hard, const void* tx, int n_rows,
+                                   int n_out, int table_rows, int dv,
+                                   int pad_pos, int cols, int cpc, int dtype,
+                                   float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cols % 4 || cpc % 4 || (post == nullptr) != (hard == nullptr))
+  if (cols % 4 || cpc % 4 || (post == nullptr) != (hard == nullptr) ||
+      (tx != nullptr && cols % 32))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case ldpc::soft::kFloat32:
-      launch_posterior<float, float>(llr0, msg, var_to_sock, active, pm, counts,
-                                     post, hard, n_rows, n_out, table_rows, dv,
-                                     pad_pos, cols, cpc, scale, s);
+      dispatch_tx<float, float>(llr0, msg, var_to_sock, active, pm, counts,
+                                post, hard, tx, n_rows, n_out, table_rows, dv,
+                                pad_pos, cols, cpc, scale, s);
       break;
     case ldpc::soft::kBfloat16:
-      launch_posterior<__nv_bfloat16, float>(llr0, msg, var_to_sock, active, pm,
-                                             counts, post, hard, n_rows, n_out,
-                                             table_rows, dv, pad_pos, cols, cpc,
-                                             scale, s);
+      dispatch_tx<__nv_bfloat16, float>(llr0, msg, var_to_sock, active, pm,
+                                        counts, post, hard, tx, n_rows, n_out,
+                                        table_rows, dv, pad_pos, cols, cpc,
+                                        scale, s);
       break;
     case ldpc::soft::kInt8:
-      launch_posterior<int8_t, int8_t>(llr0, msg, var_to_sock, active, pm,
-                                       counts, post, hard, n_rows, n_out,
-                                       table_rows, dv, pad_pos, cols, cpc,
-                                       scale, s);
+      dispatch_tx<int8_t, int8_t>(llr0, msg, var_to_sock, active, pm, counts,
+                                  post, hard, tx, n_rows, n_out, table_rows,
+                                  dv, pad_pos, cols, cpc, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -51,13 +51,16 @@ SIGNATURES = {
     "ldpc_sample_irregular_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _U, _U, _U, _I, _I, _P),
     "ldpc_gallager_check": (_P, _P, _I, _I, _I, _P),
-    "ldpc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P),
-    "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P),
-    "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _P),
+    "ldpc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P),
+    "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P, _P),
+    "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _P),
     "ldpc_soft_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _P),
+    "ldpc_encode_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ldpc_check_exactly_one_xor": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ldpc_variable_or_adopt": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

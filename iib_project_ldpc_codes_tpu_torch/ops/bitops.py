@@ -22,6 +22,15 @@ plain version alike, so a CPU run and a GPU run give the same planes:
   * the bit is set iff draw < thr, thr = floor(p * 2^32) computed in
     float64 on the host and clipped to [0, 2^32].
 
+The information bits of random-codeword transmit (:func:`info_planes`) are
+K1 planes at p = 0.5 on a key of their own: ``philox_key(seed)`` with
+``INFO_KEY_TAG`` XORed into word 0 (apart from K1's noise planes, whose key
+is untweaked, from the AWGN noise, tag ``0xB7E15162`` in word 0, and from
+the code sampler, which tweaks word 1), offset = the chunk index.  So a
+random-transmit chunk draws the same erasures, flips and AWGN noise as the
+zero-transmit chunk of the same (seed, offset), and its codewords from a
+stream that shares no counter with them.
+
 JAX compares ``float32(draw) < float32(p * 2^32)`` (ops/bitops.py:75-77);
 the integer compare here is exact, and the two differ in probability by at
 most 2^-24 relative.  ``jax.random`` and Philox give different planes from
@@ -42,6 +51,7 @@ MASK32 = 0xFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 DRAWS_PER_WORD = WORD // 4     # Philox blocks per packed word
+INFO_KEY_TAG = 0x6A09E667      # XORed into key word 0 for information bits
 
 
 def _shifts(device) -> torch.Tensor:
@@ -183,11 +193,12 @@ def _bernoulli_packed_plain(thr: int, shape, key: tuple[int, int],
 
 
 def bernoulli_packed(prob: float, shape, *, seed: int, offset: int = 0,
-                     device="cpu") -> torch.Tensor:
+                     device="cpu", key_tag: int = 0) -> torch.Tensor:
     """int32[*shape] with 32 independent Bernoulli(prob) bits per word.
 
     Deterministic in (seed, offset): the module docstring gives the
-    scheme.  On a CUDA device K1 writes the planes; on the CPU the plain
+    scheme; ``key_tag`` is XORed into word 0 of the key (a stream of its
+    own).  On a CUDA device K1 writes the planes; on the CPU the plain
     version computes the same bits.
     """
     shape = tuple(int(s) for s in shape)
@@ -196,7 +207,8 @@ def bernoulli_packed(prob: float, shape, *, seed: int, offset: int = 0,
     if not 0 <= offset < (1 << 64):
         raise ValueError(f"offset {offset} outside [0, 2^64)")
     thr = bernoulli_threshold(prob)
-    key = philox_key(seed)
+    k0, k1 = philox_key(seed)
+    key = (k0 ^ (key_tag & MASK32), k1)
     device = torch.device(device)
     if not use_kernel(device):
         return _bernoulli_packed_plain(thr, shape, key, offset, device)
@@ -208,4 +220,12 @@ def bernoulli_packed(prob: float, shape, *, seed: int, offset: int = 0,
 
 
 bernoulli_packed.launches = 0
+
+
+def info_planes(k: int, words: int, *, seed: int, offset: int = 0,
+                device="cpu") -> torch.Tensor:
+    """int32[k, words] fair information bits of random-codeword transmit:
+    K1 at p = 0.5 on the information key (module docstring)."""
+    return bernoulli_packed(0.5, (k, words), seed=seed, offset=offset,
+                            device=device, key_tag=INFO_KEY_TAG)
 

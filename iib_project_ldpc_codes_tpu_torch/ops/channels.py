@@ -4,9 +4,12 @@ The canonical alphabet is the JAX package's: bits in {0,1}, erasure = 2
 (``ERASURE``).  Packed planes (32 trials per int32 word) of the BEC and the
 BSC come from K1 (``ops/bitops.py::bernoulli_packed``): erasures on the
 BEC, flips against the all-zero codeword on the BSC; the soft decoders read
-the BSC as LLR planes of those flips (:meth:`BSC.llr_of_flips`).  The AWGN
-channel's LLR planes of the all-zero codeword come from kernel A
-(:func:`awgn_llr`, ``csrc/awgn_llr.cu``).
+the BSC as LLR planes of those flips (:meth:`BSC.llr_of_flips`), or, for a
+transmitted codeword plane tx, of the received bits tx ^ flips.  The AWGN
+channel's LLR planes come from kernel A (:func:`awgn_llr`,
+``csrc/awgn_llr.cu``), of the all-zero codeword or of a packed codeword
+plane.  Random-codeword transmit keeps the zero-transmit noise: the same
+(seed, offset) gives the same flips and the same normals z either way.
 
 AWGN draws: element i of the row-major float32[n, B] plane is lane i % 4 of
 the Philox4x32-10 block at counter (g mod 2^32, g >> 32, offset mod 2^32,
@@ -17,7 +20,8 @@ shares counters with a flip or a code draw.  Box-Muller in float64 on the
 word pairs (0, 1) and (2, 3): u1 = (x + 0.5) 2^-32, u2 = y 2^-32, r =
 sqrt(-2 ln u1), lanes (r cos 2 pi u2, r sin 2 pi u2), rounded to float32.
 Then JAX's float32 arithmetic (ops/channels.py:86-93), one rounding a step:
-noise = z sigma, y = 1 + noise, llr = (2 y) / (sigma sigma).  The kernel's
+noise = z sigma, y = (1 - 2b) + noise, llr = (2 y) / (sigma sigma), b the
+transmitted bit (0 without a codeword plane).  The kernel's
 float64 ``log``/``sincos`` and the CPU's may round differently, so a CPU
 and a GPU plane agree to one float32 ulp, equal in all but a tiny share of
 entries.
@@ -30,7 +34,7 @@ import math
 
 import torch
 
-from ..kernels import launch, use_kernel
+from ..kernels import check_int32, launch, use_kernel
 from .bitops import MASK32, bernoulli_packed, philox4x32_10, philox_key, \
     unpack_bits
 
@@ -80,9 +84,10 @@ class BSC:
         return torch.where(received == 0, mag, -mag).to(torch.float32)
 
     def llr_of_flips(self, flips: torch.Tensor) -> torch.Tensor:
-        """float32[n, 32W] channel LLRs of the all-zero codeword from K1's
-        packed flip planes int32[n, W] (trial b in bit b % 32 of word
-        b // 32): -mag where the bit flipped, +mag elsewhere.  The
+        """float32[n, 32W] channel LLRs of packed received bits int32[n, W]
+        (trial b in bit b % 32 of word b // 32): K1's flip planes for the
+        all-zero codeword, tx ^ flips for a codeword plane tx; -mag where
+        the bit is 1, +mag elsewhere.  The
         magnitude log((1-p)/p) is taken in float64 and rounded once to
         float32 (JAX: float32 ``log``, which may differ by an ulp)."""
         mag = math.log((1 - self.crossover_prob) / self.crossover_prob)
@@ -165,20 +170,25 @@ def _awgn_normals(total: int, key: tuple[int, int], offset: int,
 
 
 def _awgn_llr_plain(sigma: float, shape, key: tuple[int, int], offset: int,
-                    device) -> torch.Tensor:
+                    device, tx=None) -> torch.Tensor:
     """Plain version of kernel A: the same Philox words and float64
     transform, then JAX's float32 steps."""
     z = _awgn_normals(math.prod(shape), key, offset, device).reshape(shape)
     ch = AWGN(sigma)
-    return ch.llr(1.0 + z * ch._sigma(device))
+    noise = z * ch._sigma(device)
+    if tx is None:
+        return ch.llr(1.0 + noise)
+    return ch.llr(torch.where(unpack_bits(tx), -1.0, 1.0) + noise)
 
 
 def awgn_llr(sigma: float, shape, *, seed: int, offset: int = 0,
-             device="cpu") -> torch.Tensor:
-    """float32[*shape] AWGN channel LLRs of the all-zero codeword, noise
-    standard deviation ``sigma``: deterministic in (seed, offset) by the
-    scheme of the module docstring.  On a CUDA device kernel A writes the
-    plane; on the CPU its plain version computes it."""
+             device="cpu", tx=None) -> torch.Tensor:
+    """float32[*shape] AWGN channel LLRs, noise standard deviation
+    ``sigma``: deterministic in (seed, offset) by the scheme of the module
+    docstring.  ``tx`` (int32[n, B // 32] packed, for shape (n, B), B a
+    multiple of 32) is the transmitted codeword; None sends the all-zero
+    codeword.  On a CUDA device kernel A writes the plane; on the CPU its
+    plain version computes it."""
     shape = tuple(int(s) for s in shape)
     if any(s < 0 for s in shape):
         raise ValueError(f"negative shape {shape}")
@@ -186,13 +196,25 @@ def awgn_llr(sigma: float, shape, *, seed: int, offset: int = 0,
         raise ValueError(f"offset {offset} outside [0, 2^64)")
     if not sigma > 0:
         raise ValueError(f"sigma must be positive, got {sigma}")
+    if tx is not None:
+        check_int32("tx", tx, 2)
+        if len(shape) != 2 or shape[1] % 32 or \
+                tuple(tx.shape) != (shape[0], shape[1] // 32):
+            raise ValueError(f"tx {tuple(tx.shape)} is not the packed plane "
+                             f"of an {shape} LLR plane")
     key = awgn_key(seed)
     device = torch.device(device)
+    if tx is not None:
+        if tx.device.type != device.type or device.index not in (
+                None, tx.device.index):
+            raise ValueError(f"tx on {tx.device}, LLRs asked on {device}")
+        device = tx.device
     if not use_kernel(device):
-        return _awgn_llr_plain(sigma, shape, key, offset, device)
+        return _awgn_llr_plain(sigma, shape, key, offset, device, tx)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     launch("ldpc_awgn_llr", device, out.data_ptr(), out.numel(), key[0],
-           key[1], offset & MASK32, offset >> 32, float(sigma))
+           key[1], offset & MASK32, offset >> 32, float(sigma),
+           None if tx is None else tx.data_ptr())
     awgn_llr.launches += 1
     return out
 

@@ -31,12 +31,26 @@ batch) decode through the same K2/K3 on a phantom view of their padded
 tables (:func:`bp_decode_packed_allzero_irregular`): the planes gain the
 phantom variable's row n, never erased, so it never blocks a check, the
 phantom check's summary is zero, and K3 counts no erasure for it.
+
+Random-codeword transmit (:func:`bp_decode_packed` and its ``_traj`` and
+``_irregular`` forms, JAX erasure_bp.py:239-276, 310-334, 383-409) also
+carries the value planes ``val`` (the transmitted bits where known).  Its
+round is two kernels of its own beside K2/K3, which stay the all-zero
+path: the check pass :func:`check_exactly_one_xor`
+(``csrc/check_exactly_one_xor.cu``: exactly_one and exactly_one &
+xor_known) and the variable pass :func:`variable_or_adopt`
+(``csrc/variable_or_adopt.cu``: known |= OR exactly_one, val |= OR
+adopt & ~known, the erasure count).  The ``_traj`` forms add K4's
+per-trial counts of ~known after every round, int32[max_iters+1, B], the
+tail filled with the final counts.  ``known`` evolves as in the all-zero
+decode, whatever ``val`` holds, so the two decodes' erasure counts agree
+bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -142,6 +156,9 @@ class PackedBPResult:
     # reached zero erasures (the summed count then needs one unchanged
     # round to stop)
     iterations: int
+    # int32[n, W] decoded bit planes (valid where known); None for the
+    # all-zero decode, whose values are the all-zero plane
+    val: Optional[torch.Tensor] = None
 
     @property
     def bit_errors(self) -> torch.Tensor:
@@ -329,6 +346,189 @@ def bp_decode_packed_allzero_plain(code: LDPCCode, erased: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Packed value-plane path (random-codeword transmit): its own two kernels
+# ---------------------------------------------------------------------------
+
+def _check_exactly_one_xor_plain(chk_to_var: torch.Tensor,
+                                 known: torch.Tensor, val: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`check_exactly_one_xor`: JAX's per-socket
+    form (erasure_bp.py:203-228), per code of a batch."""
+    exactly_one = _check_exactly_one_plain(chk_to_var, known)
+    xor_known = torch.zeros_like(exactly_one)
+    num = chk_to_var.shape[0] if chk_to_var.dim() == 3 else 1
+    for j in range(chk_to_var.shape[-1]):
+        xor_known ^= _code_major_to_plane(
+            _gather_rows(val & known, chk_to_var, j), num)
+    return exactly_one, exactly_one & xor_known
+
+
+def check_exactly_one_xor(chk_to_var: torch.Tensor, known: torch.Tensor,
+                          val: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(exactly_one, adopt), each int32[m, W]: per check and trial,
+    whether exactly one participant is unknown, and that bit AND the XOR
+    of the known participants' values (the value the unknown one must
+    take).  Tables and batches as :func:`check_exactly_one`."""
+    check_int32("known", known, 2)
+    check_int32("val", val, 2)
+    if val.shape != known.shape:
+        raise ValueError("val and known differ in shape")
+    wpc = _words_per_code("chk_to_var", chk_to_var, known.shape[1])
+    if not use_kernel(chk_to_var, known, val):
+        return _check_exactly_one_xor_plain(chk_to_var, known, val)
+    m, dc = chk_to_var.shape[-2:]
+    words = known.shape[1]
+    exactly_one = torch.empty((m, words), dtype=torch.int32,
+                              device=known.device)
+    adopt = torch.empty_like(exactly_one)
+    launch("ldpc_check_exactly_one_xor", known.device, known.data_ptr(),
+           val.data_ptr(), chk_to_var.data_ptr(), exactly_one.data_ptr(),
+           adopt.data_ptr(), m, dc, words, wpc)
+    check_exactly_one_xor.launches += 1
+    return exactly_one, adopt
+
+
+check_exactly_one_xor.launches = 0
+
+
+def _variable_or_adopt_plain(var_to_chk: torch.Tensor,
+                             exactly_one: torch.Tensor, adopt: torch.Tensor,
+                             known: torch.Tensor, val: torch.Tensor,
+                             errors: torch.Tensor, slot: int) -> None:
+    """Plain version of :func:`variable_or_adopt` (JAX erasure_bp.py:231-248),
+    per code of a batch."""
+    num = var_to_chk.shape[0] if var_to_chk.dim() == 3 else 1
+    taken = _gather_rows(adopt, var_to_chk, 0)
+    for j in range(1, var_to_chk.shape[-1]):
+        taken |= _gather_rows(adopt, var_to_chk, j)
+    val |= _code_major_to_plane(taken, num) & ~known
+    _variable_or_update_plain(var_to_chk, exactly_one, known, errors, slot)
+
+
+def variable_or_adopt(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
+                      adopt: torch.Tensor, known: torch.Tensor,
+                      val: torch.Tensor, errors: torch.Tensor,
+                      slot: int) -> None:
+    """In place: ``val |= OR_j adopt[var_to_chk[:, j]] & ~known``, then
+    ``known |= OR_j exactly_one[var_to_chk[:, j]]``, and ``errors[slot]``
+    = erasures left (``errors[slot]`` must be 0 on entry).  Tables and
+    batches as :func:`variable_or_update`."""
+    for name, t in (("known", known), ("val", val),
+                    ("exactly_one", exactly_one), ("adopt", adopt)):
+        check_int32(name, t, 2)
+    check_int32("errors", errors, 1)
+    wpc = _words_per_code("var_to_chk", var_to_chk, known.shape[1])
+    if val.shape != known.shape or adopt.shape != exactly_one.shape or \
+            exactly_one.shape[1] != known.shape[1]:
+        raise ValueError("known, val, exactly_one and adopt do not fit "
+                         "together")
+    if var_to_chk.shape[-2] != known.shape[0]:
+        raise ValueError("var_to_chk and known differ in rows")
+    if not 0 <= slot < errors.shape[0]:
+        raise ValueError(f"slot {slot} outside errors[{errors.shape[0]}]")
+    if not use_kernel(var_to_chk, exactly_one, adopt, known, val, errors):
+        _variable_or_adopt_plain(var_to_chk, exactly_one, adopt, known, val,
+                                 errors, slot)
+        return
+    n, dv = var_to_chk.shape[-2:]
+    launch("ldpc_variable_or_adopt", known.device, known.data_ptr(),
+           val.data_ptr(), exactly_one.data_ptr(), adopt.data_ptr(),
+           var_to_chk.data_ptr(), errors[slot:].data_ptr(), n, dv,
+           known.shape[1], wpc)
+    variable_or_adopt.launches += 1
+
+
+variable_or_adopt.launches = 0
+
+
+def _decode_values(code, erased: torch.Tensor, tx_bits: torch.Tensor,
+                   max_iters: int, passes, traj: bool):
+    """The packed value-plane decode, parametrised by its passes (check,
+    variable, counts); returns ``(PackedBPResult, traj or None)``."""
+    check, variable, counts = passes
+    check_int32("erased", erased, 2)
+    check_int32("tx_bits", tx_bits, 2)
+    if erased.shape[0] != code.n or tx_bits.shape != erased.shape:
+        raise ValueError(f"erased {tuple(erased.shape)} and tx_bits "
+                         f"{tuple(tx_bits.shape)} must be [n={code.n}, W]")
+    _check_packed_batch_bits(code.n, erased.shape[1])
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    known = ~erased
+    val = tx_bits & known
+    counts0 = counts(erased)
+    rows = [counts0] if traj else None
+    total0 = int(counts0.sum(dtype=torch.int64))
+    errors = torch.zeros(max_iters + 1, dtype=torch.int32,
+                         device=erased.device)
+
+    def step(it: int) -> int:
+        exactly_one, adopt = check(code.chk_to_var, known, val)
+        variable(code.var_to_chk, exactly_one, adopt, known, val, errors,
+                 it + 1)
+        if traj:
+            rows.append(counts(~known))
+        return int(errors[it + 1])
+
+    totals, it = _run_to_fixed_point(step, total0, max_iters)
+    res = PackedBPResult(
+        known=known, val=val,
+        error_totals=torch.tensor(totals, dtype=torch.int32,
+                                  device=erased.device),
+        iterations=it)
+    if not traj:
+        return res, None
+    return res, torch.stack(rows + [rows[-1]] * (max_iters - it))
+
+
+_VALUE_KERNELS = (check_exactly_one_xor, variable_or_adopt, per_trial_counts)
+_VALUE_PLAIN = (_check_exactly_one_xor_plain, _variable_or_adopt_plain,
+                _per_trial_counts_plain)
+
+
+def bp_decode_packed(code: LDPCCode, erased: torch.Tensor,
+                     tx_bits: torch.Tensor, max_iters: int
+                     ) -> PackedBPResult:
+    """Decode 32*W trials of the transmitted planes ``tx_bits`` int32[n,
+    W] (a codeword per trial) under the erasures ``erased`` int32[n, W],
+    on one code or a batch (word w on code ``w // (W // C)``).  The
+    result's ``val`` holds the decoded bits where ``known``.  On CUDA
+    tensors each round is :func:`check_exactly_one_xor` and
+    :func:`variable_or_adopt`; on CPU tensors their plain versions."""
+    return _decode_values(code, erased, tx_bits, max_iters, _VALUE_KERNELS,
+                          False)[0]
+
+
+def bp_decode_packed_plain(code: LDPCCode, erased: torch.Tensor,
+                           tx_bits: torch.Tensor, max_iters: int
+                           ) -> PackedBPResult:
+    """:func:`bp_decode_packed` through the plain version of every pass,
+    on any device: the reference the kernels are held to."""
+    return _decode_values(code, erased, tx_bits, max_iters, _VALUE_PLAIN,
+                          False)[0]
+
+
+def bp_decode_packed_traj(code: LDPCCode, erased: torch.Tensor,
+                          tx_bits: torch.Tensor, max_iters: int
+                          ) -> Tuple[PackedBPResult, torch.Tensor]:
+    """:func:`bp_decode_packed` that also returns ``traj``
+    int32[max_iters+1, B], the erasures of each trial after each round
+    (K4 a round), the tail filled with the final counts; ``error_totals``
+    is its sum over trials."""
+    return _decode_values(code, erased, tx_bits, max_iters, _VALUE_KERNELS,
+                          True)
+
+
+def bp_decode_packed_traj_plain(code: LDPCCode, erased: torch.Tensor,
+                                tx_bits: torch.Tensor, max_iters: int
+                                ) -> Tuple[PackedBPResult, torch.Tensor]:
+    """:func:`bp_decode_packed_traj` through the plain passes."""
+    return _decode_values(code, erased, tx_bits, max_iters, _VALUE_PLAIN,
+                          True)
+
+
+# ---------------------------------------------------------------------------
 # Irregular codes: K2/K3 unchanged on the phantom-padded tables
 # ---------------------------------------------------------------------------
 
@@ -354,7 +554,9 @@ def _pad_phantom_row(plane: torch.Tensor) -> torch.Tensor:
 
 
 def _strip_phantom(res: PackedBPResult) -> PackedBPResult:
-    return dataclasses.replace(res, known=res.known[:-1])
+    return dataclasses.replace(
+        res, known=res.known[:-1],
+        val=None if res.val is None else res.val[:-1])
 
 
 def bp_decode_packed_allzero_irregular(code, erased: torch.Tensor,
@@ -363,6 +565,48 @@ def bp_decode_packed_allzero_irregular(code, erased: torch.Tensor,
     of them; ``erased`` and the result's planes are [n, W]."""
     return _strip_phantom(bp_decode_packed_allzero(
         _phantom_view(code), _pad_phantom_row(erased), max_iters))
+
+
+def _irregular_values(code, erased, tx_bits, max_iters, passes, traj):
+    """A value-plane decode on the phantom view: the phantom row is known,
+    its transmitted bit 0."""
+    res, rows = _decode_values(_phantom_view(code), _pad_phantom_row(erased),
+                               _pad_phantom_row(tx_bits), max_iters, passes,
+                               traj)
+    return _strip_phantom(res), rows
+
+
+def bp_decode_packed_irregular(code, erased: torch.Tensor,
+                               tx_bits: torch.Tensor, max_iters: int
+                               ) -> PackedBPResult:
+    """:func:`bp_decode_packed` for an irregular code or a batch of them;
+    [n, W] planes in and out."""
+    return _irregular_values(code, erased, tx_bits, max_iters,
+                             _VALUE_KERNELS, False)[0]
+
+
+def bp_decode_packed_irregular_plain(code, erased: torch.Tensor,
+                                     tx_bits: torch.Tensor, max_iters: int
+                                     ) -> PackedBPResult:
+    """:func:`bp_decode_packed_irregular` through the plain passes."""
+    return _irregular_values(code, erased, tx_bits, max_iters, _VALUE_PLAIN,
+                             False)[0]
+
+
+def bp_decode_packed_traj_irregular(code, erased: torch.Tensor,
+                                    tx_bits: torch.Tensor, max_iters: int
+                                    ) -> Tuple[PackedBPResult, torch.Tensor]:
+    """:func:`bp_decode_packed_traj` for irregular codes."""
+    return _irregular_values(code, erased, tx_bits, max_iters,
+                             _VALUE_KERNELS, True)
+
+
+def bp_decode_packed_traj_irregular_plain(
+        code, erased: torch.Tensor, tx_bits: torch.Tensor, max_iters: int
+) -> Tuple[PackedBPResult, torch.Tensor]:
+    """:func:`bp_decode_packed_traj_irregular` through the plain passes."""
+    return _irregular_values(code, erased, tx_bits, max_iters, _VALUE_PLAIN,
+                             True)
 
 
 def bp_decode_irregular(code, channel_output: torch.Tensor, max_iters: int

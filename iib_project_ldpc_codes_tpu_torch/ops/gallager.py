@@ -30,6 +30,13 @@ code's messages and decision stay frozen while the others run on).
 ``error_totals[0]`` is the raw channel error count, its tail after a code
 stops holds that code's final count, and the totals are summed over codes.
 The host reads one flag a round.
+
+Random-codeword transmit (``tx_bits`` int32[n, W], the packed transmitted
+codewords; ``received`` is then tx ^ flips): errors are counted against
+tx, in the variable kernel's own instantiation, the loop stops on them,
+and the returned ``decided`` holds the error planes decision ^ tx (JAX
+gallager.py:238-286).  The update is XOR-affine in a codeword shift, so
+with the zero run's flips the counts equal the zero run's bit for bit.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ class GallagerResult:
     """Result of a packed Gallager decode of B = 32*W trials."""
 
     decided: torch.Tensor       # int32[n, W]; set bit = decision error
+    #                             (the decision ^ tx_bits with a codeword)
     error_totals: torch.Tensor  # int32[max_iters+1] decision errors
     iterations: int             # rounds run (a batch: the most of any code)
     # int32[max_iters+1, B] per-trial error trajectories, with
@@ -203,7 +211,7 @@ gallager_check.launches = 0
 
 def _gallager_variable_plain(msg, parity, channel, var_to_sock, active,
                              decided, counts, *, dc: int, pad_pos: int,
-                             threshold: int, clamp: bool) -> None:
+                             threshold: int, clamp: bool, tx=None) -> None:
     """Plain version of the variable kernel, in JAX's bit-sliced form:
     masked disagreement planes, per-variable thresholds selected over the
     candidate counts, majority by the same count."""
@@ -234,7 +242,8 @@ def _gallager_variable_plain(msg, parity, channel, var_to_sock, active,
         _scatter(msg, socks[p], new)
     dec = torch.where(on, channel ^ _flip_at_threshold(dis, majority),
                       decided)
-    errors = popcount(dec).sum(0, dtype=torch.int64)
+    errors = popcount(dec if tx is None else dec ^ tx) \
+        .sum(0, dtype=torch.int64)
     decided.copy_(dec)
     per_code = torch.stack([errors, changed], 1).reshape(num, -1, 2).sum(1)
     counts += torch.where(active.bool()[:, None], per_code, 0) \
@@ -245,7 +254,8 @@ def gallager_variable(msg: torch.Tensor, parity: torch.Tensor,
                       channel: torch.Tensor, var_to_sock: torch.Tensor,
                       active: torch.Tensor, decided: torch.Tensor,
                       counts: torch.Tensor, *, dc: int, pad_pos: int,
-                      threshold: int, clamp: bool) -> None:
+                      threshold: int, clamp: bool,
+                      tx: Optional[torch.Tensor] = None) -> None:
     """One variable pass, in place: new messages into ``msg`` int32[rows
     * dc, W] (socket positions below ``pad_pos`` only), the decision into
     ``decided`` int32[n, W], and ``counts[g] +=`` (decision errors,
@@ -253,10 +263,13 @@ def gallager_variable(msg: torch.Tensor, parity: torch.Tensor,
     nonzero.  ``parity`` is :func:`gallager_check` of ``msg``;
     ``var_to_sock`` is int32[(C,) >= n, dv]; ``active`` int32[C],
     ``counts`` int32[C, 2]; ``clamp`` selects the irregular per-degree
-    threshold."""
+    threshold.  The errors are the decision's set bits, or its bits that
+    differ from the transmitted codeword ``tx`` int32[n, W]."""
     for name, t in (("msg", msg), ("parity", parity), ("channel", channel),
                     ("decided", decided), ("counts", counts)):
         check_int32(name, t, 2)
+    if tx is not None and (check_int32("tx", tx, 2).shape != channel.shape):
+        raise ValueError("tx and channel differ in shape")
     check_int32("active", active, 1)
     n, words = channel.shape
     wpc = _words_per_code("var_to_sock", var_to_sock, words)
@@ -269,10 +282,10 @@ def gallager_variable(msg: torch.Tensor, parity: torch.Tensor,
     if active.shape[0] != num or counts.shape != (num, 2):
         raise ValueError(f"active and counts must hold {num} codes")
     if not use_kernel(msg, parity, channel, var_to_sock, active, decided,
-                      counts):
+                      counts, *(() if tx is None else (tx,))):
         _gallager_variable_plain(msg, parity, channel, var_to_sock, active,
                                  decided, counts, dc=dc, pad_pos=pad_pos,
-                                 threshold=threshold, clamp=clamp)
+                                 threshold=threshold, clamp=clamp, tx=tx)
         return
     dv = var_to_sock.shape[-1]
     if dv > MAX_DEGREE:
@@ -280,9 +293,9 @@ def gallager_variable(msg: torch.Tensor, parity: torch.Tensor,
                          f"{MAX_DEGREE}")
     launch("ldpc_gallager_variable", msg.device, msg.data_ptr(),
            parity.data_ptr(), channel.data_ptr(), var_to_sock.data_ptr(),
-           active.data_ptr(), decided.data_ptr(), counts.data_ptr(), n,
-           var_to_sock.shape[-2], dv, dc, pad_pos, words, wpc, threshold,
-           int(clamp))
+           active.data_ptr(), decided.data_ptr(), counts.data_ptr(),
+           None if tx is None else tx.data_ptr(), n, var_to_sock.shape[-2],
+           dv, dc, pad_pos, words, wpc, threshold, int(clamp))
     gallager_variable.launches += 1
 
 
@@ -324,7 +337,7 @@ def _graph(code) -> _Graph:
 def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
                    threshold_of: Callable[[int], int],
                    change_ahead: Callable[[int], bool], record: str,
-                   passes) -> GallagerResult:
+                   passes, tx: Optional[torch.Tensor]) -> GallagerResult:
     """Host loop shared by the decoders: the JAX ``_gallager_loop``
     semantics, per code of a batch (module docstring)."""
     check, variable, counts_of = passes
@@ -334,6 +347,14 @@ def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
     n, words = received.shape
     if n != graph.n:
         raise ValueError(f"received has {n} rows, code n={graph.n}")
+    if tx is not None and check_int32("tx_bits", tx, 2).shape != \
+            received.shape:
+        raise ValueError(f"tx_bits {tuple(tx.shape)} differs from received "
+                         f"{tuple(received.shape)}")
+
+    def as_err(decision: torch.Tensor) -> torch.Tensor:
+        return decision if tx is None else decision ^ tx
+
     _check_packed_batch_bits(n, words)
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
@@ -344,10 +365,10 @@ def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
                             if graph.irregular else received)
     decided = received.clone()
     if record == "per_trial":
-        traj = [counts_of(received)]
+        traj = [counts_of(as_err(received))]
         current = traj[0].reshape(num, -1).sum(1, dtype=torch.int64)
     else:
-        current = popcount(received).sum(0, dtype=torch.int64) \
+        current = popcount(as_err(received)).sum(0, dtype=torch.int64) \
             .reshape(num, -1).sum(1)
     errors = torch.zeros(max_iters + 1, dtype=torch.int64, device=device)
     errors[0] = current.sum()
@@ -359,22 +380,22 @@ def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
         parity = check(msg, graph.dc)
         variable(msg, parity, received, graph.var_to_sock, active, decided,
                  counts, dc=graph.dc, pad_pos=graph.pad_pos,
-                 threshold=threshold_of(it), clamp=graph.irregular)
+                 threshold=threshold_of(it), clamp=graph.irregular, tx=tx)
         ran = active.bool()
         current = torch.where(ran, counts[:, 0].long(), current)
         errors[it + 1] = current.sum()
         if record == "per_trial":
-            traj.append(counts_of(decided))
+            traj.append(counts_of(as_err(decided)))
         moving = (counts[:, 1] > 0) | change_ahead(it)
         active = (ran & (counts[:, 0] > 0) & moving).to(torch.int32)
         it += 1
     errors[it + 1:] = current.sum()
     if record == "total":
-        return GallagerResult(decided=decided,
+        return GallagerResult(decided=as_err(decided),
                               error_totals=errors.to(torch.int32),
                               iterations=it)
     traj = torch.stack(traj + [traj[-1]] * (max_iters - it))
-    return GallagerResult(decided=decided,
+    return GallagerResult(decided=as_err(decided),
                           error_totals=traj.sum(1, dtype=torch.int64)
                           .to(torch.int32),
                           iterations=it, traj=traj)
@@ -385,16 +406,8 @@ _PLAIN_PASSES = (_gallager_check_plain, _gallager_variable_plain,
                  _per_trial_counts_plain)
 
 
-def _no_random_transmit(tx_bits) -> None:
-    if tx_bits is not None:
-        raise NotImplementedError(
-            "random-codeword transmit (tx_bits) is not ported yet (ROADMAP "
-            "queue 1 item 11)")
-
-
 def _regular(code, received, max_iters, threshold, schedule, record,
              tx_bits, passes) -> GallagerResult:
-    _no_random_transmit(tx_bits)
     dv = code.dv
     if schedule is None:
         # any t <= 0 always flips, any t >= dv never does: clip into int32
@@ -425,17 +438,16 @@ def _regular(code, received, max_iters, threshold, schedule, record,
         def change_ahead(it):
             return ahead[it]
     return _gallager_loop(_graph(code), received, max_iters, threshold_of,
-                          change_ahead, record, passes)
+                          change_ahead, record, passes, tx_bits)
 
 
 def _irregular(code, received, max_iters, threshold, record, tx_bits,
                passes) -> GallagerResult:
-    _no_random_transmit(tx_bits)
     # t_d = min(b, max(d-1, 1)) <= dv_max - 1, so b = dv_max is Gallager-A
     b = code.dv_max if threshold is None else \
         min(max(int(threshold), 0), code.dv_max)
     return _gallager_loop(_graph(code), received, max_iters, lambda _it: b,
-                          lambda _it: False, record, passes)
+                          lambda _it: False, record, passes, tx_bits)
 
 
 def gallager_decode_packed(code, received: torch.Tensor, max_iters: int,
@@ -444,7 +456,9 @@ def gallager_decode_packed(code, received: torch.Tensor, max_iters: int,
                            tx_bits=None) -> GallagerResult:
     """Decode 32*W BSC trials on a regular code, or on a batch of C codes
     (word w on code ``w // (W // C)``); ``received`` is int32[n, W], set
-    bit = the channel flipped the (all-zero) codeword's bit.
+    bit = the channel flipped the (all-zero) codeword's bit, or, with
+    ``tx_bits`` (int32[n, W] packed codewords), the received bits
+    themselves, errors then counted against ``tx_bits``.
 
     ``threshold=None`` is Gallager-A (t = dv-1); smaller t gives
     Gallager-B.  ``schedule`` (>= max_iters ints, clipped into [1, dv-1])

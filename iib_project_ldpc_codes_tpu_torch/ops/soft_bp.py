@@ -36,6 +36,14 @@ than the round that converged; ``error_totals[t]`` for t >= a code's
 iterations is the count of the final posterior, rebuilt from the messages.
 A fixed code stops when all its trials satisfy every check.  The host reads
 one flag a round.
+
+Random-codeword transmit: ``tx_bits`` is the transmitted codeword plane,
+bit-packed int32[n, B // 32] (trial b in bit b % 32 of word b // 32, B a
+multiple of 32) as the BEC and Gallager decoders take it, in place of
+JAX's bool[n, B].  Kernel B then counts (posterior < 0) ^ tx, so the
+error totals and the returned ``hard`` planes hold errors against the
+codeword, while ``posterior`` and ``satisfied`` stay in decision space
+(JAX soft_bp.py:235-309); an irregular code's phantom row transmits 0.
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ import torch
 
 from ..kernels import launch, use_kernel
 from ..models.irregular import IrregularLDPCCode
-from .gallager import _Graph, _gather, _graph, _no_random_transmit, _per_word
+from .bitops import unpack_bits
+from .gallager import _Graph, _gather, _graph, _per_word
 
 _LLR_CLIP = 30.0
 _TANH_CLIP = 0.999999
@@ -65,7 +74,8 @@ _METHODS = {"minsum": 0, "sumproduct": 1}
 class SoftBPResult:
     """Result of a soft decode of B trials (all-zero codeword)."""
 
-    hard: torch.Tensor          # bool[n, B] decisions (True = bit 1 = error)
+    hard: torch.Tensor          # bool[n, B] decision errors (all-zero
+    #                             codeword: the decisions, True = bit 1)
     posterior: torch.Tensor     # float32[n, B] posterior LLRs
     error_totals: torch.Tensor  # int32[max_iters+1] decision errors
     iterations: int             # rounds run (a batch: the most of any code)
@@ -74,6 +84,8 @@ class SoftBPResult:
     # only; error_totals is then their sum over trials)
     traj: Optional[torch.Tensor] = None
     graph: Optional[_Graph] = dataclasses.field(default=None, repr=False)
+    # int32[n, B // 32] the transmitted codewords (None: all-zero)
+    tx: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
 
     @property
     def bit_errors(self) -> torch.Tensor:
@@ -90,7 +102,8 @@ class SoftBPResult:
         """bool[B]: the final decisions satisfy every check (JAX
         ``_syndrome_ok``), computed in plain torch when asked."""
         graph = self.graph
-        hard = self.hard
+        hard = self.hard if self.tx is None else \
+            self.hard ^ unpack_bits(self.tx)
         if graph.irregular:            # the phantom variable decides 0
             hard = torch.cat([hard, hard.new_zeros((1, hard.shape[1]))])
         table = graph.chk_to_var.long()
@@ -172,7 +185,7 @@ def _columns_on(active: torch.Tensor, cols: int) -> torch.Tensor:
 
 def _soft_posterior_plain(llr0, msg, var_to_sock, active, pm, counts, *,
                           pad_pos: int, post=None, hard=None,
-                          int8_scale: float = 4.0) -> None:
+                          int8_scale: float = 4.0, tx=None) -> None:
     """Plain version of kernel B, in JAX's form (soft_bp.py:166-171):
     the dv gathers summed in the accumulation type, padded sockets
     reading the phantom check's zero row."""
@@ -188,14 +201,16 @@ def _soft_posterior_plain(llr0, msg, var_to_sock, active, pm, counts, *,
     else:
         new = total.to(pm.dtype)
     pm.copy_(torch.where(on, new, pm))
-    counts += ((total < 0) & on).sum(0, dtype=torch.int32)
+    err = total < 0
+    if tx is not None:
+        err = err ^ unpack_bits(tx)
+    counts += (err & on).sum(0, dtype=torch.int32)
     if post is not None:
-        real = total[:post.shape[0]]
-        value = real.to(torch.float32)
+        value = total[:post.shape[0]].to(torch.float32)
         if pm.dtype == torch.int8:
             value = value / int8_scale
         post.copy_(torch.where(on, value, post))
-        hard.copy_(torch.where(on, real < 0, hard))
+        hard.copy_(torch.where(on, err[:post.shape[0]], hard))
 
 
 def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
@@ -203,7 +218,8 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
                    pm: torch.Tensor, counts: torch.Tensor, *, pad_pos: int,
                    post: Optional[torch.Tensor] = None,
                    hard: Optional[torch.Tensor] = None,
-                   int8_scale: float = 4.0) -> None:
+                   int8_scale: float = 4.0,
+                   tx: Optional[torch.Tensor] = None) -> None:
     """One variable pass, in place.  For the columns of the codes whose
     ``active`` int32[C] is nonzero: ``pm`` [n_rows, B] (working type) =
     the posterior llr0 + the dv messages of ``msg`` [rows * dc, B] at the
@@ -212,7 +228,9 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
     ``llr0`` is float32 for float32/bfloat16 messages, int8 for int8.
     With ``post`` float32[n, B] and ``hard`` bool[n, B] given, it also
     writes the posterior of the first n rows (divided by ``int8_scale`` for
-    int8) and the decisions, in the same columns."""
+    int8) and the decisions, in the same columns.  Given the packed
+    codewords ``tx`` int32[n_rows, B // 32], the counts and ``hard`` are of
+    the errors (posterior < 0) ^ tx."""
     dtype = pm.dtype
     if dtype not in _DTYPES or msg.dtype != dtype:
         raise TypeError(f"pm and msg must share a type of {list(_DTYPES)}, "
@@ -227,6 +245,10 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
         raise ValueError("llr0 must be a contiguous plane of pm's shape")
     if counts.dtype != torch.int32 or counts.shape != (llr0.shape[1],):
         raise ValueError("counts must be int32[B]")
+    if tx is not None and (tx.dtype != torch.int32 or not tx.is_contiguous()
+                           or llr0.shape[1] % 32 or tuple(tx.shape)
+                           != (llr0.shape[0], llr0.shape[1] // 32)):
+        raise ValueError("tx must be a contiguous int32[n_rows, B // 32]")
     if post is not None and (post.dtype != torch.float32
                              or hard.dtype != torch.bool
                              or post.shape != hard.shape
@@ -234,10 +256,10 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
                              or post.shape[0] > llr0.shape[0]):
         raise ValueError("post and hard must be float32 and bool [n, B]")
     if not use_kernel(llr0, msg, var_to_sock, active, pm, counts,
-                      *(t for t in (post, hard) if t is not None)):
+                      *(t for t in (post, hard, tx) if t is not None)):
         _soft_posterior_plain(llr0, msg, var_to_sock, active, pm, counts,
                               pad_pos=pad_pos, post=post, hard=hard,
-                              int8_scale=int8_scale)
+                              int8_scale=int8_scale, tx=tx)
         return
     n_rows, cols = llr0.shape
     dv = var_to_sock.shape[-1]
@@ -247,7 +269,8 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
     launch("ldpc_soft_posterior", pm.device, llr0.data_ptr(), msg.data_ptr(),
            var_to_sock.data_ptr(), active.data_ptr(), pm.data_ptr(),
            counts.data_ptr(), 0 if post is None else post.data_ptr(),
-           0 if hard is None else hard.data_ptr(), n_rows,
+           0 if hard is None else hard.data_ptr(),
+           None if tx is None else tx.data_ptr(), n_rows,
            0 if post is None else post.shape[0], var_to_sock.shape[-2], dv,
            pad_pos, cols, cols // active.shape[0], _DTYPES[dtype],
            float(int8_scale))
@@ -367,7 +390,8 @@ def _quantise(llr: torch.Tensor, int8_scale: float) -> torch.Tensor:
 
 def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
                alpha: float, beta: float, msg_dtype: torch.dtype,
-               int8_scale: float, record: str, passes) -> SoftBPResult:
+               int8_scale: float, record: str, passes,
+               tx: Optional[torch.Tensor]) -> SoftBPResult:
     """Host loop shared by the decoders (module docstring)."""
     posterior, check = passes
     if record not in ("total", "per_trial"):
@@ -393,8 +417,18 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
     cols = llr.shape[1]
     num = graph.num_codes
     device = llr.device
+    tx_rows = tx
+    if tx is not None:
+        if tx.dtype != torch.int32 or cols % 32 or \
+                tuple(tx.shape) != (graph.n, cols // 32):
+            raise ValueError(f"tx_bits must be the packed int32[{graph.n}, "
+                             f"{cols // 32}] plane, got {tx.dtype} "
+                             f"{tuple(tx.shape)}")
+        tx = tx_rows = tx.contiguous()
     if graph.irregular:
         llr = torch.cat([llr, llr.new_full((1, cols), _PHANTOM_LLR)])
+        if tx is not None:                 # the phantom row transmits 0
+            tx_rows = torch.cat([tx, tx.new_zeros((1, tx.shape[1]))])
     if llr.numel() >= 2 ** 31:
         raise ValueError(f"{tuple(llr.shape)} LLRs exceed the kernels' "
                          "int32 counters (2^31); split the batch")
@@ -411,7 +445,7 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
     it = 0
     while it < max_iters:
         posterior(llr0, msg, graph.var_to_sock, active, pm, counts[it],
-                  pad_pos=graph.pad_pos)
+                  pad_pos=graph.pad_pos, tx=tx_rows)
         unsat.zero_()
         check(pm, msg, graph.chk_to_var, active, unsat, method=method,
               alpha=alpha, beta=beta, pad_var=pad_var)
@@ -425,7 +459,7 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
     hard = torch.empty((graph.n, cols), dtype=torch.bool, device=device)
     posterior(llr0, msg, graph.var_to_sock, torch.ones_like(active), pm,
               final, pad_pos=graph.pad_pos, post=post, hard=hard,
-              int8_scale=int8_scale)
+              int8_scale=int8_scale, tx=tx_rows)
     # a code's rounds at and after its own count hold the final posterior's
     tail = torch.arange(max_iters + 1, device=device)[:, None] >= \
         code_iters.repeat_interleave(cols // num)[None, :]
@@ -434,7 +468,7 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
                   error_totals=traj.sum(1, dtype=torch.int64)
                   .to(torch.int32),
                   iterations=int(code_iters.max()),
-                  code_iterations=code_iters, graph=graph)
+                  code_iterations=code_iters, graph=graph, tx=tx)
     if record == "per_trial":
         result["traj"] = traj
     return SoftBPResult(**result)
@@ -446,12 +480,11 @@ _PLAIN_PASSES = (_soft_posterior_plain, _soft_check_plain)
 
 def _decode(code, llr, max_iters, method, alpha, beta, msg_dtype,
             int8_scale, tx_bits, record, passes, irregular: bool):
-    _no_random_transmit(tx_bits)
     if isinstance(code, IrregularLDPCCode) != irregular:
         raise TypeError(f"{type(code).__name__} given to the "
                         f"{'irregular' if irregular else 'regular'} decoder")
     return _soft_loop(_graph(code), llr, max_iters, method, alpha, beta,
-                      msg_dtype, int8_scale, record, passes)
+                      msg_dtype, int8_scale, record, passes, tx_bits)
 
 
 def soft_bp_decode(code, llr: torch.Tensor, max_iters: int,
@@ -466,8 +499,9 @@ def soft_bp_decode(code, llr: torch.Tensor, max_iters: int,
     ``method`` "sumproduct" or "minsum" (normalised by ``alpha``, offset by
     ``beta``); ``msg_dtype`` float32, bfloat16 or int8 (min-sum only, with
     ``int8_scale`` LSBs per LLR unit).  ``error_totals`` counts decision
-    errors against the all-zero codeword entering each round (index 0: the
-    channel decisions, quantised for int8) and after the last;
+    errors against the all-zero codeword, or against ``tx_bits`` (packed
+    int32[n, B // 32] codewords, module docstring), entering each round
+    (index 0: the channel decisions, quantised for int8) and after the last;
     ``record="per_trial"`` also fills ``traj``.  On CUDA tensors every
     round runs kernels B and C; on CPU tensors their plain versions.
     """

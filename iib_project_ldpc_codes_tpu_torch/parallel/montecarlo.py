@@ -2,7 +2,8 @@
 and soft BP (sum-product, min-sum, int8 min-sum) on AWGN and BSC LLRs.
 
 The JAX package's engine (``iib_project_ldpc_codes_tpu/parallel/
-montecarlo.py``) for its all-zero-codeword device decoders: each chunk
+montecarlo.py``) for its device decoders, with all-zero or random-codeword
+transmit (``cfg.transmit``): each chunk
 decodes ``cfg.batch`` trials on one device (bit-packed for the BEC and
 Gallager decoders, one column per trial for soft BP), and the host loop
 applies the reference's stopping rules at chunk granularity (>=
@@ -18,16 +19,33 @@ irregular (lam, rho) codes.  Two code modes:
     ``32 * words_per_code`` trials, as the JAX engine's
     ``_fresh_codes_chunk`` (montecarlo.py:268-299).
 
+Random-codeword transmit (``transmit="random"``): the chunk draws fair
+information bits, encodes them with kernel E (``models/encode.py``) into
+one codeword per trial, sends those, and counts errors against them.  The
+systematic encoder is derived on the run's device: once for a fixed code,
+and per chunk for the chunk's fresh codes in ensemble mode (one batched
+GF(2) elimination over the chunk's codes, which are the zero run's codes
+of the same (seed, chunk)).  A BEC trial's errors are its unresolved
+erasures plus any resolved bit that differs from the codeword (JAX
+``_bp_chunk``, montecarlo.py:109-117; zero by construction, counted all
+the same); the Gallager and soft decoders count decision ^ codeword.
+
 Seeding: chunk ``c`` draws its erasures or flips with Philox key
 ``philox_key(seed)`` and offset ``c`` (``ops/bitops.py`` gives the full
 scheme), its AWGN noise from the same offset on a key of its own
-(``ops/channels.py``), and in ensemble mode its codes from the sampler's
-own Philox stream of (seed, c), so any run is reproducible from (seed,
-batch, codes_per_chunk) alone, on the CPU and the GPU alike (AWGN LLRs to
-one float32 ulp: the float64 transcendentals of the two devices may round
-apart), and a resumed run is bit-identical to an uninterrupted one.  This
-replaces the JAX engine's ``fold_in(key(seed), c)``; the two engines draw
-different planes, noise and codes and agree in distribution.
+(``ops/channels.py``), its information bits (random transmit) from the
+same offset on a third key (``ops/bitops.py::info_planes``), and in
+ensemble mode its codes from the sampler's own Philox stream of (seed, c),
+so any run is reproducible from (seed, batch, codes_per_chunk) alone, on
+the CPU and the GPU alike (AWGN LLRs to one float32 ulp: the float64
+transcendentals of the two devices may round apart), and a resumed run is
+bit-identical to an uninterrupted one.  A random-transmit chunk draws the
+zero-transmit chunk's noise: on the BEC and with Gallager decoding, whose
+updates are exactly symmetric in a codeword shift, the two runs' counters
+are then equal.  This replaces the JAX engine's ``fold_in(key(seed), c)``
+(whose random runs split off an information key, so their noise differs
+from the zero runs'); the two engines draw different planes, noise and
+codes and agree in distribution.
 """
 
 from __future__ import annotations
@@ -43,13 +61,16 @@ import numpy as np
 import torch
 
 from ..models.code import LDPCCode
+from ..models.encode import code_encoder_planes, encode_packed
 from ..models.ensemble import sample_codes
 from ..models.irregular import (IrregularEnsembleSpec, IrregularLDPCCode,
                                 sample_irregular_codes)
-from ..ops.bitops import bernoulli_packed, pack_bits
+from ..ops.bitops import bernoulli_packed, info_planes, pack_bits, \
+    per_trial_counts
 from ..ops.channels import BSC, awgn_llr
-from ..ops.erasure_bp import (bp_decode_packed_allzero,
-                              bp_decode_packed_allzero_irregular)
+from ..ops.erasure_bp import (bp_decode_packed, bp_decode_packed_allzero,
+                              bp_decode_packed_allzero_irregular,
+                              bp_decode_packed_irregular)
 from ..ops.gallager import (gallager_decode_packed,
                             gallager_decode_packed_irregular)
 from ..ops.soft_bp import soft_bp_decode, soft_bp_decode_irregular
@@ -127,15 +148,29 @@ def _codes_in(code) -> Optional[int]:
 
 
 def _bp_chunk(code, erased: torch.Tensor, *, iterations: int,
-              expurgation: Optional[int]) -> ChunkStats:
-    """Chunk statistics of the all-zero decode of ``erased`` int32[n, W]
-    on one code (regular or irregular), or on a batch of C codes (word w
-    on code ``w // (W // C)``, which also records ``code_bit_errors_sq``).
+              expurgation: Optional[int],
+              tx: Optional[torch.Tensor] = None) -> ChunkStats:
+    """Chunk statistics of the decode of ``erased`` int32[n, W] on one
+    code (regular or irregular), or on a batch of C codes (word w on code
+    ``w // (W // C)``, which also records ``code_bit_errors_sq``).
 
-    Expurgation by the JAX engine's two-pass form: decode, read the final
-    per-trial counts, then re-decode with the excluded trials' erasures
-    masked out, so they add zero to every per-iteration total.
+    ``tx`` (int32[n, W] codewords) decodes the value planes and counts a
+    trial's errors as K4 of ``~known | ((val ^ tx) & known)``; without it
+    the all-zero decode runs.  Expurgation (all-zero only) by the JAX
+    engine's two-pass form: decode, read the final per-trial counts, then
+    re-decode with the excluded trials' erasures masked out, so they add
+    zero to every per-iteration total.
     """
+    if tx is not None:
+        if expurgation is not None:
+            raise ValueError("random-transmit BEC chunks do not implement "
+                             "expurgation")
+        decode = bp_decode_packed_irregular \
+            if isinstance(code, IrregularLDPCCode) else bp_decode_packed
+        res = decode(code, erased, tx, iterations)
+        final = per_trial_counts(~res.known | ((res.val ^ tx) & res.known))
+        return _final_count_stats(res.error_totals, final, None,
+                                  num_codes=_codes_in(code))
     res = _allzero_decode(code, erased, iterations)
     final = res.bit_errors
     error_totals = res.error_totals
@@ -149,30 +184,34 @@ def _bp_chunk(code, erased: torch.Tensor, *, iterations: int,
 
 def _gallager_chunk(code, received: torch.Tensor, *, iterations: int,
                     threshold: Optional[int],
-                    expurgation: Optional[int]) -> ChunkStats:
+                    expurgation: Optional[int],
+                    tx: Optional[torch.Tensor] = None) -> ChunkStats:
     """BSC hard-decision chunk (JAX ``_gallager_chunk``): Gallager-A/B on
-    the flip planes ``received`` int32[n, W] of one code (regular or
-    irregular) or a batch; expurgated chunks record per-trial
-    trajectories."""
+    the received planes ``received`` int32[n, W] (the flips, or tx ^
+    flips for codewords ``tx``) of one code (regular or irregular) or a
+    batch; expurgated chunks record per-trial trajectories."""
     decode = gallager_decode_packed_irregular \
         if isinstance(code, IrregularLDPCCode) else gallager_decode_packed
     res = decode(code, received, iterations, threshold=threshold,
-                 record="total" if expurgation is None else "per_trial")
+                 record="total" if expurgation is None else "per_trial",
+                 tx_bits=tx)
     return _final_count_stats(res.error_totals, res.bit_errors, expurgation,
                               traj=res.traj, num_codes=_codes_in(code))
 
 
 def _soft_chunk(code, llr: torch.Tensor, *, iterations: int, method: str,
                 alpha: float, beta: float, msg_dtype: str,
-                expurgation: Optional[int]) -> ChunkStats:
+                expurgation: Optional[int],
+                tx: Optional[torch.Tensor] = None) -> ChunkStats:
     """AWGN/BSC soft-decision chunk (JAX ``_soft_chunk`` after its
     channel): soft BP on the LLRs ``llr`` float32[n, B] of one code
-    (regular or irregular) or a batch (trial b on code ``b // (B // C)``);
+    (regular or irregular) or a batch (trial b on code ``b // (B // C)``),
+    errors counted against the codewords ``tx`` (packed) when given;
     expurgated chunks record per-trial trajectories."""
     decode = soft_bp_decode_irregular \
         if isinstance(code, IrregularLDPCCode) else soft_bp_decode
     res = decode(code, llr, iterations, method=method, alpha=alpha,
-                 beta=beta, msg_dtype=msg_dtype,
+                 beta=beta, msg_dtype=msg_dtype, tx_bits=tx,
                  record="total" if expurgation is None else "per_trial")
     return _final_count_stats(res.error_totals, res.bit_errors, expurgation,
                               traj=res.traj, num_codes=_codes_in(code))
@@ -194,15 +233,15 @@ def make_chunk_fn(cfg: SimulationConfig, code,
                   device="cuda") -> Callable[[int], ChunkStats]:
     """``fn(chunk_idx) -> ChunkStats`` decoding ``cfg.batch`` trials.
 
-    The port runs, with all-zero transmit, BEC erasure BP, BSC
-    Gallager-A/B and soft BP on BSC or AWGN LLRs (sum-product, min-sum;
-    float32, bfloat16 or int8 messages) on (dv,dc)-regular or irregular
-    (lam, rho) codes, on a fixed code (the reference's mode 3) or on fresh
-    codes per chunk (mode 0); ML, peeling, random transmit, edge sharding
-    and QC codes raise, naming the ROADMAP item that ports them.  ``code``
-    is the fixed code (an ``LDPCCode``, or an ``IrregularLDPCCode`` for an
+    The port runs, with all-zero or random-codeword transmit, BEC erasure
+    BP, BSC Gallager-A/B and soft BP on BSC or AWGN LLRs (sum-product,
+    min-sum; float32, bfloat16 or int8 messages) on (dv,dc)-regular or
+    irregular (lam, rho) codes, on a fixed code (the reference's mode 3)
+    or on fresh codes per chunk (mode 0); ML, peeling, edge sharding and
+    QC codes raise, naming the ROADMAP item that ports them.  ``code`` is
+    the fixed code (an ``LDPCCode``, or an ``IrregularLDPCCode`` for an
     irregular configuration); ensemble mode ignores it, as the JAX engine
-    does.
+    does.  Random transmit derives the fixed code's encoder here, once.
     """
     pair = (cfg.channel, cfg.decoder)
     if pair in (("BEC", "ml"), ("BEC", "both")):
@@ -212,39 +251,49 @@ def make_chunk_fn(cfg: SimulationConfig, code,
     if pair == ("BEC", "peeling"):
         raise NotImplementedError(
             "the peeling decoder is not ported yet (ROADMAP queue 1 item 14)")
-    if cfg.transmit != "zero":
-        raise NotImplementedError(
-            "random-codeword transmit is not ported yet (ROADMAP queue 1 "
-            "item 11)")
     if cfg.edge_sharded:
         raise NotImplementedError(
             "edge sharding is not ported yet (ROADMAP queue 1 item 13)")
     words = cfg.batch // 32
 
-    def soft(codes, llr: torch.Tensor) -> ChunkStats:
+    random = cfg.transmit == "random"
+    if random and cfg.expurgation is not None:
+        raise ValueError("transmit='random' not supported with expurgation")
+
+    def soft(codes, llr: torch.Tensor, tx) -> ChunkStats:
         return _soft_chunk(codes, llr, iterations=cfg.iterations,
                            method=cfg.decoder, alpha=cfg.minsum_alpha,
                            beta=cfg.minsum_beta,
                            msg_dtype=cfg.soft_msg_dtype,
-                           expurgation=cfg.expurgation)
+                           expurgation=cfg.expurgation, tx=tx)
 
     def decode(codes, chunk_idx: int) -> ChunkStats:
+        tx = None
+        if random:      # one codeword per trial, from the chunk's encoder
+            enc = enc_planes if cfg.code_mode == "fixed" else \
+                code_encoder_planes(codes)
+            tx = encode_packed(enc, info_planes(enc.k, words, seed=cfg.seed,
+                                                offset=chunk_idx,
+                                                device=device))
         if cfg.channel == "AWGN":
             llr = awgn_llr(cfg.channel_param, (cfg.n, cfg.batch),
-                           seed=cfg.seed, offset=chunk_idx, device=device)
-            return soft(codes, llr)
+                           seed=cfg.seed, offset=chunk_idx, device=device,
+                           tx=tx)
+            return soft(codes, llr, tx)
         # the same K1 planes are erasures on the BEC, flips on the BSC
         planes = bernoulli_packed(cfg.channel_param, (cfg.n, words),
                                   seed=cfg.seed, offset=chunk_idx,
                                   device=device)
-        if cfg.decoder in ("sumproduct", "minsum"):
-            return soft(codes, BSC(cfg.channel_param).llr_of_flips(planes))
         if cfg.channel == "BEC":
             return _bp_chunk(codes, planes, iterations=cfg.iterations,
-                             expurgation=cfg.expurgation)
-        return _gallager_chunk(codes, planes, iterations=cfg.iterations,
+                             expurgation=cfg.expurgation, tx=tx)
+        received = planes if tx is None else planes ^ tx
+        if cfg.decoder in ("sumproduct", "minsum"):
+            return soft(codes, BSC(cfg.channel_param).llr_of_flips(received),
+                        tx)
+        return _gallager_chunk(codes, received, iterations=cfg.iterations,
                                threshold=cfg.gallager_threshold,
-                               expurgation=cfg.expurgation)
+                               expurgation=cfg.expurgation, tx=tx)
 
     if cfg.code_mode == "ensemble":
         num_codes, _ = _ensemble_layout(cfg)
@@ -278,6 +327,7 @@ def make_chunk_fn(cfg: SimulationConfig, code,
         raise ValueError(f"code (n, dv, dc) = {(code.n, code.dv, code.dc)} "
                          f"!= config {(cfg.n, cfg.dv, cfg.dc)}")
     code = code.to(device)
+    enc_planes = code_encoder_planes(code) if random else None
     return lambda chunk_idx: decode(code, chunk_idx)
 
 

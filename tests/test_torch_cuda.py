@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from iib_project_ldpc_codes_tpu_torch.models import ensemble, irregular
+from iib_project_ldpc_codes_tpu_torch.models import encode, ensemble, irregular
 from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
 from iib_project_ldpc_codes_tpu_torch.models.ensemble import sample_code
 from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
@@ -560,5 +560,168 @@ def test_soft_bsc_runs_gpu_equal_cpu(cuda, fields):
     cpu = mc.run_simulation(cfg, code, device="cpu")
     for field in ("num_trials", "block_errors", "bit_errors",
                   "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
+                  "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+# ---------------------------------------------------------------------------
+# Random-codeword transmit: kernel E, the value-plane round, A/B/Gallager
+# with a codeword plane
+# ---------------------------------------------------------------------------
+
+def _encoded(code, words, seed, device="cpu"):
+    """(planes, info, codewords) of a code or a batch, on ``device``."""
+    planes = encode.code_encoder_planes(code.to(device))
+    info = bitops.info_planes(planes.k, words, seed=seed, device=device)
+    return planes, info, encode.encode_packed(planes, info)
+
+
+@pytest.mark.parametrize("n, words, num", [(96, 3, 1), (600, 70, 1),
+                                           (504, 24, 24), (504, 72, 3)])
+def test_encode_kernel_equals_plain_and_cpu(cuda, n, words, num):
+    codes = ensemble.sample_codes(5, 0, num, n, 3, 6, "repair")
+    code = codes if num > 1 else codes.select(0)
+    planes, info, got = _encoded(code, words, 6, cuda)
+    assert torch.equal(got, encode._encode_packed_plain(planes, info))
+    cpu_planes, cpu_info, cpu = _encoded(code, words, 6)
+    assert torch.equal(planes.mask.cpu(), cpu_planes.mask)
+    assert torch.equal(cpu_info, info.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    syndrome = torch.zeros((code.m, words), dtype=torch.int32)
+    for j in range(code.dc):
+        syndrome ^= erasure_bp._code_major_to_plane(
+            erasure_bp._gather_rows(cpu, code.chk_to_var, j), num)
+    assert not syndrome.any()
+
+
+@pytest.mark.parametrize("wpc, num", [(33, 1), (1, 24), (3, 8)])
+@pytest.mark.parametrize("eps", [0.3, 0.45])
+def test_value_round_kernels_equal_plain(cuda, wpc, num, eps):
+    n = 600
+    codes = ensemble.sample_codes(7, 0, num, n, 3, 6, "repair")
+    code = (codes if num > 1 else codes.select(0)).to(cuda)
+    _, _, tx = _encoded(code, wpc * num, 8, cuda)
+    known = ~bitops.bernoulli_packed(eps, (n, wpc * num), seed=9,
+                                     device=cuda)
+    val = tx & known
+    got = erasure_bp.check_exactly_one_xor(code.chk_to_var, known, val)
+    want = erasure_bp._check_exactly_one_xor_plain(code.chk_to_var, known,
+                                                   val)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    state = [(known.clone(), val.clone(),
+              torch.zeros(2, dtype=torch.int32, device=cuda))
+             for _ in range(2)]
+    erasure_bp.variable_or_adopt(code.var_to_chk, *got, *state[0], 1)
+    erasure_bp._variable_or_adopt_plain(code.var_to_chk, *want, *state[1],
+                                        1)
+    for a, b in zip(*state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("wpc, num", [(9, 1), (1, 24)])
+def test_value_decodes_on_gpu_equal_cpu(cuda, family, wpc, num):
+    n = 600
+    if family == "regular":
+        codes = ensemble.sample_codes(10, 0, num, n, 3, 6, "repair")
+        fn = erasure_bp.bp_decode_packed_traj
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, LAM, RHO)
+        codes = irregular.sample_irregular_codes(10, 0, num, spec)
+        fn = erasure_bp.bp_decode_packed_traj_irregular
+    code = codes if num > 1 else codes.select(0)
+    _, _, tx = _encoded(code, wpc * num, 11)
+    erased = bitops.bernoulli_packed(0.42, (n, wpc * num), seed=12)
+    cpu, cpu_traj = fn(code, erased, tx, 50)
+    gpu, gpu_traj = fn(code.to(cuda), erased.to(cuda), tx.to(cuda), 50)
+    assert torch.equal(gpu.val.cpu(), cpu.val)
+    assert torch.equal(gpu.known.cpu(), cpu.known)
+    assert torch.equal(gpu.error_totals.cpu(), cpu.error_totals)
+    assert torch.equal(gpu_traj.cpu(), cpu_traj)
+    assert gpu.iterations == cpu.iterations
+
+
+@pytest.mark.parametrize("shape", [(97, 64), (600, 640)])
+def test_awgn_llr_kernel_with_codewords_equals_plain(cuda, shape):
+    tx = bitops.bernoulli_packed(0.5, (shape[0], shape[1] // 32), seed=13)
+    got = channels.awgn_llr(0.8, shape, seed=14, offset=2, device=cuda,
+                            tx=tx.to(cuda)).cpu()
+    want = channels.awgn_llr(0.8, shape, seed=14, offset=2, tx=tx)
+    ulps = _ulps(got.abs(), want.abs())
+    assert int(ulps.max()) <= 1 and torch.equal(got < 0, want < 0)
+    zero = channels.awgn_llr(0.8, shape, seed=14, offset=2, device=cuda)
+    assert torch.equal(channels.awgn_llr(
+        0.8, shape, seed=14, offset=2, device=cuda,
+        tx=torch.zeros_like(tx, device=cuda)), zero)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("method, dtype", SOFT)
+def test_soft_decodes_with_codewords_on_gpu_equal_cpu(cuda, family, method,
+                                                      dtype):
+    n, cols = 300, 256
+    if family == "regular":
+        code, fn = _code(n, seed=15), soft_bp.soft_bp_decode
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
+        code = irregular.sample_irregular_codes(15, 0, 1, spec).select(0)
+        fn = soft_bp.soft_bp_decode_irregular
+    _, _, tx = _encoded(code, cols // 32, 16)
+    llr = channels.awgn_llr(0.85, (n, cols), seed=17, tx=tx)
+    cpu = fn(code, llr, 30, method=method, msg_dtype=dtype, tx_bits=tx,
+             record="per_trial")
+    gpu = fn(code.to(cuda), llr.to(cuda), 30, method=method,
+             msg_dtype=dtype, tx_bits=tx.to(cuda), record="per_trial")
+    if method == "minsum":
+        assert torch.equal(gpu.hard.cpu(), cpu.hard)
+        assert torch.equal(gpu.traj.cpu(), cpu.traj)
+    else:
+        assert torch.allclose(gpu.posterior.cpu(), cpu.posterior, rtol=0,
+                              atol=SP_ATOL[dtype])
+    assert torch.equal(gpu.hard.cpu(),
+                       (gpu.posterior.cpu() < 0) ^ bitops.unpack_bits(tx))
+
+
+@pytest.mark.parametrize("record", ["total", "per_trial"])
+@pytest.mark.parametrize("wpc, num", [(9, 1), (1, 24)])
+def test_gallager_with_codewords_on_gpu_equal_cpu(cuda, record, wpc, num):
+    n = 600
+    codes = ensemble.sample_codes(18, 0, num, n, 3, 6, "repair")
+    code = codes if num > 1 else codes.select(0)
+    _, _, tx = _encoded(code, wpc * num, 19)
+    flips = bitops.bernoulli_packed(0.04, (n, wpc * num), seed=20)
+    cpu = gallager.gallager_decode_packed(code, tx ^ flips, 50,
+                                          record=record, tx_bits=tx)
+    gpu = gallager.gallager_decode_packed(
+        code.to(cuda), (tx ^ flips).to(cuda), 50, record=record,
+        tx_bits=tx.to(cuda))
+    zero = gallager.gallager_decode_packed(code.to(cuda), flips.to(cuda), 50,
+                                           record=record)
+    for got in (gpu, zero):
+        assert torch.equal(got.decided.cpu(), cpu.decided)
+        assert torch.equal(got.error_totals.cpu(), cpu.error_totals)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(channel="BEC", decoder="bp", channel_param=0.42,
+         code_mode="ensemble"),
+    dict(channel="BEC", decoder="bp", channel_param=0.42, lam=LAM, rho=RHO,
+         code_mode="fixed"),
+    dict(channel="BSC", decoder="gallager", channel_param=0.04,
+         code_mode="fixed"),
+    dict(channel="BSC", decoder="minsum", soft_msg_dtype="int8",
+         channel_param=0.05, code_mode="ensemble"),
+    dict(channel="AWGN", decoder="minsum", channel_param=0.85,
+         code_mode="fixed")])
+def test_random_transmit_runs_gpu_equal_cpu(cuda, fields):
+    cfg = SimulationConfig(n=504, iterations=30, batch=640, num_tests=1280,
+                           seed=4, codes_per_chunk=10, max_block_errors=10**9,
+                           transmit="random", **fields)
+    code = ensemble.code_for_config(cfg) if cfg.code_mode == "fixed" \
+        else None
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    cpu = mc.run_simulation(cfg, code, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "bit_errors_sq", "code_bit_errors_sq",
                   "error_counts_per_iteration"):
         assert getattr(gpu, field) == getattr(cpu, field), field

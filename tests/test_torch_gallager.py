@@ -247,8 +247,12 @@ def test_batched_decode_freezes_each_code_at_its_own_stop(wpc):
 def test_decoder_contract_errors():
     _, code = _regular_pair(96, 3, 6, 0)
     rx = torch.zeros((96, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gallager.gallager_decode_packed(code, rx, 5, tx_bits=rx)
+    # a codeword plane (here all zero) counts errors against it
+    with_tx = gallager.gallager_decode_packed(code, rx, 5, tx_bits=rx)
+    assert with_tx.error_totals.tolist() == [0] * 6
+    with pytest.raises(ValueError, match="tx_bits"):
+        gallager.gallager_decode_packed(code, rx, 5,
+                                        tx_bits=rx[:90].contiguous())
     with pytest.raises(ValueError, match="record"):
         gallager.gallager_decode_packed(code, rx, 5, record="bogus")
     with pytest.raises(ValueError, match="rows"):

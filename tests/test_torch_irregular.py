@@ -463,13 +463,21 @@ def test_fixed_irregular_run_and_engine_guards():
     with pytest.raises(ValueError, match="IrregularLDPCCode"):
         mc.make_chunk_fn(cfg, ensemble.code_for_config(SimulationConfig(
             n=256, code_mode="fixed")), device="cpu")
-    for kw, item in ((dict(decoder="peeling"), "item 14"),
-                     (dict(channel="AWGN", decoder="minsum",
-                           transmit="random"), "item 11"),
-                     (dict(transmit="random", expurgation=None), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            mc.make_chunk_fn(SimulationConfig(n=256, lam=LAM, rho=RHO, **kw),
-                             None, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        mc.make_chunk_fn(SimulationConfig(n=256, lam=LAM, rho=RHO,
+                                          decoder="peeling"), None,
+                         device="cpu")
+    # random-codeword transmit (queue 1 item 11) runs on irregular
+    # ensembles; with expurgation it stays a configuration error
+    for kw in (dict(channel="AWGN", decoder="minsum"), dict()):
+        stats = mc.make_chunk_fn(SimulationConfig(
+            n=256, lam=LAM, rho=RHO, transmit="random", batch=256,
+            codes_per_chunk=4, iterations=20, **kw), None, device="cpu")(0)
+        assert int(stats.error_totals[0]) > 0
+        assert stats.code_bit_errors_sq is not None
+    with pytest.raises(ValueError, match="expurgation"):
+        SimulationConfig(n=256, lam=LAM, rho=RHO, transmit="random",
+                         expurgation=1)
 
 
 def test_cli_irregular_config_on_cpu(tmp_path, capsys):

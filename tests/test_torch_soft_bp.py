@@ -271,8 +271,12 @@ def test_plain_decoders_equal_the_wrapped_ones_on_cpu():
 def test_soft_decoder_contract_errors():
     _, code, _, dec = _pair("regular", 96, 0)
     llr = torch.ones((96, 32))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # tx_bits is the packed codeword plane, not JAX's bool[n, B]
+    with pytest.raises(ValueError, match="tx_bits"):
         dec(code, llr, 5, tx_bits=llr > 0)
+    zeros = torch.zeros((96, 1), dtype=torch.int32)
+    assert torch.equal(dec(code, llr, 5, tx_bits=zeros).error_totals,
+                       dec(code, llr, 5).error_totals)
     with pytest.raises(ValueError, match="record"):
         dec(code, llr, 5, record="bogus")
     with pytest.raises(ValueError, match="minsum"):
