@@ -41,6 +41,22 @@ library matmul, chunks against the zero-transmit chunks, and the encoder
 derivation at n = 10^4 and per ensemble chunk.  For kernel E and the two
 value kernels ``launches`` counts the fixed random BEC path.
 
+Phases 28-32 do the same for quasi-cyclic (QC) codes, whose entry point is
+``run_simulation(cfg, code=qc)``: the four circulant-index kernels (the BEC
+check and variable passes, the Gallager check and variable passes; no
+table per lifted edge is read) against their plain versions in every
+instantiation, on the nb = 12 (3,6) base lifted to n = 10,008 (W = 768)
+and to ``bench.py``'s huge-n shape n = 1,000,008 (W = 48) and on the
+irregular pairs above on an nb = 24 base; ``expand()`` validated; whole
+decodes against the plain path and against the generic kernels on
+``expand()``; GPU runs against CPU runs and circulant-index runs against
+``expand()`` runs, counter for counter; the QC paths through the engine
+with launch counts equal to the rounds run and a threshold bracket at
+n = 100,008; and circulant index timed against gather (the generic kernels
+on ``expand()``) at n = 10^4, 10^5 and 10^6.  For these four kernels
+``launches`` counts the (3,6) QC BEC path (the BEC pair) and the (3,6) QC
+Gallager-A path (the Gallager pair).
+
 Every kernel row of the JSON line carries ``bound_ms``, the least time the
 card could take for the same work at the shape of its ``ms``: the larger
 of its bytes (each input read once, each output written once, counted from
@@ -97,6 +113,11 @@ P_SOFT_BSC = 0.04
 # above, the ensemble paths at the JAX package's validation scale (one
 # encoder per fresh code and chunk): (3,6), n = 2048, 32 codes of 768 trials
 N_RT_ENS, CODES_RT_ENS, EPS_RT_ENS, SIGMA_RT_ENS = 2048, 32, 0.40, 0.85
+# quasi-cyclic codes (phases 28-32): the nb = 12 (3,6) base lifted to
+# n = 10,008, 100,008 and 1,000,008 (bench.py's huge-n shape, W = 48), and
+# the irregular pairs above on an nb = 24 base lifted to n = 10,008
+QC_NB, QC_Z, QC_Z5, QC_Z6, QC_W5, QC_W6 = 12, 834, 8334, 83_334, 480, 48
+QC_NB_IRR, QC_Z_IRR = 24, 417
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # FP32 outside the tensor cores, and FP64 and INT32 at half that rate (64
 # such lanes an SM against 128 FP32 lanes)
@@ -1743,6 +1764,537 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
         kernels), flush=True)
 
 
+def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
+    """Phases 28-32: quasi-cyclic codes (module docstring).  The four
+    circulant-index kernels are held to their plain versions exactly (bitwise
+    arithmetic), whole decodes to the plain path and to the generic kernels
+    on ``expand()``.  ``fer_fixed_36`` is phase 6's FER of the fixed (3,6)
+    code of n = 10^4 at eps = 0.42."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models import qc
+    from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
+    from iib_project_ldpc_codes_tpu_torch.models.irregular import (
+        validate_irregular_code)
+    from iib_project_ldpc_codes_tpu_torch.ops import (bitops, erasure_bp,
+                                                      gallager, qc_bp,
+                                                      qc_gallager)
+    from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
+    from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
+
+    names = ("qc_check_exactly_one", "qc_variable_or", "qc_gallager_check",
+             "qc_gallager_variable")
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    reg = {"n1e4": qc.sample_qc_code(gen(1), QC_NB, DV, DC, QC_Z, device=dev),
+           "n1e5": qc.sample_qc_code(gen(2), QC_NB, DV, DC, QC_Z5,
+                                     device=dev),
+           "n1e6": qc.sample_qc_code(gen(3), QC_NB, DV, DC, QC_Z6,
+                                     device=dev)}
+    words_of = {"n1e4": WORDS_FULL, "n1e5": QC_W5, "n1e6": QC_W6}
+    irr_bec = qc.sample_qc_code_irregular(gen(4), QC_NB_IRR, LAM_BEC, RHO6,
+                                          QC_Z_IRR, device=dev)
+    irr_gal = qc.sample_qc_code_irregular(gen(5), QC_NB_IRR, LAM_GAL, RHO6,
+                                          QC_Z_IRR, device=dev)
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        check(err == 0, f"{what} differs from its plain version "
+                        f"(max |d| {err})")
+        return err
+
+    # -- 28 -------------------------------------------------------------------
+    phase("28 the circulant-index kernels Q1-Q4 against their plain "
+          "versions; expand() tables")
+    expanded = {}
+    for label, c in reg.items():
+        expanded[label] = c.expand()
+        ok, verdict = validate_code(expanded[label])
+        check(ok and expanded[label].n == c.n, f"expand() {label}: {verdict}")
+    for label, c in (("irregular BEC", irr_bec), ("irregular BSC", irr_gal)):
+        expanded[label] = c.expand()
+        ok, verdict = validate_irregular_code(expanded[label])
+        check(ok and expanded[label].n == c.n, f"expand() {label}: {verdict}")
+    print(f"expand() valid: n = {[c.n for c in reg.values()]}, irregular nb="
+          f"{QC_NB_IRR} n={irr_bec.n} (dv_max "
+          f"{expanded['irregular BEC'].dv_max}, "
+          f"{expanded['irregular BSC'].dv_max})", flush=True)
+    err = dict.fromkeys(names, 0)
+    single = {}
+    cases = [("n1e4", reg["n1e4"], WORDS_FULL, EPS_FULL, P_GAL, True),
+             ("n1e6", reg["n1e6"], QC_W6, EPS_FULL, P_GAL, True),
+             ("irregular BEC", irr_bec, WORDS_FULL, EPS_FULL, P_GAL, False),
+             ("irregular BSC", irr_gal, WORDS_FULL, EPS_FULL, P_GAL_IRR,
+              False)]
+    for label, c, words, eps, p, timed in cases:
+        adj = qc_bp._adjacency(c, dev)
+        clamp = isinstance(c, qc.IrregularQCLDPCCode)
+        erased = bitops.bernoulli_packed(eps, (c.n, words), seed=7, offset=3,
+                                         device=dev)
+        tx = bitops.info_planes(c.n, words, seed=2, device=dev)
+        known0 = ~erased
+        val0 = tx & known0
+        ex = qc_bp.qc_check_exactly_one(adj, known0)
+        ex_v, adopt = qc_bp.qc_check_exactly_one(adj, known0, val0)
+        ex_p, adopt_p = qc_bp._qc_check_exactly_one_plain(adj, known0, val0)
+        err[names[0]] = max(err[names[0]], same(
+            (ex, ex_v, adopt), (ex_p, ex_p, adopt_p), f"Q1 ({label})"))
+        state = {}
+
+        def fresh():
+            state["known"], state["val"] = known0.clone(), val0.clone()
+            state["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def q2(fn, values):
+            fn(adj, ex, state["known"], state["errors"], 1,
+               **(dict(adopt=adopt, val=state["val"]) if values else {}))
+
+        for values in (False, True):
+            fresh()
+            q2(qc_bp.qc_variable_or, values)
+            got = (state["known"], state["val"], state["errors"])
+            fresh()
+            q2(qc_bp._qc_variable_or_plain, values)
+            err[names[1]] = max(err[names[1]], same(
+                got, (state["known"], state["val"], state["errors"]),
+                f"Q2 ({label}, values={values})"))
+        # Gallager: the first messages, then the second round (the first
+        # round's messages are the channel words; the second moves)
+        flips = bitops.bernoulli_packed(p, (c.n, words), seed=7, offset=3,
+                                        device=dev)
+        dvb = adj.var_chk.shape[1]
+        gstate = {}
+        out = {}
+        for with_tx in (False, True):
+            rx = flips ^ tx if with_tx else flips
+            for key, check_fn, var_fn in (
+                    ("kernel", qc_gallager.qc_gallager_check,
+                     qc_gallager.qc_gallager_variable),
+                    ("plain", qc_gallager._qc_gallager_check_plain,
+                     qc_gallager._qc_gallager_variable_plain)):
+                msg = torch.full((adj.num_rows * adj.Z, words), -7,
+                                 dtype=torch.int32, device=dev)
+                var_fn(adj, msg, None, rx, None, None, init=True)
+                first = msg.clone()
+                decided = rx.clone()
+                counts = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+                for t in (dvb if clamp else dvb - 1, 1):   # Gallager-A, then B
+                    parity = check_fn(adj, msg)
+                    before = msg.clone() if t == 1 else None
+                    var_fn(adj, msg, parity, rx, decided, counts, threshold=t,
+                           clamp=clamp, tx=tx if with_tx else None)
+                out[key] = (first, parity, msg, decided, counts)
+                if key == "kernel" and not with_tx:
+                    gstate.update(rx=rx, before=before, parity=parity)
+            err[names[2]] = max(err[names[2]], same(
+                out["kernel"][1:2], out["plain"][1:2],
+                f"Q3 ({label}, tx={with_tx})"))
+            err[names[3]] = max(err[names[3]], same(
+                out["kernel"][:1] + out["kernel"][2:],
+                out["plain"][:1] + out["plain"][2:],
+                f"Q4 ({label}, tx={with_tx})"))
+            check(int(out["kernel"][4][0, 1]) > 0,
+                  f"Q4 ({label}): no message word changed in two rounds")
+        print(f"Q1-Q4 equal to plain on {label}: n={c.n}, Z={c.Z}, W={words}, "
+              f"E_b={adj.num_rows}, dvb {dvb}", flush=True)
+        if not timed:
+            continue
+        # single launches at this shape, each beside its plain version and
+        # its bound (every input read once, every output written once)
+        def gfresh():
+            gstate["msg"] = gstate["before"].clone()
+            gstate["decided"] = gstate["rx"].clone()
+            gstate["counts"] = torch.zeros((1, 2), dtype=torch.int32,
+                                           device=dev)
+
+        def q4(fn, tx_plane=None):
+            fn(adj, gstate["msg"], gstate["parity"], gstate["rx"],
+               gstate["decided"], gstate["counts"], threshold=1, clamp=clamp,
+               tx=tx_plane)
+
+        def q4_init(fn):
+            fn(adj, gstate["msg"], None, gstate["rx"], None, None, init=True)
+
+        reps_plain = 2
+        tables = (adj.base_chk, adj.shifts)
+        var_tables = (adj.var_chk, adj.var_shift)
+        gfresh()
+        single[label] = {
+            names[0]: dict(
+                ms=time_ms(lambda: qc_bp.qc_check_exactly_one(adj, known0)),
+                plain_ms=time_ms(lambda: qc_bp._qc_check_exactly_one_plain(
+                    adj, known0), reps=reps_plain),
+                values_ms=time_ms(lambda: qc_bp.qc_check_exactly_one(
+                    adj, known0, val0)),
+                **bound(nbytes(known0, ex, *tables))),
+            names[1]: dict(
+                ms=time_ms(lambda: q2(qc_bp.qc_variable_or, False),
+                           prepare=fresh),
+                plain_ms=time_ms(lambda: q2(qc_bp._qc_variable_or_plain,
+                                            False), prepare=fresh,
+                                 reps=reps_plain),
+                values_ms=time_ms(lambda: q2(qc_bp.qc_variable_or, True),
+                                  prepare=fresh),
+                **bound(nbytes(ex, known0, known0, state["errors"],
+                               *var_tables))),
+            names[2]: dict(
+                ms=time_ms(lambda: qc_gallager.qc_gallager_check(
+                    adj, gstate["before"])),
+                plain_ms=time_ms(
+                    lambda: qc_gallager._qc_gallager_check_plain(
+                        adj, gstate["before"]), reps=reps_plain),
+                **bound(nbytes(gstate["before"], gstate["parity"],
+                               adj.row_offs))),
+            names[3]: dict(
+                ms=time_ms(lambda: q4(qc_gallager.qc_gallager_variable),
+                           prepare=gfresh),
+                plain_ms=time_ms(
+                    lambda: q4(qc_gallager._qc_gallager_variable_plain),
+                    prepare=gfresh, reps=reps_plain),
+                tx_ms=time_ms(lambda: q4(qc_gallager.qc_gallager_variable,
+                                         tx), prepare=gfresh),
+                init_ms=time_ms(
+                    lambda: q4_init(qc_gallager.qc_gallager_variable)),
+                **bound(nbytes(gstate["before"], gstate["before"],
+                               gstate["parity"], gstate["rx"],
+                               gstate["decided"], gstate["counts"],
+                               adj.var_chk, adj.var_row, adj.var_shift)))}
+        print(f"single launches at {label} (ms): "
+              f"{json.dumps(single[label])}", flush=True)
+        del gstate, out, state
+    for name in names:
+        at4, at6 = single["n1e4"][name], single["n1e6"][name]
+        measured[name].update(
+            max_abs_err=err[name], library_ms=None, **at4,
+            **{f"{k}_n1e6": v for k, v in at6.items()})
+    print(json.dumps({"qc_single_launch_ms": single, "shapes": {
+        "n1e4": [QC_NB, QC_Z, WORDS_FULL], "n1e6": [QC_NB, QC_Z6, QC_W6]},
+        "card": smi}), flush=True)
+
+    # -- 29 -------------------------------------------------------------------
+    phase("29 whole QC decodes: circulant-index kernels == plain == the "
+          "generic kernels on expand()")
+
+    def same_bec(a, b, what):
+        check(torch.equal(a.known, b.known)
+              and (a.val is None or torch.equal(a.val, b.val))
+              and torch.equal(a.error_totals, b.error_totals)
+              and a.iterations == b.iterations, f"BEC decode: {what}")
+
+    def same_gal(a, b, what):
+        check(torch.equal(a.decided, b.decided)
+              and torch.equal(a.error_totals, b.error_totals)
+              and a.iterations == b.iterations, f"Gallager decode: {what}")
+
+    for label, c, words, eps, p, plain in (
+            ("n1e4", reg["n1e4"], WORDS_FULL, EPS_FULL, P_GAL, True),
+            ("irregular BEC", irr_bec, WORDS_FULL, EPS_FULL, P_GAL, True),
+            ("irregular BSC", irr_gal, WORDS_FULL, EPS_FULL, P_GAL_IRR,
+             True),
+            ("n1e6", reg["n1e6"], QC_W6, EPS_FULL, P_GAL, False)):
+        e = expanded[label]
+        irregular = isinstance(c, qc.IrregularQCLDPCCode)
+        erased = bitops.bernoulli_packed(eps, (c.n, words), seed=11,
+                                         device=dev)
+        flips = bitops.bernoulli_packed(p, (c.n, words), seed=12, device=dev)
+        tx = bitops.info_planes(c.n, words, seed=13, device=dev)
+        roll = qc_bp.qc_bp_decode_packed_allzero(c, erased, ITERS)
+        same_bec(roll, (erasure_bp.bp_decode_packed_allzero_irregular
+                        if irregular else
+                        erasure_bp.bp_decode_packed_allzero)(e, erased,
+                                                             ITERS),
+                 f"{label}: all-zero differs from the generic kernels")
+        roll_v = qc_bp.qc_bp_decode_packed(c, erased, tx, ITERS)
+        same_bec(roll_v, (erasure_bp.bp_decode_packed_irregular if irregular
+                          else erasure_bp.bp_decode_packed)(e, erased, tx,
+                                                            ITERS),
+                 f"{label}: value planes differ from the generic kernels")
+        check(torch.equal(roll_v.known, roll.known),
+              f"{label}: value decode's known differs from the all-zero's")
+        generic_gal = gallager.gallager_decode_packed_irregular \
+            if irregular else gallager.gallager_decode_packed
+        rolls_g = {}
+        for t, with_tx in ((None, False), (1, False), (None, True)):
+            kw = dict(threshold=t, tx_bits=tx if with_tx else None)
+            rx = flips ^ tx if with_tx else flips
+            rolls_g[t, with_tx] = qc_gallager.qc_gallager_decode_packed(
+                c, rx, ITERS, **kw)
+            same_gal(rolls_g[t, with_tx], generic_gal(e, rx, ITERS, **kw),
+                     f"{label}: threshold {t}, tx {with_tx} differs from the "
+                     "generic kernels")
+            if plain:
+                same_gal(rolls_g[t, with_tx],
+                         qc_gallager.qc_gallager_decode_packed_plain(
+                             c, rx, ITERS, **kw),
+                         f"{label}: threshold {t}, tx {with_tx} differs from "
+                         "the plain path")
+        if plain:
+            same_bec(roll, qc_bp.qc_bp_decode_packed_allzero_plain(
+                c, erased, ITERS), f"{label}: all-zero differs from plain")
+            same_bec(roll_v, qc_bp.qc_bp_decode_packed_plain(
+                c, erased, tx, ITERS), f"{label}: values differ from plain")
+        ga = rolls_g[None, False]
+        print(f"{label}: BEC {roll.iterations} rounds, erasures "
+              f"{int(roll.error_totals[0])} -> {int(roll.error_totals[-1])}; "
+              f"Gallager-A {ga.iterations} rounds, errors "
+              f"{int(ga.error_totals[0])} -> {int(ga.error_totals[-1])}, "
+              f"B(t=1) {rolls_g[1, False].iterations} rounds; equal to the "
+              f"generic kernels on expand()"
+              f"{' and to the plain path' if plain else ''}", flush=True)
+        del roll, roll_v, rolls_g
+
+    # -- 30 -------------------------------------------------------------------
+    phase("30 QC run_simulation: cuda against cpu, circulant index against "
+          "expand(), the other modes through expand()")
+    fields_eq = ("num_trials", "block_errors", "bit_errors",
+                 "excluded_trials", "bit_errors_sq",
+                 "error_counts_per_iteration", "stopped_by")
+    small = {"regular": qc.sample_qc_code(gen(6), QC_NB, DV, DC, 64),
+             "irregular": qc.sample_qc_code_irregular(gen(7), QC_NB_IRR,
+                                                      LAM_BEC, RHO6, 32)}
+
+    def small_cfg(kind, **fields):
+        return SimulationConfig(**{
+            "n": small[kind].n, "iterations": ITERS, "batch": 2048,
+            "num_tests": 2 * 2048, "seed": 7, "code_mode": "fixed",
+            "max_block_errors": 10**9, **fields})
+
+    def launches_now():
+        return {k: v["wrapper"].launches for k, v in kernels.items()}
+
+    for kind, fields in (
+            ("regular", dict(channel_param=EPS_FULL)),
+            ("regular", dict(channel="BSC", decoder="gallager",
+                             channel_param=P_GAL)),
+            ("irregular", dict(channel_param=EPS_FULL, lam=LAM_BEC,
+                               rho=RHO6))):
+        cfg = small_cfg(kind, **fields)
+        before = launches_now()
+        r_gpu = mc.run_simulation(cfg, small[kind], device="cuda")
+        used = {k: v - before[k] for k, v in launches_now().items()}
+        r_cpu = mc.run_simulation(cfg, small[kind], device="cpu")
+        r_exp = mc.run_simulation(cfg, small[kind].expand(), device="cuda")
+        for f in fields_eq:
+            check(getattr(r_gpu, f) == getattr(r_cpu, f),
+                  f"QC {kind} {cfg.decoder}: cuda and cpu differ in {f}")
+            check(getattr(r_gpu, f) == getattr(r_exp, f),
+                  f"QC {kind} {cfg.decoder}: the circulant-index run and the "
+                  f"expand() run differ in {f}")
+        pair = names[:2] if cfg.channel == "BEC" else names[2:]
+        check(all(used[k] > 0 for k in pair)
+              and used["check_exactly_one"] == 0
+              and used["gallager_variable"] == 0,
+              f"QC {kind} {cfg.decoder}: launches {used}")
+        print(f"QC {kind} {cfg.channel} {cfg.decoder}: cuda == cpu == "
+              f"expand() run; block_errors {r_gpu.block_errors}, bit_errors "
+              f"{r_gpu.bit_errors}", flush=True)
+    for what, fields, generic in (
+            ("random transmit", dict(channel_param=EPS_FULL,
+                                     transmit="random"),
+             "check_exactly_one_xor"),
+            ("expurgated", dict(channel_param=0.45, expurgation=2),
+             "check_exactly_one"),
+            ("int8 min-sum", dict(channel="BSC", decoder="minsum",
+                                  soft_msg_dtype="int8", channel_param=0.05),
+             "soft_check")):
+        cfg = small_cfg("regular", **fields)
+        before = launches_now()
+        res = mc.run_simulation(cfg, small["regular"], device="cuda")
+        used = {k: v - before[k] for k, v in launches_now().items()}
+        check(res.num_trials == 2 * 2048 and used[generic] > 0
+              and all(used[k] == 0 for k in names),
+              f"QC {what}: did not run on expand() (launches {used})")
+        print(f"QC {what}: ran on expand() ({generic} x{used[generic]}), "
+              f"block_errors {res.block_errors}, excluded "
+              f"{res.excluded_trials}", flush=True)
+
+    # -- 31 -------------------------------------------------------------------
+    phase(f"31 the QC path at full width: run_simulation(cfg, code=qc), "
+          f"n={reg['n1e4'].n}, batch {32 * WORDS_FULL}, {ITERS} iterations")
+    by_path = {}
+
+    def drive(name, code, chunks, words, **fields):
+        """One run through the engine's entry point for QC codes, the
+        launch counts set to 0 just before it and read just after."""
+        cfg = SimulationConfig(**{
+            "n": code.n, "iterations": ITERS, "batch": 32 * words,
+            "num_tests": chunks * 32 * words, "seed": 1,
+            "code_mode": "fixed", "max_block_errors": 10**9, **fields})
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        t0 = time.perf_counter()
+        res = mc.run_simulation(cfg, code=code, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        by_path[name] = launches_now()
+        rates = res.error_rate_per_iteration
+        check(res.num_trials == chunks * 32 * words
+              and len(rates) == ITERS + 1 and all(map(math.isfinite, rates))
+              and abs(rates[0] - cfg.channel_param) < 1e-3
+              and 0.0 <= res.bit_error_rate <= 1.0
+              and 0.0 <= res.block_error_rate <= 1.0,
+              f"QC path {name}: result malformed")
+        check(cfg.channel != "BEC"
+              or (all(a >= b for a, b in zip(rates, rates[1:]))
+                  and res.bit_error_rate <= rates[0]),
+              f"QC path {name}: erasure rate increased between iterations")
+        # the rounds run, from the generic decoders on expand() on the same
+        # chunks' planes (launched after the counts were read)
+        e = code.expand()
+        irregular = isinstance(code, qc.IrregularQCLDPCCode)
+        rounds = 0
+        for chunk in range(chunks):
+            planes = bitops.bernoulli_packed(cfg.channel_param,
+                                             (code.n, words), seed=cfg.seed,
+                                             offset=chunk, device=dev)
+            if cfg.channel == "BEC":
+                rounds += (erasure_bp.bp_decode_packed_allzero_irregular
+                           if irregular else
+                           erasure_bp.bp_decode_packed_allzero)(
+                    e, planes, ITERS).iterations
+            else:
+                rounds += (gallager.gallager_decode_packed_irregular
+                           if irregular else
+                           gallager.gallager_decode_packed)(
+                    e, planes, ITERS).iterations
+        got = by_path[name]
+        if cfg.channel == "BEC":
+            want = {names[0]: rounds, names[1]: rounds, names[2]: 0,
+                    names[3]: 0}
+        else:       # Q4 also writes each chunk's first messages
+            want = {names[0]: 0, names[1]: 0, names[2]: rounds,
+                    names[3]: rounds + chunks}
+        check(all(got[k] == v for k, v in want.items())
+              and got["bernoulli_packed"] == chunks
+              and got["per_trial_counts"] > 0
+              and got["check_exactly_one"] == 0
+              and got["gallager_check"] == 0,
+              f"QC path {name}: launches {got}, expected {want} for {rounds} "
+              f"rounds in {chunks} chunks")
+        lo, hi = wilson(res.block_errors, res.num_trials)
+        print(f"QC path {name}: {res.num_trials} trials in {run_s:.4f} s, "
+              f"{rounds} rounds, FER {res.block_error_rate:.5f} (99% "
+              f"[{lo:.5f}, {hi:.5f}]) BER {res.bit_error_rate:.4e}; launches "
+              f"{ {k: got[k] for k in names if got[k]} }", flush=True)
+        return res
+
+    bec = drive("qc_bec_36", reg["n1e4"], 4, WORDS_FULL,
+                channel_param=EPS_FULL)
+    for k in names[:2]:
+        measured[k]["launches"] = by_path["qc_bec_36"][k]
+    check(0.0 < bec.block_error_rate < 1.0,
+          f"QC BEC FER {bec.block_error_rate} at eps = {EPS_FULL}")
+    print(f"FER at eps = {EPS_FULL}: QC nb={QC_NB} Z={QC_Z} "
+          f"{bec.block_error_rate:.5f}, 99% "
+          f"{wilson(bec.block_errors, bec.num_trials)}; the fixed (3,6) "
+          f"code of n = {N_FULL} (phase 6): {fer_fixed_36:.5f}", flush=True)
+    gal = drive("qc_gallager_36", reg["n1e4"], 4, WORDS_FULL, channel="BSC",
+                decoder="gallager", channel_param=P_GAL)
+    for k in names[2:]:
+        measured[k]["launches"] = by_path["qc_gallager_36"][k]
+    check(gal.bit_error_rate < 0.1 * P_GAL,
+          f"QC Gallager-A BER {gal.bit_error_rate} at p = {P_GAL}")
+    irr_b = drive("qc_bec_irregular", irr_bec, 2, WORDS_FULL,
+                  channel_param=EPS_FULL, lam=LAM_BEC, rho=RHO6)
+    irr_g = drive("qc_gallager_irregular", irr_gal, 2, WORDS_FULL,
+                  channel="BSC", decoder="gallager", channel_param=P_GAL_IRR,
+                  lam=LAM_GAL, rho=RHO6)
+    check(irr_b.bit_error_rate < EPS_FULL / 10
+          and irr_g.bit_error_rate < 0.1 * P_GAL_IRR,
+          f"irregular QC BER {irr_b.bit_error_rate} / {irr_g.bit_error_rate}")
+    huge = drive("qc_bec_n1e6", reg["n1e6"], 2, QC_W6,
+                 channel_param=EPS_FULL)
+    bracket = {}
+    for eps in (0.38, 0.46):
+        bracket[eps] = drive(f"qc_bec_n1e5_eps{eps}", reg["n1e5"], 1, QC_W5,
+                             channel_param=eps)
+    check(bracket[0.38].bit_error_rate < 1e-5
+          and bracket[0.46].bit_error_rate > 0.15
+          and bracket[0.46].block_error_rate == 1.0,
+          f"QC Z={QC_Z5}: BER {bracket[0.38].bit_error_rate} / "
+          f"{bracket[0.46].bit_error_rate} at eps 0.38 / 0.46 does not "
+          "bracket the threshold")
+    print(json.dumps({"qc_paths": {
+        "fer_eps042_n1e4": bec.block_error_rate,
+        "fer_eps042_fixed_36_n1e4": fer_fixed_36,
+        "gallager_a_ber_p003": gal.bit_error_rate,
+        "irregular_ber": [irr_b.bit_error_rate, irr_g.bit_error_rate],
+        "n1e6_eps042": [huge.block_error_rate, huge.bit_error_rate],
+        "n1e5_ber_eps038_eps046": [bracket[0.38].bit_error_rate,
+                                   bracket[0.46].bit_error_rate]},
+        "launches": {p: {k: v[k] for k in names if v[k]}
+                     for p, v in by_path.items()}, "card": smi}), flush=True)
+    for k in names:
+        measured[k]["launches_by_path"] = {p: v[k] for p, v in by_path.items()
+                                           if v[k]}
+
+    # -- 32 -------------------------------------------------------------------
+    phase("32 QC timing: circulant index against gather (the generic "
+          "kernels on expand()), whole decodes")
+    timing = {}
+    for label, c in reg.items():
+        words = words_of[label]
+        e = expanded[label]
+        erased = bitops.bernoulli_packed(EPS_FULL, (c.n, words), seed=11,
+                                         device=dev)
+        flips = bitops.bernoulli_packed(P_GAL, (c.n, words), seed=12,
+                                        device=dev)
+        runs = {
+            "bec_gather": lambda: erasure_bp.bp_decode_packed_allzero(
+                e, erased, ITERS),
+            "bec_index": lambda: qc_bp.qc_bp_decode_packed_allzero(
+                c, erased, ITERS),
+            "gallager_gather": lambda: gallager.gallager_decode_packed(
+                e, flips, ITERS),
+            "gallager_index": lambda: qc_gallager.qc_gallager_decode_packed(
+                c, flips, ITERS)}
+        ms = {}
+        for dec in ("bec", "gallager"):
+            for way in ("gather", "index", "index", "gather"):
+                ms.setdefault(f"{dec}_{way}", []).append(
+                    time_ms(runs[f"{dec}_{way}"], reps=3))
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        rounds = {"bec": runs["bec_index"]().iterations,
+                  "gallager": runs["gallager_index"]().iterations}
+        k_bits = c.k * 32 * words
+        timing[label] = {
+            "n": c.n, "Z": c.Z, "words": words, "decode_ms": ms,
+            "rounds": rounds,
+            "index_over_gather_speedup": {
+                dec: mean[f"{dec}_gather"] / mean[f"{dec}_index"]
+                for dec in ("bec", "gallager")},
+            "info_bits_per_s": {k: k_bits / (v / 1e3)
+                                for k, v in mean.items()}}
+        print(f"{label} (n={c.n}, W={words}): BEC gather "
+              f"{mean['bec_gather']:.3f} ms, index {mean['bec_index']:.3f} ms "
+              f"({rounds['bec']} rounds); Gallager-A gather "
+              f"{mean['gallager_gather']:.3f} ms, index "
+              f"{mean['gallager_index']:.3f} ms ({rounds['gallager']} rounds)",
+              flush=True)
+    print(json.dumps({"qc_index_against_gather": timing, "eps": EPS_FULL,
+                      "p": P_GAL, "iterations": ITERS, "card": smi}),
+          flush=True)
+    cfg6 = SimulationConfig(n=reg["n1e6"].n, channel_param=EPS_FULL,
+                            iterations=ITERS, batch=32 * QC_W6, seed=1,
+                            code_mode="fixed")
+    chunk6 = mc.make_chunk_fn(cfg6, reg["n1e6"], device=dev)
+    chunk6(9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in range(2):
+        int(chunk6(idx).block_errors)
+    torch.cuda.synchronize()
+    chunk6_ms = (time.perf_counter() - t0) / 2 * 1e3
+    print(f"QC BEC chunk at n={reg['n1e6'].n}, W={QC_W6}: {chunk6_ms:.3f} ms, "
+          f"{32 * QC_W6 / chunk6_ms * 1e3:.4e} trials/s; card {smi}",
+          flush=True)
+    print(device_time_breakdown(lambda: int(chunk6(5).block_errors),
+                                chunk6_ms, kernels), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1766,6 +2318,7 @@ def main() -> int:
         code_for_config)
     from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
                                                       erasure_bp, gallager,
+                                                      qc_bp, qc_gallager,
                                                       soft_bp)
     from iib_project_ldpc_codes_tpu_torch.parallel.montecarlo import (
         make_chunk_fn, run_simulation)
@@ -1836,6 +2389,25 @@ def main() -> int:
             source="iib_project_ldpc_codes_tpu_torch/csrc/"
                    "variable_or_adopt.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:239"),
+        "qc_check_exactly_one": dict(
+            wrapper=qc_bp.qc_check_exactly_one,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "qc_check_exactly_one.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/qc_bp.py:64"),
+        "qc_variable_or": dict(
+            wrapper=qc_bp.qc_variable_or,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/qc_variable_or.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/qc_bp.py:90"),
+        "qc_gallager_check": dict(
+            wrapper=qc_gallager.qc_gallager_check,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "qc_gallager_check.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/qc_gallager.py:33"),
+        "qc_gallager_variable": dict(
+            wrapper=qc_gallager.qc_gallager_variable,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "qc_gallager_variable.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/qc_gallager.py:33"),
     }
     measured = {name: {} for name in kernels}
     t_start = time.perf_counter()
@@ -2324,10 +2896,13 @@ def main() -> int:
     soft_paths(dev, smi, measured, kernels, scratch_root)
     t_slice4 = time.perf_counter() - t_start
     random_paths(dev, smi, measured, kernels, scratch_root, code)
+    t_slice5 = time.perf_counter() - t_start
+    qc_paths(dev, smi, measured, kernels, main_res.block_error_rate)
     print(f"wall time: phases 1-12 {t_slice2:.1f} s, phases 13-17 "
           f"{t_slice3 - t_slice2:.1f} s, phases 18-22 "
           f"{t_slice4 - t_slice3:.1f} s, phases 23-27 "
-          f"{time.perf_counter() - t_start - t_slice4:.1f} s, total "
+          f"{t_slice5 - t_slice4:.1f} s, phases 28-32 "
+          f"{time.perf_counter() - t_start - t_slice5:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

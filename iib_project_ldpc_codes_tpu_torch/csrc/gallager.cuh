@@ -1,0 +1,31 @@
+// Shared by the Gallager variable passes (gallager_variable.cu and
+// qc_gallager_variable.cu): the bit-sliced disagreement count.
+#pragma once
+
+#include "common.cuh"
+
+namespace ldpc {
+
+constexpr int kMaxDegree = 32;     // the wrappers raise above it
+constexpr int kCountPlanes = 6;    // counts up to 63 >= kMaxDegree
+
+// Bits whose bit-sliced count (planes, LSB first) is >= k.
+__device__ __forceinline__ uint32_t count_at_least(
+    const uint32_t (&planes)[kCountPlanes], int k) {
+  if (k <= 0) return 0xFFFFFFFFu;
+  if (k >= (1 << kCountPlanes)) return 0u;
+  uint32_t ge = 0u, eq = 0xFFFFFFFFu;
+#pragma unroll
+  for (int i = kCountPlanes - 1; i >= 0; --i) {
+    const uint32_t p = planes[i];
+    if ((k >> i) & 1) {
+      eq &= p;
+    } else {
+      ge |= eq & p;
+      eq &= ~p;
+    }
+  }
+  return ge | eq;
+}
+
+}  // namespace ldpc

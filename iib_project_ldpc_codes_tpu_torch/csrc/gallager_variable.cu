@@ -40,32 +40,15 @@
 // are summed per code (__match_any_sync + __reduce_add_sync) before one
 // atomicAdd per code and warp; integer atomics are exact in any order.
 // A batch of C codes reads code w / wpc's table slice for word w, as K2/K3.
-#include "common.cuh"
+#include "gallager.cuh"
 
 namespace {
 
-constexpr int kMaxDegree = 32;     // the wrapper raises above it
-constexpr int kCountPlanes = 6;    // counts up to 63 >= kMaxDegree
-constexpr int kVarsPerThread = 16;
+using ldpc::count_at_least;
+using ldpc::kCountPlanes;
+using ldpc::kMaxDegree;
 
-// Bits whose bit-sliced count (planes, LSB first) is >= k.
-__device__ __forceinline__ uint32_t count_at_least(
-    const uint32_t (&planes)[kCountPlanes], int k) {
-  if (k <= 0) return 0xFFFFFFFFu;
-  if (k >= (1 << kCountPlanes)) return 0u;
-  uint32_t ge = 0u, eq = 0xFFFFFFFFu;
-#pragma unroll
-  for (int i = kCountPlanes - 1; i >= 0; --i) {
-    const uint32_t p = planes[i];
-    if ((k >> i) & 1) {
-      eq &= p;
-    } else {
-      ge |= eq & p;
-      eq &= ~p;
-    }
-  }
-  return ge | eq;
-}
+constexpr int kVarsPerThread = 16;
 
 template <bool kTx>
 __global__ void gallager_variable_kernel(

@@ -321,6 +321,25 @@ class _Graph:
     def num_codes(self) -> int:
         return self.chk_to_var.shape[0] if self.chk_to_var.dim() == 3 else 1
 
+    def check_words(self, words: int) -> None:
+        """Raise unless ``words`` split evenly over the codes."""
+        _words_per_code("chk_to_var", self.chk_to_var, words)
+
+    def initial_messages(self, _passes, received: torch.Tensor
+                         ) -> torch.Tensor:
+        return _initial_messages(self.chk_to_var, _pad_phantom_row(received)
+                                 if self.irregular else received)
+
+    def run_round(self, passes, msg, received, active, decided, counts,
+                  threshold: int, tx) -> None:
+        """One flooding round in place: the check pass, then the variable
+        pass at ``threshold``."""
+        check, variable, _ = passes
+        parity = check(msg, self.dc)
+        variable(msg, parity, received, self.var_to_sock, active, decided,
+                 counts, dc=self.dc, pad_pos=self.pad_pos,
+                 threshold=threshold, clamp=self.irregular, tx=tx)
+
 
 def _graph(code) -> _Graph:
     """The passes' view of a regular or an irregular code (one or a
@@ -334,13 +353,17 @@ def _graph(code) -> _Graph:
                   irregular=False)
 
 
-def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
+def _gallager_loop(graph, received: torch.Tensor, max_iters: int,
                    threshold_of: Callable[[int], int],
                    change_ahead: Callable[[int], bool], record: str,
                    passes, tx: Optional[torch.Tensor]) -> GallagerResult:
     """Host loop shared by the decoders: the JAX ``_gallager_loop``
-    semantics, per code of a batch (module docstring)."""
-    check, variable, counts_of = passes
+    semantics, per code of a batch (module docstring).  ``graph`` is a
+    :class:`_Graph`, or the quasi-cyclic decoder's counterpart with the
+    same ``n``, ``num_codes``, ``check_words``, ``initial_messages`` and
+    ``run_round`` (``ops/qc_gallager.py``); ``passes`` are its (check,
+    variable, per-trial counts) functions, kernels or plain."""
+    counts_of = passes[2]
     if record not in ("total", "per_trial"):
         raise ValueError(f"unknown record mode {record!r}")
     check_int32("received", received, 2)
@@ -358,11 +381,10 @@ def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
     _check_packed_batch_bits(n, words)
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
-    _words_per_code("chk_to_var", graph.chk_to_var, words)
+    graph.check_words(words)
     num = graph.num_codes
     device = received.device
-    msg = _initial_messages(graph.chk_to_var, _pad_phantom_row(received)
-                            if graph.irregular else received)
+    msg = graph.initial_messages(passes, received)
     decided = received.clone()
     if record == "per_trial":
         traj = [counts_of(as_err(received))]
@@ -377,10 +399,8 @@ def _gallager_loop(graph: _Graph, received: torch.Tensor, max_iters: int,
     it = 0
     while it < max_iters and bool(active.any()):
         counts.zero_()
-        parity = check(msg, graph.dc)
-        variable(msg, parity, received, graph.var_to_sock, active, decided,
-                 counts, dc=graph.dc, pad_pos=graph.pad_pos,
-                 threshold=threshold_of(it), clamp=graph.irregular, tx=tx)
+        graph.run_round(passes, msg, received, active, decided, counts,
+                        threshold_of(it), tx)
         ran = active.bool()
         current = torch.where(ran, counts[:, 0].long(), current)
         errors[it + 1] = current.sum()

@@ -9,7 +9,8 @@ Gallager decoders, one column per trial for soft BP), and the host loop
 applies the reference's stopping rules at chunk granularity (>=
 max_block_errors block errors / num_tests / wall clock,
 parallel_simulator.py:198).  Every decoder runs on (dv,dc)-regular or
-irregular (lam, rho) codes.  Two code modes:
+irregular (lam, rho) codes, and on quasi-cyclic (QC) codes of either
+kind (``models/qc.py``; below).  Two code modes:
 
   * ``fixed`` (reference mode 3): one code for the whole run.
   * ``ensemble`` (reference mode 0, the default): every chunk samples
@@ -29,6 +30,17 @@ of the same (seed, chunk)).  A BEC trial's errors are its unresolved
 erasures plus any resolved bit that differs from the codeword (JAX
 ``_bp_chunk``, montecarlo.py:109-117; zero by construction, counted all
 the same); the Gallager and soft decoders count decision ^ codeword.
+
+Quasi-cyclic codes (a :class:`..models.qc.QCLDPCCode` or
+:class:`..models.qc.IrregularQCLDPCCode` as the fixed code): the JAX
+engine's gate (montecarlo.py:471-493).  With all-zero transmit and no
+expurgation, BEC bp and BSC Gallager decode by circulant index
+(``ops/qc_bp.py``, ``ops/qc_gallager.py``: no table per lifted edge);
+every other mode -- random transmit, expurgation, all soft decoding --
+runs the generic decoders on ``code.expand()``.  The circulant-index chunk
+draws the generic chunk's planes from the same (seed, chunk) and its
+decoders equal the generic ones on ``expand()`` bit for bit, so a run's
+counters do not depend on the way taken; only its speed does.
 
 Seeding: chunk ``c`` draws its erasures or flips with Philox key
 ``philox_key(seed)`` and offset ``c`` (``ops/bitops.py`` gives the full
@@ -65,6 +77,7 @@ from ..models.encode import code_encoder_planes, encode_packed
 from ..models.ensemble import sample_codes
 from ..models.irregular import (IrregularEnsembleSpec, IrregularLDPCCode,
                                 sample_irregular_codes)
+from ..models.qc import IrregularQCLDPCCode, QCLDPCCode
 from ..ops.bitops import bernoulli_packed, info_planes, pack_bits, \
     per_trial_counts
 from ..ops.channels import BSC, awgn_llr
@@ -73,9 +86,14 @@ from ..ops.erasure_bp import (bp_decode_packed, bp_decode_packed_allzero,
                               bp_decode_packed_irregular)
 from ..ops.gallager import (gallager_decode_packed,
                             gallager_decode_packed_irregular)
+from ..ops.qc_bp import qc_bp_decode_packed_allzero
+from ..ops.qc_gallager import qc_gallager_decode_packed
 from ..ops.soft_bp import soft_bp_decode, soft_bp_decode_irregular
 from ..utils.config import SimulationConfig
 from ..utils.results import SimulationResult
+
+
+_QC_CODES = (QCLDPCCode, IrregularQCLDPCCode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +120,8 @@ class ChunkStats:
 
 def _allzero_decode(code, erased: torch.Tensor, iterations: int):
     """The all-zero packed erasure decode of a code's family."""
+    if isinstance(code, _QC_CODES):
+        return qc_bp_decode_packed_allzero(code, erased, iterations)
     if isinstance(code, IrregularLDPCCode):
         return bp_decode_packed_allzero_irregular(code, erased, iterations)
     return bp_decode_packed_allzero(code, erased, iterations)
@@ -143,16 +163,18 @@ def _final_count_stats(error_totals: torch.Tensor, final: torch.Tensor,
 
 
 def _codes_in(code) -> Optional[int]:
-    """C for a batch of codes (ensemble mode), None for one code."""
-    return code.num_codes if code.batched else None
+    """C for a batch of codes (ensemble mode), None for one code (a QC
+    code is always one)."""
+    return code.num_codes if getattr(code, "batched", False) else None
 
 
 def _bp_chunk(code, erased: torch.Tensor, *, iterations: int,
               expurgation: Optional[int],
               tx: Optional[torch.Tensor] = None) -> ChunkStats:
     """Chunk statistics of the decode of ``erased`` int32[n, W] on one
-    code (regular or irregular), or on a batch of C codes (word w on code
-    ``w // (W // C)``, which also records ``code_bit_errors_sq``).
+    code (regular, irregular, or quasi-cyclic with all-zero transmit), or
+    on a batch of C codes (word w on code ``w // (W // C)``, which also
+    records ``code_bit_errors_sq``).
 
     ``tx`` (int32[n, W] codewords) decodes the value planes and counts a
     trial's errors as K4 of ``~known | ((val ^ tx) & known)``; without it
@@ -188,10 +210,15 @@ def _gallager_chunk(code, received: torch.Tensor, *, iterations: int,
                     tx: Optional[torch.Tensor] = None) -> ChunkStats:
     """BSC hard-decision chunk (JAX ``_gallager_chunk``): Gallager-A/B on
     the received planes ``received`` int32[n, W] (the flips, or tx ^
-    flips for codewords ``tx``) of one code (regular or irregular) or a
-    batch; expurgated chunks record per-trial trajectories."""
-    decode = gallager_decode_packed_irregular \
-        if isinstance(code, IrregularLDPCCode) else gallager_decode_packed
+    flips for codewords ``tx``) of one code (regular, irregular or
+    quasi-cyclic) or a batch; expurgated chunks record per-trial
+    trajectories."""
+    if isinstance(code, _QC_CODES):
+        decode = qc_gallager_decode_packed
+    elif isinstance(code, IrregularLDPCCode):
+        decode = gallager_decode_packed_irregular
+    else:
+        decode = gallager_decode_packed
     res = decode(code, received, iterations, threshold=threshold,
                  record="total" if expurgation is None else "per_trial",
                  tx_bits=tx)
@@ -237,11 +264,15 @@ def make_chunk_fn(cfg: SimulationConfig, code,
     BP, BSC Gallager-A/B and soft BP on BSC or AWGN LLRs (sum-product,
     min-sum; float32, bfloat16 or int8 messages) on (dv,dc)-regular or
     irregular (lam, rho) codes, on a fixed code (the reference's mode 3)
-    or on fresh codes per chunk (mode 0); ML, peeling, edge sharding and
-    QC codes raise, naming the ROADMAP item that ports them.  ``code`` is
-    the fixed code (an ``LDPCCode``, or an ``IrregularLDPCCode`` for an
-    irregular configuration); ensemble mode ignores it, as the JAX engine
-    does.  Random transmit derives the fixed code's encoder here, once.
+    or on fresh codes per chunk (mode 0); ML, peeling and edge sharding
+    raise, naming the ROADMAP item that ports them.  ``code`` is the fixed
+    code: an ``LDPCCode``, an ``IrregularLDPCCode`` for an irregular
+    configuration, or a quasi-cyclic code of ``n == cfg.n`` whatever the
+    configuration's degrees say (the JAX gate: its kind is the code's
+    type), decoded by circulant index where the module docstring says and
+    on ``expand()`` elsewhere.  Ensemble mode ignores ``code``, as the JAX
+    engine does.  Random transmit derives the fixed code's encoder here,
+    once.
     """
     pair = (cfg.channel, cfg.decoder)
     if pair in (("BEC", "ml"), ("BEC", "both")):
@@ -314,15 +345,22 @@ def make_chunk_fn(cfg: SimulationConfig, code,
         return lambda chunk_idx: decode(sample(chunk_idx), chunk_idx)
     if code is None:
         raise ValueError("fixed code_mode requires a code")
-    if cfg.irregular:
+    if isinstance(code, _QC_CODES):
+        if code.n != cfg.n:
+            raise ValueError(f"QC code n={code.n} != cfg.n={cfg.n}")
+        code = code.to(device)
+        by_index = pair in (("BEC", "bp"), ("BSC", "gallager")) \
+            and cfg.expurgation is None and not random
+        if not by_index:
+            code = code.expand()
+    elif cfg.irregular:
         if not isinstance(code, IrregularLDPCCode) or code.n != cfg.n:
             raise ValueError(f"an irregular config needs an "
                              f"IrregularLDPCCode of n={cfg.n}, got a "
                              f"{type(code).__name__}")
     elif not isinstance(code, LDPCCode):
-        raise NotImplementedError(
-            f"{type(code).__name__} codes are not ported yet (ROADMAP "
-            "queue 1 item 12)")
+        raise TypeError(f"a regular config needs an LDPCCode or a QC code, "
+                        f"got a {type(code).__name__}")
     elif (code.n, code.dv, code.dc) != (cfg.n, cfg.dv, cfg.dc):
         raise ValueError(f"code (n, dv, dc) = {(code.n, code.dv, code.dc)} "
                          f"!= config {(cfg.n, cfg.dv, cfg.dc)}")

@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from iib_project_ldpc_codes_tpu_torch.models import encode, ensemble, irregular
+from iib_project_ldpc_codes_tpu_torch.models import (encode, ensemble,
+                                                     irregular, qc)
 from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
 from iib_project_ldpc_codes_tpu_torch.models.ensemble import sample_code
 from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
                                                   erasure_bp, gallager,
+                                                  qc_bp, qc_gallager,
                                                   soft_bp)
 from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
 from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
@@ -725,3 +727,145 @@ def test_random_transmit_runs_gpu_equal_cpu(cuda, fields):
                   "bit_errors_sq", "code_bit_errors_sq",
                   "error_counts_per_iteration"):
         assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+# ---------------------------------------------------------------------------
+# Quasi-cyclic codes: the circulant-index kernels (Q1-Q4)
+# ---------------------------------------------------------------------------
+
+def _qc_code(family, Z):
+    """The nb = 12 (3,6) base or the irregular nb = 24 base, lifted by Z."""
+    g = torch.Generator().manual_seed(Z)
+    if family == "regular":
+        return qc.sample_qc_code(g, nb=12, dv=3, dc=6, Z=Z)
+    return qc.sample_qc_code_irregular(g, nb=24, lam=LAM, rho=RHO, Z=Z)
+
+
+QC_SHAPES = [(1, 1), (17, 1), (16, 3), (333, 33), (1000, 70)]   # (Z, W)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("Z, words", QC_SHAPES)
+@pytest.mark.parametrize("values", [False, True])
+def test_qc_bec_round_kernels_equal_plain(cuda, family, Z, words, values):
+    code = _qc_code(family, Z)
+    erased = bitops.bernoulli_packed(0.42, (code.n, words), seed=Z)
+    known0 = ~erased
+    val0 = bitops.bernoulli_packed(0.5, (code.n, words), seed=Z + 1) & known0
+    out = []
+    for device in (cuda, "cpu"):
+        adj = qc_bp._adjacency(code, device)
+        known, val = known0.clone().to(device), val0.clone().to(device)
+        errors = torch.zeros(2, dtype=torch.int32, device=device)
+        if values:
+            ex, adopt = qc_bp.qc_check_exactly_one(adj, known, val)
+            qc_bp.qc_variable_or(adj, ex, known, errors, 1, adopt=adopt,
+                                 val=val)
+            out.append((ex.cpu(), adopt.cpu(), known.cpu(), val.cpu(),
+                        errors.cpu()))
+        else:
+            ex = qc_bp.qc_check_exactly_one(adj, known)
+            qc_bp.qc_variable_or(adj, ex, known, errors, 1)
+            out.append((ex.cpu(), known.cpu(), errors.cpu()))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    assert int(out[0][-1][0]) == 0          # only errors[slot] is written
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("Z, words", QC_SHAPES)
+@pytest.mark.parametrize("threshold, with_tx", [(None, False), (1, True),
+                                                (0, False)])
+def test_qc_gallager_round_kernels_equal_plain(cuda, family, Z, words,
+                                               threshold, with_tx):
+    code = _qc_code(family, Z)
+    clamp = family == "irregular"
+    flips = bitops.bernoulli_packed(0.05, (code.n, words), seed=Z)
+    tx = bitops.bernoulli_packed(0.5, (code.n, words), seed=Z + 1) \
+        if with_tx else None
+    rx = flips if tx is None else flips ^ tx
+    out = []
+    for device in (cuda, "cpu"):
+        adj = qc_bp._adjacency(code, device)
+        dvb = adj.var_chk.shape[1]
+        t = (dvb if clamp else dvb - 1) if threshold is None else threshold
+        channel = rx.to(device)
+        msg = torch.full((adj.num_rows * Z, words), -7, dtype=torch.int32,
+                         device=device)
+        qc_gallager.qc_gallager_variable(adj, msg, None, channel, None, None,
+                                         init=True)
+        first = msg.clone()
+        decided = channel.clone()
+        counts = torch.zeros((1, 2), dtype=torch.int32, device=device)
+        for _ in range(2):                     # the second round moves
+            parity = qc_gallager.qc_gallager_check(adj, msg)
+            qc_gallager.qc_gallager_variable(
+                adj, msg, parity, channel, decided, counts, threshold=t,
+                clamp=clamp, tx=None if tx is None else tx.to(device))
+        out.append((first.cpu(), parity.cpu(), msg.cpu(), decided.cpu(),
+                    counts.cpu()))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("Z, words", [(17, 1), (333, 9)])
+def test_qc_decodes_on_gpu_equal_cpu_and_expand(cuda, family, Z, words):
+    code = _qc_code(family, Z)
+    erased = bitops.bernoulli_packed(0.4, (code.n, words), seed=1)
+    flips = bitops.bernoulli_packed(0.03, (code.n, words), seed=2)
+    tx = bitops.bernoulli_packed(0.5, (code.n, words), seed=3)
+    on_gpu = code.to(cuda)
+    expanded = on_gpu.expand()
+    irr = family == "irregular"
+    cpu = qc_bp.qc_bp_decode_packed_allzero(code, erased, 50)
+    gpu = qc_bp.qc_bp_decode_packed_allzero(on_gpu, erased.to(cuda), 50)
+    gen = (erasure_bp.bp_decode_packed_allzero_irregular if irr else
+           erasure_bp.bp_decode_packed_allzero)(expanded, erased.to(cuda), 50)
+    for other in (cpu, gen):
+        assert torch.equal(gpu.known.cpu(), other.known.cpu())
+        assert torch.equal(gpu.error_totals.cpu(), other.error_totals.cpu())
+        assert gpu.iterations == other.iterations
+    cpu = qc_bp.qc_bp_decode_packed(code, erased, tx, 50)
+    gpu = qc_bp.qc_bp_decode_packed(on_gpu, erased.to(cuda), tx.to(cuda), 50)
+    assert torch.equal(gpu.known.cpu(), cpu.known)
+    assert torch.equal(gpu.val.cpu(), cpu.val)
+    assert torch.equal(gpu.error_totals.cpu(), cpu.error_totals)
+    for kw in (dict(threshold=None), dict(threshold=1, record="per_trial"),
+               dict(threshold=None, tx_bits=tx)):
+        rx = flips if "tx_bits" not in kw else flips ^ tx
+        cpu = qc_gallager.qc_gallager_decode_packed(code, rx, 50, **kw)
+        kw_gpu = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items()}
+        gpu = qc_gallager.qc_gallager_decode_packed(on_gpu, rx.to(cuda), 50,
+                                                    **kw_gpu)
+        gen = (gallager.gallager_decode_packed_irregular if irr else
+               gallager.gallager_decode_packed)(expanded, rx.to(cuda), 50,
+                                                **kw_gpu)
+        for other in (cpu, gen):
+            assert torch.equal(gpu.decided.cpu(), other.decided.cpu())
+            assert torch.equal(gpu.error_totals.cpu(),
+                               other.error_totals.cpu())
+            assert gpu.iterations == other.iterations
+        if kw.get("record") == "per_trial":
+            assert torch.equal(gpu.traj.cpu(), cpu.traj)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(channel="BEC", channel_param=0.42),
+    dict(channel="BSC", decoder="gallager", channel_param=0.03),
+    dict(channel="BEC", channel_param=0.42, lam=LAM, rho=RHO),
+    dict(channel="BEC", channel_param=0.42, transmit="random"),
+    dict(channel="BSC", decoder="minsum", soft_msg_dtype="int8",
+         channel_param=0.05)])
+def test_qc_runs_gpu_equal_cpu(cuda, fields):
+    code = _qc_code("irregular" if "lam" in fields else "regular", 64)
+    cfg = SimulationConfig(**{
+        "n": code.n, "iterations": 30, "batch": 1024, "num_tests": 2048,
+        "seed": 5, "code_mode": "fixed", "max_block_errors": 10**9,
+        **fields})
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    cpu = mc.run_simulation(cfg, code, device="cpu")
+    for f in ("num_trials", "block_errors", "bit_errors", "bit_errors_sq",
+              "error_counts_per_iteration"):
+        assert getattr(gpu, f) == getattr(cpu, f), f
