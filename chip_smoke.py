@@ -57,6 +57,27 @@ on ``expand()``) at n = 10^4, 10^5 and 10^6.  For these four kernels
 ``launches`` counts the (3,6) QC BEC path (the BEC pair) and the (3,6) QC
 Gallager-A path (the Gallager pair).
 
+Phases 33-37 do the same for the QC soft decoder by circulant index, whose
+entry point is again ``run_simulation(cfg, code=qc)``, and for the
+sequential peeling decoder: the QC soft posterior and check kernels (S1,
+S2) against their plain versions in all five (method, type)
+instantiations on the nb = 12 (3,6) base at n = 10,008 (24,576 trials) and
+n = 1,000,008 (1,536) and on the irregular nb = 24 base, and the peel
+kernel (P1) against its plain version on 400 fresh codes of n = 16,384,
+regular and irregular; whole int8 decodes against the plain path and
+kernels B and C on ``expand()``, GPU runs against CPU runs, every peel's
+final set against the batched BP fixed point and the parallel peel against
+its plain version; the int8 min-sum path (AWGN sigma = 0.841 and BSC
+p = 0.04) with S1 and S2 launches equal to the rounds run and counters
+equal to the ``expand()`` run, a threshold bracket at n = 100,008, and the
+``{"decoder": "peeling"}`` configuration through the CLI in both modes
+(fixed: equal to the bp run with n rounds); the R-process experiment at
+n = 16,384, eps = 0.42 (docs/VALIDATION.md) at 400 and 4,000 repeats and
+its irregular form; and circulant index timed against gather for int8
+min-sum and f32 sum-product at n = 10^4, 10^5 and 10^6, with the n = 10^6
+int8 chunk profiled.  For S1 and S2 ``launches`` counts the (3,6) int8
+AWGN path of 4 chunks; for P1 the experiment at 400 repeats.
+
 Every kernel row of the JSON line carries ``bound_ms``, the least time the
 card could take for the same work at the shape of its ``ms``: the larger
 of its bytes (each input read once, each output written once, counted from
@@ -118,6 +139,11 @@ N_RT_ENS, CODES_RT_ENS, EPS_RT_ENS, SIGMA_RT_ENS = 2048, 32, 0.40, 0.85
 # the irregular pairs above on an nb = 24 base lifted to n = 10,008
 QC_NB, QC_Z, QC_Z5, QC_Z6, QC_W5, QC_W6 = 12, 834, 8334, 83_334, 480, 48
 QC_NB_IRR, QC_Z_IRR = 24, 417
+# the QC soft decoder (phases 33-37): int8 min-sum at sigma = 0.841 (Eb/N0 =
+# 1.5 dB, PERF.md section 2) on the bases above, 24,576 / 15,360 / 1,536
+# trials; the peeling R-process at docs/VALIDATION.md's point
+SIGMA_QC = 0.841
+PEEL_N, PEEL_EPS, PEEL_REPEATS, PEEL_REPEATS_BIG = 16_384, 0.42, 400, 4000
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # FP32 outside the tensor cores, and FP64 and INT32 at half that rate (64
 # such lanes an SM against 128 FP32 lanes)
@@ -2097,15 +2123,17 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
              "check_exactly_one_xor"),
             ("expurgated", dict(channel_param=0.45, expurgation=2),
              "check_exactly_one"),
-            ("int8 min-sum", dict(channel="BSC", decoder="minsum",
-                                  soft_msg_dtype="int8", channel_param=0.05),
-             "soft_check")):
+            # float soft stays on expand() (int8 min-sum goes by index:
+            # phases 34-35)
+            ("float32 min-sum", dict(channel="BSC", decoder="minsum",
+                                     channel_param=0.05), "soft_check")):
         cfg = small_cfg("regular", **fields)
         before = launches_now()
         res = mc.run_simulation(cfg, small["regular"], device="cuda")
         used = {k: v - before[k] for k, v in launches_now().items()}
         check(res.num_trials == 2 * 2048 and used[generic] > 0
-              and all(used[k] == 0 for k in names),
+              and all(used[k] == 0 for k in names + ("qc_soft_posterior",
+                                                     "qc_soft_check")),
               f"QC {what}: did not run on expand() (launches {used})")
         print(f"QC {what}: ran on expand() ({generic} x{used[generic]}), "
               f"block_errors {res.block_errors}, excluded "
@@ -2295,6 +2323,518 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                                 chunk6_ms, kernels), flush=True)
 
 
+def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
+    """Phases 33-37: the QC soft decoder by circulant index (S1, S2) and the
+    sequential peeling decoder (P1) with its R-process experiment (module
+    docstring).  S1 and S2 are held to their plain versions exactly, bar
+    sum-product's CUDA tanhf/atanhf (to phase 18's tolerance), P1 exactly
+    (its choices are canonical).  Returns the numbers PERF.md reads."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models import (ensemble, irregular,
+                                                         qc)
+    from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
+                                                      erasure_bp, peeling,
+                                                      qc_bp, qc_soft_bp,
+                                                      soft_bp)
+    from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
+    from iib_project_ldpc_codes_tpu_torch.utils import experiments
+    from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
+
+    names = ("qc_soft_posterior", "qc_soft_check", "peel_sequential")
+    soft5 = (("minsum", torch.float32), ("minsum", torch.bfloat16),
+             ("minsum", torch.int8), ("sumproduct", torch.float32),
+             ("sumproduct", torch.bfloat16))
+    sp_atol = {torch.float32: 0.1, torch.bfloat16: 0.5}
+    out = {}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def launches_now():
+        return {k: v["wrapper"].launches for k, v in kernels.items()}
+
+    reg = {"n1e4": (qc.sample_qc_code(gen(1), QC_NB, DV, DC, QC_Z,
+                                      device=dev), COLS_SOFT),
+           "n1e5": (qc.sample_qc_code(gen(2), QC_NB, DV, DC, QC_Z5,
+                                      device=dev), 32 * QC_W5),
+           "n1e6": (qc.sample_qc_code(gen(3), QC_NB, DV, DC, QC_Z6,
+                                      device=dev), 32 * QC_W6)}
+    irr = qc.sample_qc_code_irregular(gen(4), QC_NB_IRR, LAM_BEC, RHO6,
+                                      QC_Z_IRR, device=dev)
+
+    # -- 33 -------------------------------------------------------------------
+    phase("33 S1 and S2 against their plain versions in all five "
+          "instantiations (n=10,008 / 1,000,008 / irregular nb=24); P1 "
+          f"against its plain version at n={PEEL_N} on {PEEL_REPEATS} fresh "
+          "codes")
+    err = {names[0]: 0.0, names[1]: 0.0}
+    single = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    for label, code, cols in (("n1e4",) + reg["n1e4"], ("n1e6",) + reg["n1e6"],
+                              ("irregular", irr, COLS_SOFT)):
+        adj = qc_bp._adjacency(code, dev)
+        rows = adj.num_rows * adj.Z
+        one = torch.ones(1, dtype=torch.int32, device=dev)
+        for method, dtype in soft5:
+            # float types at n ~ 1e6 on half the trials: three 9-18 GB
+            # message planes would not leave the plain version room
+            c = cols // 2 if label == "n1e6" and dtype != torch.int8 \
+                else cols
+            if dtype == torch.int8:
+                def draw(shape, _mean, _sd):
+                    return torch.randint(-127, 128, shape, generator=g,
+                                         device=dev, dtype=torch.int8)
+                llr0 = draw((code.n, c), 0, 0)
+            else:
+                def draw(shape, mean, sd):
+                    return (torch.randn(shape, generator=g, device=dev) * sd
+                            + mean).to(dtype)
+                llr0 = draw((code.n, c), 2, 4).float()
+            msg0, pm0 = draw((rows, c), 0, 6), draw((code.n, c), 0, 8)
+            if method == "minsum":   # S1 does not read the method
+                for mode in ("total", "per_trial", "final"):
+                    got = []
+                    for fn in (qc_soft_bp.qc_soft_posterior,
+                               qc_soft_bp._qc_soft_posterior_plain):
+                        pm = pm0.clone()
+                        counts = torch.zeros(1 if mode == "total" else c,
+                                             dtype=torch.int32, device=dev)
+                        extra = {} if mode != "final" else dict(
+                            post=torch.empty((code.n, c), device=dev),
+                            hard=torch.empty((code.n, c), dtype=torch.bool,
+                                             device=dev))
+                        fn(llr0, msg0, adj, one, pm, counts, int8_scale=4.0,
+                           **extra)
+                        got.append([pm, counts, *extra.values()])
+                    torch.cuda.synchronize()
+                    for a, b in zip(*got):
+                        check(torch.equal(a, b), f"S1 ({label}, {dtype}, "
+                              f"{mode}) differs from its plain version")
+                    del got
+            kw = dict(method=method)
+            if method == "minsum" and dtype != torch.int8:
+                kw.update(alpha=0.8, beta=0.25)
+            got = []
+            for fn in (qc_soft_bp.qc_soft_check,
+                       qc_soft_bp._qc_soft_check_plain):
+                msg = msg0.clone()
+                unsat = torch.zeros(1, dtype=torch.int32, device=dev)
+                fn(pm0, msg, adj, one, unsat, **kw)
+                got.append((msg, unsat))
+            torch.cuda.synchronize()
+            (mk, uk), (mp, up) = got
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(mk.split(1 << 16), mp.split(1 << 16)))
+            check(torch.equal(uk, up) and int(up) > 0,
+                  f"S2 ({label}, {method}, {dtype}): syndromes {int(uk)} / "
+                  f"{int(up)}")
+            check(diff == 0.0 if method == "minsum"
+                  else diff <= sp_atol[dtype],
+                  f"S2 ({label}, {method}, {dtype}) differs from its plain "
+                  f"version by {diff}")
+            err[names[1]] = max(err[names[1]], diff)
+            del got, mk, mp
+            timed = label in ("n1e4", "n1e6") and (method, dtype) in (
+                ("minsum", torch.int8), ("sumproduct", torch.float32))
+            if timed:
+                key = f"{label}_{'int8' if dtype == torch.int8 else 'f32sp'}"
+                pm = pm0.clone()
+                msg = msg0.clone()
+                counts = torch.zeros(1, dtype=torch.int32, device=dev)
+                unsat = torch.zeros(1, dtype=torch.int32, device=dev)
+                tables = (adj.var_row, adj.var_shift)
+
+                def s1(fn):
+                    fn(llr0, msg0, adj, one, pm, counts)
+
+                def s2(fn):
+                    fn(pm0, msg, adj, one, unsat, **kw)
+
+                single[key] = {
+                    names[0]: dict(
+                        ms=time_ms(lambda: s1(qc_soft_bp.qc_soft_posterior)),
+                        plain_ms=time_ms(lambda: s1(
+                            qc_soft_bp._qc_soft_posterior_plain), reps=1,
+                            warmup=False),
+                        **bound(nbytes(llr0, msg0, pm, counts, *tables))),
+                    names[1]: dict(
+                        ms=time_ms(lambda: s2(qc_soft_bp.qc_soft_check)),
+                        plain_ms=time_ms(lambda: s2(
+                            qc_soft_bp._qc_soft_check_plain), reps=1,
+                            warmup=False),
+                        **bound(nbytes(pm0, msg0, msg0, adj.chk_block,
+                                       adj.chk_shift, adj.row_offs)))}
+                print(f"single launches {key} (n={code.n}, B={c}): "
+                      f"{json.dumps(single[key])}", flush=True)
+                del pm, msg
+            del msg0, pm0, llr0
+            torch.cuda.empty_cache()
+        print(f"S1, S2 equal to plain on {label}: n={code.n}, Z={code.Z}, "
+              f"B={cols}, E_b={adj.num_rows}", flush=True)
+    for name in names[:2]:
+        measured[name].update(
+            max_abs_err=err[name], library_ms=None,
+            **single["n1e4_int8"][name],
+            **{f"{k}_{key}": v for key in ("n1e4_f32sp", "n1e6_int8",
+                                           "n1e6_f32sp")
+               for k, v in single[key][name].items() if k != "bound_by"})
+
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(PEEL_N, LAM_BEC, RHO6,
+                                                        device=dev)
+    peel_cases = {}
+    for fam in ("regular", "irregular"):
+        codes = ensemble.sample_codes(7, 0, PEEL_REPEATS, PEEL_N, DV, DC,
+                                      device=dev) if fam == "regular" else \
+            irregular.sample_irregular_codes(7, 0, PEEL_REPEATS, spec,
+                                             device=dev)
+        erased = bitops.unpack_bits(bitops.bernoulli_packed(
+            PEEL_EPS, (PEEL_REPEATS, (PEEL_N + 31) // 32), seed=7,
+            device=dev))[:, :PEEL_N].contiguous()
+        rx = torch.where(erased, 2, 0)
+        got = peeling.peel_decode_batch(codes, rx, seed=7)
+        want = peeling.peel_decode_batch_plain(codes, rx, seed=7)
+        torch.cuda.synchronize()
+        for f in ("unresolved", "one_degree_evolution", "steps",
+                  "num_erasures"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"P1 ({fam}): {f} differs from its plain version")
+        peel_cases[fam] = (codes, erased, rx, got)
+        print(f"P1 equal to plain ({fam}): {PEEL_REPEATS} codes of n="
+              f"{PEEL_N}, {int(got.steps.sum())} peels, "
+              f"{int((~got.success).sum())} failures", flush=True)
+    codes, erased, rx, got = peel_cases["regular"]
+    chk, var, n, m = peeling._tables(codes)
+    p1 = dict(
+        ms=time_ms(lambda: peeling.peel_decode_batch(codes, rx, seed=7),
+                   reps=3),
+        plain_ms=time_ms(lambda: peeling.peel_decode_batch_plain(
+            codes, rx, seed=7), reps=1, warmup=False),
+        **bound(nbytes(chk, var, erased, got.unresolved,
+                       got.one_degree_evolution, got.steps,
+                       got.num_erasures)))
+    p1["bound_note"] = ("bytes: tables read once, evolution written once; "
+                        f"a chain of {int(got.steps.max())} dependent steps "
+                        "per trial bounds it far above")
+    measured[names[2]].update(max_abs_err=0, library_ms=None, **p1)
+    print(f"P1 at {PEEL_REPEATS} codes: {json.dumps(p1)}", flush=True)
+
+    # -- 34 -------------------------------------------------------------------
+    phase("34 whole decodes: QC int8 by index == plain == kernels B/C on "
+          "expand(); GPU == CPU runs; every peel's final set == the batched "
+          "BP fixed point; the parallel peel == plain")
+
+    def same_soft(a, b, what):
+        check(a.iterations == b.iterations
+              and torch.equal(a.error_totals, b.error_totals)
+              and torch.equal(a.hard, b.hard)
+              and torch.equal(a.posterior, b.posterior)
+              and torch.equal(a.satisfied, b.satisfied), what)
+
+    for label, code, llr in (
+            ("n1e4 AWGN", reg["n1e4"][0], channels.awgn_llr(
+                SIGMA_QC, (reg["n1e4"][0].n, COLS_SOFT), seed=3,
+                device=dev)),
+            ("n1e4 BSC", reg["n1e4"][0], channels.BSC(P_SOFT_BSC).llr_of_flips(
+                bitops.bernoulli_packed(P_SOFT_BSC, (reg["n1e4"][0].n,
+                                                     COLS_SOFT // 32),
+                                        seed=4, device=dev))),
+            ("irregular AWGN", irr, channels.awgn_llr(
+                0.75, (irr.n, COLS_SOFT), seed=5, device=dev))):
+        kw = dict(method="minsum", msg_dtype="int8")
+        a = qc_soft_bp.qc_soft_bp_decode(code, llr, ITERS, **kw)
+        generic = soft_bp.soft_bp_decode_irregular \
+            if isinstance(code, qc.IrregularQCLDPCCode) else \
+            soft_bp.soft_bp_decode
+        same_soft(a, generic(code.expand(), llr, ITERS, **kw),
+                  f"QC int8 ({label}) differs from kernels B/C on expand()")
+        same_soft(a, qc_soft_bp.qc_soft_bp_decode_plain(code, llr, ITERS,
+                                                        **kw),
+                  f"QC int8 ({label}) differs from the plain path")
+        print(f"QC int8 {label}: {a.iterations} rounds, errors "
+              f"{int(a.error_totals[0])} -> {int(a.error_totals[-1])}, FER "
+              f"{float(a.failed.float().mean()):.4f}; == plain == B/C on "
+              "expand()", flush=True)
+        del a, llr
+    fields_eq = ("num_trials", "block_errors", "bit_errors", "bit_errors_sq",
+                 "error_counts_per_iteration", "stopped_by")
+    for fields in (dict(channel="AWGN", channel_param=SIGMA_QC),
+                   dict(channel="BSC", channel_param=P_SOFT_BSC)):
+        cfg = SimulationConfig(n=reg["n1e4"][0].n, decoder="minsum",
+                               soft_msg_dtype="int8", iterations=ITERS,
+                               batch=1024, num_tests=2048, seed=9,
+                               code_mode="fixed", max_block_errors=10**9,
+                               **fields)
+        r_gpu = mc.run_simulation(cfg, reg["n1e4"][0], device="cuda")
+        r_cpu = mc.run_simulation(cfg, reg["n1e4"][0], device="cpu")
+        for f in fields_eq:
+            check(getattr(r_gpu, f) == getattr(r_cpu, f),
+                  f"QC int8 {cfg.channel}: cuda and cpu differ in {f}")
+        print(f"QC int8 {cfg.channel} run: cuda == cpu, block_errors "
+              f"{r_gpu.block_errors} of {r_gpu.num_trials}", flush=True)
+    for fam, (codes, erased, rx, got) in peel_cases.items():
+        plane = erased.t().to(torch.int32).contiguous()   # trial t: word t
+        decode = erasure_bp.bp_decode_packed_allzero if fam == "regular" \
+            else erasure_bp.bp_decode_packed_allzero_irregular
+        bp = decode(codes, plane, PEEL_N)
+        check(torch.equal((bp.known & 1).t() == 0, got.unresolved),
+              f"peel ({fam}): a final set differs from BP's fixed point")
+        print(f"peel ({fam}): all {PEEL_REPEATS} final sets == the batched "
+              f"BP fixed point ({bp.iterations} rounds)", flush=True)
+    codes, erased, rx, got = peel_cases["regular"]
+    par, rounds = peeling.peel_decode_parallel(codes.select(0), rx[0])
+    par_p, rounds_p = peeling.peel_decode_parallel_plain(codes.select(0),
+                                                         rx[0])
+    check(torch.equal(par, par_p) and rounds == rounds_p
+          and torch.equal(par, got.unresolved[0]),
+          "the parallel peel differs from its plain version or the peel")
+    print(f"parallel peel: {rounds} rounds, == plain == the sequential "
+          "peel's final set", flush=True)
+    del peel_cases
+
+    # -- 35 -------------------------------------------------------------------
+    phase(f"35 the paths: QC int8 min-sum through run_simulation(cfg, "
+          f"code=qc) at n={reg['n1e4'][0].n}, B={COLS_SOFT}; a threshold "
+          "bracket at n=100,008; the peeling config through cli.main")
+    by_path = {}
+
+    def drive(name, code, chunks, cols, **fields):
+        """One QC soft run through the engine, the launch counts set to 0
+        just before it and read just after; its rounds from the generic
+        decoder on the same chunks' LLRs, launched after the read."""
+        cfg = SimulationConfig(**{
+            "n": code.n, "decoder": "minsum", "soft_msg_dtype": "int8",
+            "iterations": ITERS, "batch": cols, "num_tests": chunks * cols,
+            "seed": 1, "code_mode": "fixed", "max_block_errors": 10**9,
+            **fields})
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        t0 = time.perf_counter()
+        res = mc.run_simulation(cfg, code=code, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        by_path[name] = launches_now()
+        rates = res.error_rate_per_iteration
+        check(res.num_trials == chunks * cols and len(rates) == ITERS + 1
+              and all(map(math.isfinite, rates)) and 0.0 < rates[0] < 0.5
+              and 0.0 <= res.bit_error_rate <= 0.5,
+              f"QC soft path {name}: result malformed")
+        e = code.expand()
+        generic = soft_bp.soft_bp_decode_irregular \
+            if isinstance(code, qc.IrregularQCLDPCCode) else \
+            soft_bp.soft_bp_decode
+        rounds = 0
+        for chunk in range(chunks):
+            if cfg.channel == "AWGN":
+                llr = channels.awgn_llr(cfg.channel_param, (code.n, cols),
+                                        seed=1, offset=chunk, device=dev)
+            else:
+                llr = channels.BSC(cfg.channel_param).llr_of_flips(
+                    bitops.bernoulli_packed(cfg.channel_param,
+                                            (code.n, cols // 32), seed=1,
+                                            offset=chunk, device=dev))
+            rounds += generic(e, llr, ITERS, method="minsum",
+                              msg_dtype="int8").iterations
+            del llr
+        got = by_path[name]
+        channel_kernel = "awgn_llr" if cfg.channel == "AWGN" \
+            else "bernoulli_packed"
+        check(got[names[0]] == rounds + chunks and got[names[1]] == rounds
+              and got[channel_kernel] == chunks
+              and got["soft_posterior"] == 0 and got["soft_check"] == 0,
+              f"QC soft path {name}: launches {got}, expected S1 "
+              f"{rounds + chunks}, S2 {rounds} for {rounds} rounds in "
+              f"{chunks} chunks")
+        lo, hi = wilson(res.block_errors, res.num_trials)
+        print(f"QC soft path {name}: {res.num_trials} trials in {run_s:.4f} "
+              f"s, {rounds} rounds, FER {res.block_error_rate:.5f} (99% "
+              f"[{lo:.5f}, {hi:.5f}]) BER {res.bit_error_rate:.4e}; S1 "
+              f"{got[names[0]]}, S2 {got[names[1]]}", flush=True)
+        return cfg, res
+
+    cfg, main_res = drive("qc_int8_awgn_n1e4", reg["n1e4"][0], 4, COLS_SOFT,
+                          channel="AWGN", channel_param=SIGMA_QC)
+    for k in names[:2]:
+        measured[k]["launches"] = by_path["qc_int8_awgn_n1e4"][k]
+    exp_res = mc.run_simulation(cfg, code=reg["n1e4"][0].expand(),
+                                device="cuda")
+    for f in fields_eq:
+        check(getattr(main_res, f) == getattr(exp_res, f),
+              f"QC int8 path: the index run and the expand() run differ in "
+              f"{f}")
+    print("QC int8 path: counters == the expand() run's", flush=True)
+    bsc = drive("qc_int8_bsc_n1e4", reg["n1e4"][0], 2, COLS_SOFT,
+                channel="BSC", channel_param=P_SOFT_BSC)[1]
+    irr_res = drive("qc_int8_awgn_irregular", irr, 1, COLS_SOFT,
+                    channel="AWGN", channel_param=0.75, lam=LAM_BEC,
+                    rho=RHO6)[1]
+    huge = drive("qc_int8_awgn_n1e6", reg["n1e6"][0], 1, reg["n1e6"][1],
+                 channel="AWGN", channel_param=SIGMA_QC)[1]
+    bracket = {s: drive(f"qc_int8_awgn_n1e5_sigma{s}", reg["n1e5"][0], 1,
+                        reg["n1e5"][1], channel="AWGN", channel_param=s)[1]
+               for s in (0.75, 0.90)}
+    check(bracket[0.75].block_error_rate <= 0.01
+          and bracket[0.90].block_error_rate >= 0.99,
+          f"QC int8 n=100,008: FER {bracket[0.75].block_error_rate} / "
+          f"{bracket[0.90].block_error_rate} at sigma 0.75 / 0.90 does not "
+          f"bracket sigma* = {SIGMA_STAR_INT8}")
+    out["qc_soft_paths"] = {
+        "fer_ber_awgn_n1e4": [main_res.block_error_rate,
+                              main_res.bit_error_rate],
+        "fer_ber_bsc_n1e4": [bsc.block_error_rate, bsc.bit_error_rate],
+        "fer_ber_irregular_sigma075": [irr_res.block_error_rate,
+                                       irr_res.bit_error_rate],
+        "fer_ber_n1e6": [huge.block_error_rate, huge.bit_error_rate],
+        "fer_n1e5_sigma075_090": [bracket[0.75].block_error_rate,
+                                  bracket[0.90].block_error_rate]}
+    print(json.dumps({**out, "launches": {
+        p: {k: v[k] for k in names[:2] if v[k]} for p, v in by_path.items()},
+        "card": smi}), flush=True)
+    measured[names[0]]["launches_by_path"] = {
+        p: v[names[0]] for p, v in by_path.items()}
+    measured[names[1]]["launches_by_path"] = {
+        p: v[names[1]] for p, v in by_path.items()}
+
+    tmp = tempfile.mkdtemp(prefix="peel_", dir=scratch_root)
+    peel_runs = {}
+    for mode in ("fixed", "ensemble"):
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        peel_runs[mode] = cli_run(tmp, f"peeling_{mode}", n=N_FULL,
+                                  decoder="peeling", channel_param=EPS_FULL,
+                                  batch=32 * WORDS_FULL,
+                                  num_tests=2 * 32 * WORDS_FULL,
+                                  code_mode=mode, seed=3)
+        used = launches_now()
+        check(peel_runs[mode].num_trials == 2 * 32 * WORDS_FULL
+              and peel_runs[mode].error_rate_per_iteration == []
+              and used["check_exactly_one"] > 0 and used[names[2]] == 0
+              and used["bernoulli_packed"] == 2
+              and used["sample_regular_codes"] == (2 if mode == "ensemble"
+                                                   else 0),
+              f"peeling {mode}: launches {used}")
+        print(f"peeling {mode} through cli.main: FER "
+              f"{peel_runs[mode].block_error_rate:.5f} BER "
+              f"{peel_runs[mode].bit_error_rate:.4e}", flush=True)
+    bp_run = cli_run(tmp, "bp_n_rounds", n=N_FULL, channel_param=EPS_FULL,
+                     batch=32 * WORDS_FULL, num_tests=2 * 32 * WORDS_FULL,
+                     iterations=N_FULL, seed=3)
+    for f in ("block_errors", "bit_errors", "bit_errors_sq", "num_trials"):
+        check(getattr(peel_runs["fixed"], f) == getattr(bp_run, f),
+              f"peeling fixed: {f} differs from the bp run with n rounds")
+    print("peeling fixed: counters == the bp run with iterations = n",
+          flush=True)
+    out["peeling_paths"] = {m: [r.block_error_rate, r.bit_error_rate]
+                            for m, r in peel_runs.items()}
+
+    # -- 36 -------------------------------------------------------------------
+    phase(f"36 the R-process experiment at n={PEEL_N}, eps={PEEL_EPS}")
+    anchor = wilson(10, 400)
+    exp = {}
+    for repeats in (PEEL_REPEATS, PEEL_REPEATS_BIG):
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = experiments.peeling_scaling_experiment(
+            PEEL_N, DV, DC, PEEL_EPS, repeats=repeats, seed=1, device=dev)
+        wall = time.perf_counter() - t0
+        used = launches_now()
+        lo, hi = wilson(res.failure_rate * repeats, repeats)
+        cond = float(res.critical_distribution.mean())
+        check(used[names[2]] == 1 and lo <= anchor[1] and anchor[0] <= hi,
+              f"experiment ({repeats}): failure rate {res.failure_rate} (99% "
+              f"[{lo}, {hi}]) against {anchor}; P1 launches "
+              f"{used[names[2]]}")
+        check(abs(cond - 154.0) <= 15.4,
+              f"experiment ({repeats}): conditioned critical mean {cond}")
+        exp[repeats] = dict(wall_s=wall, failure_rate=res.failure_rate,
+                            failure_99=[lo, hi],
+                            critical_point=res.critical_point,
+                            conditioned_critical_mean=cond,
+                            expected_at_critical=res.expected_at_critical,
+                            sd_at_critical=math.sqrt(
+                                res.variance_at_critical))
+        if repeats == PEEL_REPEATS:
+            measured[names[2]]["launches"] = used[names[2]]
+        print(f"experiment, {repeats} repeats: {json.dumps(exp[repeats])}",
+              flush=True)
+    res = experiments.peeling_scaling_experiment(
+        PEEL_N, 0, 0, PEEL_EPS, repeats=PEEL_REPEATS, seed=2, lam=LAM_BEC,
+        rho=RHO6, device=dev)
+    u0 = int(0.9 * PEEL_N * PEEL_EPS)
+    vals = [t[u0] for t in res.trajectories
+            if len(t) > u0 and not math.isnan(t[u0])]
+    mean = sum(vals) / len(vals)
+    se = math.sqrt(sum((v - mean) ** 2 for v in vals) / (len(vals) - 1)
+                   / len(vals))
+    check(abs(mean - res.drift[u0]) < 4 * se + 0.02 * res.drift[u0],
+          f"irregular experiment: mean R {mean} at step {u0} against the "
+          f"drift {res.drift[u0]} (se {se})")
+    exp["irregular"] = dict(failure_rate=res.failure_rate, mean_at_90=mean,
+                            drift_at_90=float(res.drift[u0]), se=se)
+    print(f"irregular experiment: {json.dumps(exp['irregular'])}",
+          flush=True)
+    out["experiment"] = exp
+
+    # -- 37 -------------------------------------------------------------------
+    phase("37 timing: circulant index against gather (kernels B/C on "
+          "expand()) for int8 min-sum and f32 sum-product; the n ~ 1e6 "
+          "int8 chunk")
+    timing = {}
+    for label, (code, cols) in reg.items():
+        e = code.expand()
+        llr = channels.awgn_llr(SIGMA_QC, (code.n, cols), seed=11,
+                                device=dev)
+        row = {"n": code.n, "B": cols}
+        for dec, kw in (("int8_minsum", dict(method="minsum",
+                                             msg_dtype="int8")),
+                        ("f32_sumproduct", dict(method="sumproduct"))):
+            runs = {"gather": lambda: soft_bp.soft_bp_decode(e, llr, ITERS,
+                                                             **kw),
+                    "index": lambda: qc_soft_bp.qc_soft_bp_decode(
+                        code, llr, ITERS, **kw)}
+            ms = {}
+            for way in ("gather", "index", "index", "gather"):
+                ms.setdefault(way, []).append(time_ms(
+                    runs[way], reps=1, warmup=way not in ms))
+            rounds = runs["index"]().iterations
+            mean = {k: sum(v) / len(v) for k, v in ms.items()}
+            row[dec] = dict(decode_ms=ms, rounds=rounds,
+                            index_over_gather=mean["gather"] / mean["index"],
+                            info_bits_per_s_index=code.k * cols
+                            / (mean["index"] / 1e3))
+            print(f"{label} {dec}: gather {ms['gather']} ms, index "
+                  f"{ms['index']} ms, {rounds} rounds", flush=True)
+        timing[label] = row
+        del llr, e
+        torch.cuda.empty_cache()
+    out["index_against_gather"] = timing
+    print(json.dumps({"qc_soft_index_against_gather": timing,
+                      "sigma": SIGMA_QC, "iterations": ITERS, "card": smi}),
+          flush=True)
+    code6, cols6 = reg["n1e6"]
+    cfg6 = SimulationConfig(n=code6.n, channel="AWGN", decoder="minsum",
+                            soft_msg_dtype="int8", channel_param=SIGMA_QC,
+                            iterations=ITERS, batch=cols6, seed=1,
+                            code_mode="fixed")
+    chunk6 = mc.make_chunk_fn(cfg6, code6, device=dev)
+    int(chunk6(9).block_errors)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in range(2):
+        int(chunk6(idx).block_errors)
+    torch.cuda.synchronize()
+    chunk6_ms = (time.perf_counter() - t0) / 2 * 1e3
+    out["chunk_n1e6_int8_ms"] = chunk6_ms
+    print(f"QC int8 soft chunk at n={code6.n}, B={cols6}: {chunk6_ms:.3f} "
+          f"ms, {cols6 / chunk6_ms * 1e3:.4e} trials/s; card {smi}",
+          flush=True)
+    print(device_time_breakdown(lambda: int(chunk6(5).block_errors),
+                                chunk6_ms, kernels), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2318,7 +2858,8 @@ def main() -> int:
         code_for_config)
     from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
                                                       erasure_bp, gallager,
-                                                      qc_bp, qc_gallager,
+                                                      peeling, qc_bp,
+                                                      qc_gallager, qc_soft_bp,
                                                       soft_bp)
     from iib_project_ldpc_codes_tpu_torch.parallel.montecarlo import (
         make_chunk_fn, run_simulation)
@@ -2408,6 +2949,19 @@ def main() -> int:
             source="iib_project_ldpc_codes_tpu_torch/csrc/"
                    "qc_gallager_variable.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/qc_gallager.py:33"),
+        "qc_soft_posterior": dict(
+            wrapper=qc_soft_bp.qc_soft_posterior,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "qc_soft_posterior.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/qc_soft_bp.py:61"),
+        "qc_soft_check": dict(
+            wrapper=qc_soft_bp.qc_soft_check,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/qc_soft_check.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/qc_soft_bp.py:72"),
+        "peel_sequential": dict(
+            wrapper=peeling.peel_sequential,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/peel_sequential.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/peeling.py:68"),
     }
     measured = {name: {} for name in kernels}
     t_start = time.perf_counter()
@@ -2898,11 +3452,14 @@ def main() -> int:
     random_paths(dev, smi, measured, kernels, scratch_root, code)
     t_slice5 = time.perf_counter() - t_start
     qc_paths(dev, smi, measured, kernels, main_res.block_error_rate)
+    t_slice6 = time.perf_counter() - t_start
+    qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root)
     print(f"wall time: phases 1-12 {t_slice2:.1f} s, phases 13-17 "
           f"{t_slice3 - t_slice2:.1f} s, phases 18-22 "
           f"{t_slice4 - t_slice3:.1f} s, phases 23-27 "
           f"{t_slice5 - t_slice4:.1f} s, phases 28-32 "
-          f"{time.perf_counter() - t_start - t_slice5:.1f} s, total "
+          f"{t_slice6 - t_slice5:.1f} s, phases 33-37 "
+          f"{time.perf_counter() - t_start - t_slice6:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -23,7 +23,8 @@ Two invocation styles, as in the JAX package:
      ``"minsum_beta"``, ``"soft_msg_dtype"`` float32, bfloat16 or int8)
      and irregular ensembles (``"lam"``, ``"rho"``: edge-perspective
      degree fractions) with any of these decoders, in either code mode
-     (``"code_mode": "ensemble"`` or ``"fixed"``).
+     (``"code_mode": "ensemble"`` or ``"fixed"``), and the peeling decoder
+     on the BEC (``"decoder": "peeling"``).
 
 Optional flags (either style):
   --device=cuda|cpu      where to decode (default cuda; without a GPU the

@@ -42,18 +42,16 @@
 namespace {
 
 using ldpc::soft::Elem;
-using ldpc::soft::Vec;
+using ldpc::soft::Lanes;
+using ldpc::soft::load_lanes;
+using ldpc::soft::store_lanes;
+
+using ldpc::soft::clipf;
+using ldpc::soft::kLlrClip;
+using ldpc::soft::kMinSum;
+using ldpc::soft::kSumProduct;
 
 constexpr int kChecksPerThread = 16;
-constexpr float kLlrClip = 30.0f;
-constexpr float kTanhClip = 0.999999f;
-constexpr int kInt8Max = 127;
-
-enum Method { kMinSum = 0, kSumProduct = 1 };
-
-__device__ __forceinline__ float clipf(float x, float c) {
-  return fminf(fmaxf(x, -c), c);
-}
 
 template <typename T, int kMethod, int kMaxDc>
 __global__ void soft_check_kernel(const T* __restrict__ pm, T* __restrict__ msg,
@@ -80,15 +78,15 @@ __global__ void soft_check_kernel(const T* __restrict__ pm, T* __restrict__ msg,
         const int32_t* vars =
             chk_to_var + (static_cast<long long>(code) * table_rows + c) * dc;
         T* own = msg + static_cast<long long>(c) * dc * cols + col0;
-        Vec<T, K> pv[kMaxDc], mv[kMaxDc];
+        Lanes<T, K> pv[kMaxDc], mv[kMaxDc];
         unsigned padded = 0u;
 #pragma unroll
         for (int j = 0; j < kMaxDc; ++j) {
           if (j < dc) {
             const int var = __ldg(vars + j);
             padded |= static_cast<unsigned>(var == pad_var) << j;
-            pv[j] = ldpc::soft::load<T, K>(pm + static_cast<long long>(var) * cols + col0);
-            mv[j] = ldpc::soft::load<T, K>(own + static_cast<long long>(j) * cols);
+            pv[j] = load_lanes<T, K>(pm + static_cast<long long>(var) * cols + col0);
+            mv[j] = load_lanes<T, K>(own + static_cast<long long>(j) * cols);
           }
         }
 #pragma unroll
@@ -106,72 +104,14 @@ __global__ void soft_check_kernel(const T* __restrict__ pm, T* __restrict__ msg,
           }
           bad += parity;
           Acc out[kMaxDc];
-          if constexpr (kMethod == kMinSum) {
-            // the two smallest magnitudes and the sign parity
-            Acc big;
-            if constexpr (kQuantised) big = 4 * kInt8Max; else big = INFINITY;
-            Acc m1 = big, m2 = big;
-            int i1 = -1;
-            unsigned signs = 0u, all = 0u;
-#pragma unroll
-            for (int j = 0; j < kMaxDc; ++j) {
-              if (j < dc) {
-                Acc a;
-                if constexpr (kQuantised) a = r[j] < 0 ? -r[j] : r[j]; else a = fabsf(r[j]);
-                const unsigned s = r[j] < 0;
-                signs |= s << j;
-                all ^= s;
-                if (a < m1) {
-                  m2 = m1;
-                  m1 = a;
-                  i1 = j;
-                } else if (a < m2) {
-                  m2 = a;
-                }
-              }
-            }
-#pragma unroll
-            for (int j = 0; j < kMaxDc; ++j) {
-              if (j < dc) {
-                Acc mag = j == i1 ? m2 : m1;
-                if constexpr (kQuantised) {
-                  mag = min(mag, Acc(kInt8Max));
-                } else {
-                  if (beta != 0.0f) mag = fmaxf(__fsub_rn(mag, beta), 0.0f);
-                  if (alpha != 1.0f) mag = __fmul_rn(alpha, mag);
-                }
-                out[j] = ((all ^ (signs >> j)) & 1u) ? -mag : mag;
-              }
-            }
-          } else {
-            float tv[kMaxDc], suf[kMaxDc];
-#pragma unroll
-            for (int j = 0; j < kMaxDc; ++j)
-              if (j < dc) tv[j] = clipf(tanhf(__fmul_rn(float(r[j]), 0.5f)), kTanhClip);
-            float acc = 1.0f;
-#pragma unroll
-            for (int j = kMaxDc - 1; j >= 0; --j) {
-              if (j < dc) {
-                suf[j] = acc;
-                acc = __fmul_rn(acc, tv[j]);
-              }
-            }
-            float pre = 1.0f;
-#pragma unroll
-            for (int j = 0; j < kMaxDc; ++j) {
-              if (j < dc) {
-                out[j] = __fmul_rn(2.0f, atanhf(clipf(__fmul_rn(pre, suf[j]), kTanhClip)));
-                pre = __fmul_rn(pre, tv[j]);
-              }
-            }
-          }
+          ldpc::soft::check_update<T, kMethod, kMaxDc>(r, dc, alpha, beta, out);
 #pragma unroll
           for (int j = 0; j < kMaxDc; ++j)
             if (j < dc) mv[j].v[k] = E::store((padded >> j) & 1u ? Acc(0) : out[j]);
         }
 #pragma unroll
         for (int j = 0; j < kMaxDc; ++j)
-          if (j < dc) ldpc::soft::store<T, K>(own + static_cast<long long>(j) * cols, mv[j]);
+          if (j < dc) store_lanes<T, K>(own + static_cast<long long>(j) * cols, mv[j]);
       }
     }
   }

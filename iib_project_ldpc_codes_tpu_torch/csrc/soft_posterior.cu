@@ -37,7 +37,9 @@
 namespace {
 
 using ldpc::soft::Elem;
-using ldpc::soft::Vec;
+using ldpc::soft::Lanes;
+using ldpc::soft::load_lanes;
+using ldpc::soft::store_lanes;
 
 constexpr int kVarsPerThread = 32;
 
@@ -66,15 +68,15 @@ __global__ void soft_posterior_kernel(
     const int32_t* socks =
         var_to_sock + (static_cast<long long>(code) * table_rows + v) * dv;
     const long long row = static_cast<long long>(v) * cols + col0;
-    const Vec<L, K> l = ldpc::soft::load<L, K>(llr0 + row);
+    const Lanes<L, K> l = load_lanes<L, K>(llr0 + row);
     Acc acc[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = static_cast<Acc>(l.v[k]);
     for (int p = 0; p < dv; ++p) {
       const int s = __ldg(socks + p);
       if (s >= pad_pos) continue;
-      const Vec<T, K> m =
-          ldpc::soft::load<T, K>(msg + static_cast<long long>(s) * cols + col0);
+      const Lanes<T, K> m =
+          load_lanes<T, K>(msg + static_cast<long long>(s) * cols + col0);
 #pragma unroll
       for (int k = 0; k < K; ++k) acc[k] = E::add(acc[k], E::acc(m.v[k]));
     }
@@ -84,7 +86,7 @@ __global__ void soft_posterior_kernel(
                tx + static_cast<long long>(v) * (cols / 32) + col0 / 32)) >>
            (col0 & 31);
     }
-    Vec<T, K> out;
+    Lanes<T, K> out;
     bool err[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -92,7 +94,7 @@ __global__ void soft_posterior_kernel(
       err[k] = (acc[k] < 0) != (kTx && ((tb >> k) & 1u));
       cnt[k] += err[k];
     }
-    ldpc::soft::store<T, K>(pm + row, out);
+    store_lanes<T, K>(pm + row, out);
     if (post != nullptr && v < n_out) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {

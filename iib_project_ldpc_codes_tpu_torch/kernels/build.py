@@ -67,6 +67,12 @@ SIGNATURES = {
     "ldpc_qc_gallager_check": (_P, _P, _P, _I, _I, _I, _P),
     "ldpc_qc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _P),
+    "ldpc_qc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _F, _P),
+    "ldpc_qc_soft_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _P),
+    "ldpc_peel_sequential": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _U, _U, _P),
 }
 
 

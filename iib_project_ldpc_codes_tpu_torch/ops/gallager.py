@@ -316,10 +316,28 @@ class _Graph:
     dc: int
     pad_pos: int                # socket positions >= this are padding
     irregular: bool             # phantom row, per-degree threshold clamp
+    counts_total = False        # kernel B counts per trial, never in total
 
     @property
     def num_codes(self) -> int:
         return self.chk_to_var.shape[0] if self.chk_to_var.dim() == 3 else 1
+
+    @property
+    def msg_rows(self) -> int:
+        """Rows of the soft decoder's message planes: one per check
+        socket."""
+        return self.chk_to_var.shape[-2] * self.dc
+
+    def syndrome_ok(self, hard: torch.Tensor) -> torch.Tensor:
+        """bool[B]: the decisions ``hard`` bool[n, B] satisfy every check
+        (JAX ``_syndrome_ok``)."""
+        if self.irregular:             # the phantom variable decides 0
+            hard = torch.cat([hard, hard.new_zeros((1, hard.shape[1]))])
+        table = self.chk_to_var.long()
+        parity = _gather(hard, table[..., 0])
+        for j in range(1, self.dc):
+            parity = parity ^ _gather(hard, table[..., j])
+        return ~parity.any(0)
 
     def check_words(self, words: int) -> None:
         """Raise unless ``words`` split evenly over the codes."""

@@ -51,6 +51,10 @@ class QCAdjacency:
     base_chk: torch.Tensor    # int32[mb, dcb], padding nb
     shifts: torch.Tensor      # int32[mb, dcb]
     row_offs: torch.Tensor    # int32[mb+1]: first flat row of each check
+    chk_block: torch.Tensor   # int32[mb, dcb]: real sockets compacted to
+    #                           the left (socket jj is flat row offs[c]+jj),
+    #                           padding nb
+    chk_shift: torch.Tensor   # int32[mb, dcb]: their shifts, padding 0
     var_chk: torch.Tensor     # int32[nb, dvb]: base check, padding -1
     var_row: torch.Tensor     # int32[nb, dvb]: flat message row, padding -1
     var_shift: torch.Tensor   # int32[nb, dvb]: shift, padding 0
@@ -111,13 +115,18 @@ def _adjacency(code, device) -> QCAdjacency:
     var[1, edges.block, edges.var_slot] = np.arange(edges.block.size)
     var[2, edges.block, edges.var_slot] = edges.shift
     offs = np.concatenate([[0], np.cumsum(real.sum(axis=1))]).astype(np.int32)
+    chk = np.zeros((2,) + base.shape, np.int32)
+    chk[0] = nb
+    chk[0, edges.check, edges.slot] = edges.block
+    chk[1, edges.check, edges.slot] = edges.shift
 
     def on_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
     return QCAdjacency(
         base_chk=on_device(base), shifts=on_device(np.where(real, sh, 0)),
-        row_offs=on_device(offs), var_chk=on_device(var[0]),
+        row_offs=on_device(offs), chk_block=on_device(chk[0]),
+        chk_shift=on_device(chk[1]), var_chk=on_device(var[0]),
         var_row=on_device(var[1]), var_shift=on_device(var[2]), Z=Z, nb=nb,
         chk_side=tuple(tuple(s) for s in chk_side),
         var_side=tuple(tuple(s) for s in var_side))

@@ -101,16 +101,9 @@ class SoftBPResult:
     def satisfied(self) -> torch.Tensor:
         """bool[B]: the final decisions satisfy every check (JAX
         ``_syndrome_ok``), computed in plain torch when asked."""
-        graph = self.graph
         hard = self.hard if self.tx is None else \
             self.hard ^ unpack_bits(self.tx)
-        if graph.irregular:            # the phantom variable decides 0
-            hard = torch.cat([hard, hard.new_zeros((1, hard.shape[1]))])
-        table = graph.chk_to_var.long()
-        parity = _gather(hard, table[..., 0])
-        for j in range(1, graph.dc):
-            parity = parity ^ _gather(hard, table[..., j])
-        return ~parity.any(0)
+        return self.graph.syndrome_ok(hard)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +385,10 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
                alpha: float, beta: float, msg_dtype: torch.dtype,
                int8_scale: float, record: str, passes,
                tx: Optional[torch.Tensor]) -> SoftBPResult:
-    """Host loop shared by the decoders (module docstring)."""
+    """Host loop shared by the decoders (module docstring).  ``graph`` is
+    a :class:`_Graph`, or the quasi-cyclic decoder's counterpart
+    (``ops/qc_soft_bp.py``) with the same fields and methods; ``passes``
+    are its (posterior, check) functions, kernels or plain."""
     posterior, check = passes
     if record not in ("total", "per_trial"):
         raise ValueError(f"unknown record mode {record!r}")
@@ -433,10 +429,13 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
         raise ValueError(f"{tuple(llr.shape)} LLRs exceed the kernels' "
                          "int32 counters (2^31); split the batch")
     llr0 = _quantise(llr, int8_scale) if quantised else llr
-    rows = graph.chk_to_var.shape[-2]
-    msg = torch.zeros((rows * graph.dc, cols), dtype=msg_dtype, device=device)
+    msg = torch.zeros((graph.msg_rows, cols), dtype=msg_dtype, device=device)
     pm = torch.empty(llr0.shape, dtype=msg_dtype, device=device)
-    counts = torch.zeros((max_iters + 1, cols), dtype=torch.int32,
+    # one count per trial, or one for the batch where nothing needs more
+    # and the graph's posterior pass takes it
+    width = 1 if graph.counts_total and num == 1 and record == "total" \
+        else cols
+    counts = torch.zeros((max_iters + 1, width), dtype=torch.int32,
                          device=device)
     active = torch.ones(num, dtype=torch.int32, device=device)
     code_iters = torch.zeros(num, dtype=torch.int32, device=device)
@@ -454,7 +453,7 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
         it += 1
         if not bool(active.any()):
             break
-    final = torch.zeros(cols, dtype=torch.int32, device=device)
+    final = torch.zeros(width, dtype=torch.int32, device=device)
     post = torch.empty((graph.n, cols), dtype=torch.float32, device=device)
     hard = torch.empty((graph.n, cols), dtype=torch.bool, device=device)
     posterior(llr0, msg, graph.var_to_sock, torch.ones_like(active), pm,
@@ -462,7 +461,7 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
               int8_scale=int8_scale, tx=tx_rows)
     # a code's rounds at and after its own count hold the final posterior's
     tail = torch.arange(max_iters + 1, device=device)[:, None] >= \
-        code_iters.repeat_interleave(cols // num)[None, :]
+        code_iters.repeat_interleave(width // num)[None, :]
     traj = torch.where(tail, final[None, :], counts)
     result = dict(hard=hard, posterior=post,
                   error_totals=traj.sum(1, dtype=torch.int64)

@@ -33,14 +33,22 @@ the same); the Gallager and soft decoders count decision ^ codeword.
 
 Quasi-cyclic codes (a :class:`..models.qc.QCLDPCCode` or
 :class:`..models.qc.IrregularQCLDPCCode` as the fixed code): the JAX
-engine's gate (montecarlo.py:471-493).  With all-zero transmit and no
-expurgation, BEC bp and BSC Gallager decode by circulant index
-(``ops/qc_bp.py``, ``ops/qc_gallager.py``: no table per lifted edge);
-every other mode -- random transmit, expurgation, all soft decoding --
-runs the generic decoders on ``code.expand()``.  The circulant-index chunk
-draws the generic chunk's planes from the same (seed, chunk) and its
-decoders equal the generic ones on ``expand()`` bit for bit, so a run's
-counters do not depend on the way taken; only its speed does.
+engine's gate (montecarlo.py:482-492).  With all-zero transmit and no
+expurgation, BEC bp, BSC Gallager and int8 min-sum on AWGN or BSC LLRs
+decode by circulant index (``ops/qc_bp.py``, ``ops/qc_gallager.py``,
+``ops/qc_soft_bp.py``: no table per lifted edge); every other mode --
+random transmit, expurgation, float soft decoding (whose addition order
+differs by index, as in JAX) -- runs the generic decoders on
+``code.expand()``.  The circulant-index chunk draws the generic chunk's
+planes and LLRs from the same (seed, chunk) (kernel A for AWGN, K1 flips
+through ``BSC.llr_of_flips`` for the BSC) and its decoders equal the
+generic ones on ``expand()`` bit for bit, so a run's counters do not
+depend on the way taken; only its speed does.
+
+The peeling decoder (``decoder="peeling"``) runs through its own host
+driver, :func:`_run_peeling`, as in JAX: on the BEC peeling stops at BP's
+fixed point (the maximal stopping set), so its statistics are those of the
+packed BP decode run with an n-round budget.
 
 Seeding: chunk ``c`` draws its erasures or flips with Philox key
 ``philox_key(seed)`` and offset ``c`` (``ops/bitops.py`` gives the full
@@ -88,6 +96,7 @@ from ..ops.gallager import (gallager_decode_packed,
                             gallager_decode_packed_irregular)
 from ..ops.qc_bp import qc_bp_decode_packed_allzero
 from ..ops.qc_gallager import qc_gallager_decode_packed
+from ..ops.qc_soft_bp import qc_soft_bp_decode
 from ..ops.soft_bp import soft_bp_decode, soft_bp_decode_irregular
 from ..utils.config import SimulationConfig
 from ..utils.results import SimulationResult
@@ -232,14 +241,18 @@ def _soft_chunk(code, llr: torch.Tensor, *, iterations: int, method: str,
                 tx: Optional[torch.Tensor] = None) -> ChunkStats:
     """AWGN/BSC soft-decision chunk (JAX ``_soft_chunk`` after its
     channel): soft BP on the LLRs ``llr`` float32[n, B] of one code
-    (regular or irregular) or a batch (trial b on code ``b // (B // C)``),
-    errors counted against the codewords ``tx`` (packed) when given;
-    expurgated chunks record per-trial trajectories."""
-    decode = soft_bp_decode_irregular \
-        if isinstance(code, IrregularLDPCCode) else soft_bp_decode
-    res = decode(code, llr, iterations, method=method, alpha=alpha,
-                 beta=beta, msg_dtype=msg_dtype, tx_bits=tx,
-                 record="total" if expurgation is None else "per_trial")
+    (regular, irregular, or quasi-cyclic with all-zero transmit) or a
+    batch (trial b on code ``b // (B // C)``), errors counted against the
+    codewords ``tx`` (packed) when given; expurgated chunks record
+    per-trial trajectories."""
+    kw = dict(method=method, alpha=alpha, beta=beta, msg_dtype=msg_dtype,
+              record="total" if expurgation is None else "per_trial")
+    if isinstance(code, _QC_CODES):
+        res = qc_soft_bp_decode(code, llr, iterations, **kw)
+    else:
+        decode = soft_bp_decode_irregular \
+            if isinstance(code, IrregularLDPCCode) else soft_bp_decode
+        res = decode(code, llr, iterations, tx_bits=tx, **kw)
     return _final_count_stats(res.error_totals, res.bit_errors, expurgation,
                               traj=res.traj, num_codes=_codes_in(code))
 
@@ -264,8 +277,9 @@ def make_chunk_fn(cfg: SimulationConfig, code,
     BP, BSC Gallager-A/B and soft BP on BSC or AWGN LLRs (sum-product,
     min-sum; float32, bfloat16 or int8 messages) on (dv,dc)-regular or
     irregular (lam, rho) codes, on a fixed code (the reference's mode 3)
-    or on fresh codes per chunk (mode 0); ML, peeling and edge sharding
-    raise, naming the ROADMAP item that ports them.  ``code`` is the fixed
+    or on fresh codes per chunk (mode 0); ML and edge sharding raise,
+    naming the ROADMAP item that ports them, and peeling raises as in JAX:
+    it runs through :func:`_run_peeling`.  ``code`` is the fixed
     code: an ``LDPCCode``, an ``IrregularLDPCCode`` for an irregular
     configuration, or a quasi-cyclic code of ``n == cfg.n`` whatever the
     configuration's degrees say (the JAX gate: its kind is the code's
@@ -281,7 +295,8 @@ def make_chunk_fn(cfg: SimulationConfig, code,
             "(ROADMAP queue 1 item 14)")
     if pair == ("BEC", "peeling"):
         raise NotImplementedError(
-            "the peeling decoder is not ported yet (ROADMAP queue 1 item 14)")
+            f"{pair} runs through its own host driver (run_simulation's "
+            "_run_peeling)")
     if cfg.edge_sharded:
         raise NotImplementedError(
             "edge sharding is not ported yet (ROADMAP queue 1 item 13)")
@@ -349,8 +364,9 @@ def make_chunk_fn(cfg: SimulationConfig, code,
         if code.n != cfg.n:
             raise ValueError(f"QC code n={code.n} != cfg.n={cfg.n}")
         code = code.to(device)
-        by_index = pair in (("BEC", "bp"), ("BSC", "gallager")) \
-            and cfg.expurgation is None and not random
+        soft_int8 = cfg.decoder == "minsum" and cfg.soft_msg_dtype == "int8"
+        by_index = (pair in (("BEC", "bp"), ("BSC", "gallager"))
+                    or soft_int8) and cfg.expurgation is None and not random
         if not by_index:
             code = code.expand()
     elif cfg.irregular:
@@ -369,6 +385,73 @@ def make_chunk_fn(cfg: SimulationConfig, code,
     return lambda chunk_idx: decode(code, chunk_idx)
 
 
+def _run_peeling(cfg: SimulationConfig, code, device) -> SimulationResult:
+    """Monte Carlo with the peeling decoder (JAX ``_run_peeling``,
+    montecarlo.py:848-916).
+
+    On the BEC the peeling decoder and erasure BP stop at the identical
+    fixed point, the maximal stopping set of the erasure pattern, so the
+    statistics of peeling are those of the packed BP decode run to its
+    fixed point: an n-round budget guarantees it, since every productive
+    round resolves at least one variable.  The one-peel-at-a-time
+    trajectory decoder is ``ops/peeling.py`` (the R-process experiments of
+    ``utils/experiments.py``).  Chunk c draws K1 erasures from (cfg.seed,
+    c), as :func:`make_chunk_fn` does, on the fixed code or, in ensemble
+    mode, on one fresh code of (seed, c) (K5 or the irregular sampler, a
+    batch of one), as JAX samples one code per chunk; so a fixed-code run
+    counts exactly what the ``decoder="bp"`` run with ``iterations = n``
+    counts at the same seed.  The stopping rules are the engine's."""
+    if cfg.code_mode == "fixed":
+        if code is None:
+            raise ValueError("fixed code_mode requires a code")
+        if code.n != cfg.n:
+            raise ValueError(f"code n={code.n} != cfg.n={cfg.n}")
+        code = code.to(device)
+    elif cfg.irregular:
+        spec = IrregularEnsembleSpec.from_lam_rho(cfg.n, cfg.lam, cfg.rho,
+                                                  device=device)
+    start = time.time()
+    trials = chunk_idx = 0
+    block_errors = bit_errors = 0
+    bit_errors_sq = 0.0
+    stopped_by = "num_tests"
+    while trials < cfg.num_tests:
+        if cfg.code_mode == "fixed":
+            chunk_code = code
+        elif cfg.irregular:
+            chunk_code = sample_irregular_codes(
+                cfg.seed, chunk_idx, 1, spec, cfg.sampler,
+                device=device).select(0)
+        else:
+            chunk_code = sample_codes(cfg.seed, chunk_idx, 1, cfg.n, cfg.dv,
+                                      cfg.dc, cfg.sampler,
+                                      device=device).select(0)
+        erased = bernoulli_packed(cfg.channel_param, (cfg.n, cfg.batch // 32),
+                                  seed=cfg.seed, offset=chunk_idx,
+                                  device=device)
+        res = _allzero_decode(chunk_code, erased, cfg.n)
+        stats = _final_count_stats(res.error_totals, res.bit_errors, None)
+        block_errors += int(stats.block_errors)
+        bit_errors += int(stats.bit_errors)
+        bit_errors_sq += float(stats.bit_errors_sq)
+        trials += cfg.batch
+        chunk_idx += 1
+        if block_errors >= cfg.max_block_errors:
+            stopped_by = "block_errors"
+            break
+        if time.time() - start > cfg.max_seconds:
+            stopped_by = "wall_clock"
+            break
+    return SimulationResult(
+        config=cfg, num_trials=trials, error_rate_per_iteration=[],
+        block_error_rate=block_errors / trials,
+        bit_error_rate=bit_errors / (cfg.n * trials),
+        block_errors=block_errors, bit_errors=bit_errors,
+        bit_errors_sq=bit_errors_sq, elapsed_seconds=time.time() - start,
+        timestamp=datetime.now().strftime("%d-%m-%Y-%H-%M-%S"),
+        stopped_by=stopped_by)
+
+
 def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> SimulationResult:
     """Run the Monte Carlo to the reference's stopping rules and reduce.
 
@@ -379,8 +462,11 @@ def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> Simulatio
     and at the end, and a run with the same (seed, batch) resumes from the
     snapshot.  Ensemble runs also accumulate the per-code cluster moment
     ``code_bit_errors_sq``, kept only when the whole run used one cluster
-    size (``trials_per_code``), as in the JAX engine.
+    size (``trials_per_code``), as in the JAX engine.  The peeling decoder
+    runs through :func:`_run_peeling` (no checkpoints, as in JAX).
     """
+    if (cfg.channel, cfg.decoder) == ("BEC", "peeling"):
+        return _run_peeling(cfg, code, device)
     chunk_fn = make_chunk_fn(cfg, code, device)
 
     start = time.time()

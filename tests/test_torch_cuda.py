@@ -22,7 +22,8 @@ from iib_project_ldpc_codes_tpu_torch.models.code import validate_code
 from iib_project_ldpc_codes_tpu_torch.models.ensemble import sample_code
 from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
                                                   erasure_bp, gallager,
-                                                  qc_bp, qc_gallager,
+                                                  peeling, qc_bp,
+                                                  qc_gallager, qc_soft_bp,
                                                   soft_bp)
 from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
 from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
@@ -734,10 +735,14 @@ def test_random_transmit_runs_gpu_equal_cpu(cuda, fields):
 # ---------------------------------------------------------------------------
 
 def _qc_code(family, Z):
-    """The nb = 12 (3,6) base or the irregular nb = 24 base, lifted by Z."""
+    """The nb = 12 (3,6) base, the irregular nb = 24 base, or ("dc10") an
+    nb = 20 base of check degree 10, lifted by Z."""
     g = torch.Generator().manual_seed(Z)
     if family == "regular":
         return qc.sample_qc_code(g, nb=12, dv=3, dc=6, Z=Z)
+    if family == "dc10":
+        return qc.sample_qc_code_irregular(g, nb=20, lam=[0, 0, 1.0],
+                                           rho=[0] * 9 + [1.0], Z=Z)
     return qc.sample_qc_code_irregular(g, nb=24, lam=LAM, rho=RHO, Z=Z)
 
 
@@ -869,3 +874,214 @@ def test_qc_runs_gpu_equal_cpu(cuda, fields):
     for f in ("num_trials", "block_errors", "bit_errors", "bit_errors_sq",
               "error_counts_per_iteration"):
         assert getattr(gpu, f) == getattr(cpu, f), f
+
+
+@pytest.mark.parametrize("fields", [
+    dict(channel="AWGN", decoder="minsum", soft_msg_dtype="int8",
+         channel_param=0.8),
+    dict(channel="BEC", decoder="peeling", channel_param=0.42),
+    dict(channel="BEC", decoder="peeling", channel_param=0.42,
+         code_mode="ensemble")])
+def test_qc_soft_and_peeling_runs_gpu_equal_cpu(cuda, fields):
+    code = _qc_code("regular", 64)
+    if fields["decoder"] == "peeling":
+        code = code.expand()
+    cfg = SimulationConfig(**{
+        "n": code.n, "iterations": 30, "batch": 1024, "num_tests": 2048,
+        "seed": 5, "code_mode": "fixed", "max_block_errors": 10**9,
+        **fields})
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    cpu = mc.run_simulation(cfg, code, device="cpu")
+    for f in ("num_trials", "block_errors", "bit_errors", "bit_errors_sq",
+              "error_counts_per_iteration"):
+        assert getattr(gpu, f) == getattr(cpu, f), f
+
+
+# ---------------------------------------------------------------------------
+# Quasi-cyclic soft BP: S1 and S2
+# ---------------------------------------------------------------------------
+
+QC_SOFT_SHAPES = [(17, 4), (16, 36), (333, 64)]      # (Z, trials)
+
+
+def _qc_soft_case(family, Z, cols, dtype, seed=0):
+    """A QC code and random planes for one pass comparison."""
+    rng = np.random.default_rng(seed)
+    code = _qc_code(family, Z)
+    adj = qc_bp._adjacency(code, "cpu")
+    rows = adj.num_rows * Z
+    if dtype == torch.int8:
+        def draw(shape, _mean, _sd):
+            return torch.from_numpy(rng.integers(-127, 128, shape)
+                                    .astype(np.int8))
+        llr0 = draw((code.n, cols), 0, 0)
+    else:
+        def draw(shape, mean, sd):
+            return torch.from_numpy(rng.normal(mean, sd, shape)
+                                    .astype(np.float32)).to(dtype)
+        llr0 = draw((code.n, cols), 2, 4).float()
+    return code, dict(msg=draw((rows, cols), 0, 6), llr0=llr0,
+                      pm=draw((code.n, cols), 0, 8))
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
+@pytest.mark.parametrize("Z, cols", QC_SOFT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mode", ["per_trial", "total", "final"])
+def test_qc_soft_posterior_kernel_equals_plain(cuda, family, Z, cols, dtype,
+                                               mode):
+    code, case = _qc_soft_case(family, Z, cols, dtype)
+    out = []
+    for device in (cuda, "cpu"):
+        adj = qc_bp._adjacency(code, device)
+        pm = case["pm"].clone().to(device)
+        counts = torch.zeros(1 if mode == "total" else cols,
+                             dtype=torch.int32, device=device)
+        extra = {}
+        if mode == "final":
+            extra = dict(post=torch.zeros((code.n, cols), device=device),
+                         hard=torch.zeros((code.n, cols), dtype=torch.bool,
+                                          device=device))
+        qc_soft_bp.qc_soft_posterior(
+            case["llr0"].to(device), case["msg"].to(device), adj,
+            torch.ones(1, dtype=torch.int32, device=device), pm, counts,
+            int8_scale=4.0, **extra)
+        out.append([pm.cpu(), counts.cpu()] + [t.cpu()
+                                               for t in extra.values()])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    assert int(out[1][1].sum()) > 0
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
+@pytest.mark.parametrize("Z, cols", QC_SOFT_SHAPES)
+@pytest.mark.parametrize("method, dtype", SOFT)
+def test_qc_soft_check_kernel_equals_plain(cuda, family, Z, cols, method,
+                                           dtype):
+    code, case = _qc_soft_case(family, Z, cols, dtype, seed=1)
+    kw = dict(method=method)
+    if method == "minsum" and dtype != torch.int8:
+        kw.update(alpha=0.8, beta=0.25)
+    out = []
+    for device in (cuda, "cpu"):
+        adj = qc_bp._adjacency(code, device)
+        msg = case["msg"].clone().to(device)
+        unsat = torch.zeros(1, dtype=torch.int32, device=device)
+        qc_soft_bp.qc_soft_check(case["pm"].to(device), msg, adj,
+                                 torch.ones(1, dtype=torch.int32,
+                                            device=device), unsat, **kw)
+        out.append((msg.cpu(), unsat.cpu()))
+    (msg_k, unsat_k), (msg_p, unsat_p) = out
+    assert torch.equal(unsat_k, unsat_p) and int(unsat_p) > 0
+    if method == "sumproduct":
+        assert torch.allclose(msg_k.float(), msg_p.float(),
+                              atol=SP_ATOL[dtype], rtol=0)
+    else:
+        assert torch.equal(msg_k, msg_p)
+    # a stopped decode leaves the messages as they were
+    msg = case["msg"].clone().to(cuda)
+    qc_soft_bp.qc_soft_check(case["pm"].to(cuda), msg,
+                             qc_bp._adjacency(code, cuda),
+                             torch.zeros(1, dtype=torch.int32, device=cuda),
+                             torch.zeros(1, dtype=torch.int32, device=cuda),
+                             **kw)
+    assert torch.equal(msg.cpu(), case["msg"])
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
+@pytest.mark.parametrize("method, dtype", SOFT)
+def test_qc_soft_decodes_on_gpu_equal_cpu_and_expand(cuda, family, method,
+                                                     dtype):
+    code = _qc_code(family, 40)
+    sigma = 0.8 if family == "regular" else 0.7
+    llr = channels.awgn_llr(sigma, (code.n, 96), seed=3)
+    kw = dict(method=method, msg_dtype=dtype)
+    cpu = qc_soft_bp.qc_soft_bp_decode(code, llr, 30, **kw)
+    before = (qc_soft_bp.qc_soft_posterior.launches,
+              qc_soft_bp.qc_soft_check.launches)
+    gpu = qc_soft_bp.qc_soft_bp_decode(code.to(cuda), llr.to(cuda), 30, **kw)
+    assert (qc_soft_bp.qc_soft_posterior.launches - before[0],
+            qc_soft_bp.qc_soft_check.launches - before[1]) == \
+        (gpu.iterations + 1, gpu.iterations)
+    decode = soft_bp.soft_bp_decode if family == "regular" else \
+        soft_bp.soft_bp_decode_irregular
+    gen = decode(code.to(cuda).expand(), llr.to(cuda), 30, **kw)
+    for other in (cpu, gen):
+        if method == "minsum":
+            assert gpu.iterations == other.iterations
+            assert torch.equal(gpu.error_totals.cpu(),
+                               other.error_totals.cpu())
+            assert torch.equal(gpu.hard.cpu(), other.hard.cpu())
+            assert torch.equal(gpu.posterior.cpu(), other.posterior.cpu())
+        else:
+            assert torch.allclose(gpu.posterior.cpu(), other.posterior.cpu(),
+                                  atol=SP_ATOL[dtype], rtol=1e-4)
+            assert float((gpu.hard.cpu() == other.hard.cpu()).float()
+                         .mean()) > 0.999
+    assert torch.equal(gpu.satisfied.cpu(), cpu.satisfied) \
+        or method == "sumproduct"
+
+
+# ---------------------------------------------------------------------------
+# The peel: P1, and the parallel peel on K2/K3
+# ---------------------------------------------------------------------------
+
+def _peel_case(family, n, trials, batched, seed):
+    if family == "regular":
+        codes = ensemble.sample_codes(seed, 0, trials if batched else 1, n,
+                                      3, 6)
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, LAM, RHO)
+        codes = irregular.sample_irregular_codes(seed, 0,
+                                                 trials if batched else 1,
+                                                 spec)
+    return codes if batched else codes.select(0)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("n, trials, batched", [(96, 1, False),
+                                                (600, 37, False),
+                                                (600, 33, True),
+                                                (2048, 8, True)])
+@pytest.mark.parametrize("eps", [0.3, 0.45])
+def test_peel_kernel_equals_plain(cuda, family, n, trials, batched, eps):
+    codes = _peel_case(family, n, trials, batched, seed=n)
+    rng = np.random.default_rng(n)
+    rx = torch.from_numpy(np.where(rng.random((trials, n)) < eps, 2, 0))
+    rx[0] = 0                                  # a trial with no erasure
+    before = peeling.peel_sequential.launches
+    got = peeling.peel_decode_batch(codes.to(cuda), rx.to(cuda), seed=5)
+    assert peeling.peel_sequential.launches == before + 1
+    want = peeling.peel_decode_batch(codes, rx, seed=5)
+    for f in ("unresolved", "one_degree_evolution", "steps", "num_erasures"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    cut = peeling.peel_decode_batch(codes.to(cuda), rx.to(cuda), seed=5,
+                                    max_steps=7)
+    want = peeling.peel_decode_batch(codes, rx, seed=5, max_steps=7)
+    for f in ("unresolved", "one_degree_evolution", "steps", "num_erasures"):
+        assert torch.equal(getattr(cut, f).cpu(), getattr(want, f)), f
+
+
+def test_peel_kernel_above_48kb_of_shared_memory(cuda):
+    """n = 300,000 needs ~206 KB of shared memory a block (the opt-in
+    above 48 KB); the plain version runs on the card too."""
+    code = ensemble.sample_codes(3, 0, 1, 300_000, 3, 6).select(0).to(cuda)
+    rx = torch.where(bitops.unpack_bits(bitops.bernoulli_packed(
+        0.01, (2, 300_000 // 32), seed=1, device=cuda)), 2, 0)
+    got = peeling.peel_decode_batch(code, rx, seed=2)
+    want = peeling.peel_decode_batch_plain(code, rx, seed=2)
+    for f in ("unresolved", "one_degree_evolution", "steps", "num_erasures"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert bool(got.success.all())
+
+
+@pytest.mark.parametrize("eps", [0.3, 0.42, 0.5])
+def test_parallel_peel_on_gpu_equals_plain(cuda, eps):
+    code = _code(600, seed=4)
+    rng = np.random.default_rng(9)
+    rx = torch.from_numpy(np.where(rng.random(600) < eps, 2, 0))
+    before = erasure_bp.check_exactly_one.launches
+    got, rounds = peeling.peel_decode_parallel(code.to(cuda), rx.to(cuda))
+    assert erasure_bp.check_exactly_one.launches == before + rounds
+    want, want_rounds = peeling.peel_decode_parallel_plain(code, rx)
+    assert torch.equal(got.cpu(), want) and rounds == want_rounds

@@ -463,10 +463,13 @@ def test_fixed_irregular_run_and_engine_guards():
     with pytest.raises(ValueError, match="IrregularLDPCCode"):
         mc.make_chunk_fn(cfg, ensemble.code_for_config(SimulationConfig(
             n=256, code_mode="fixed")), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mc.make_chunk_fn(SimulationConfig(n=256, lam=LAM, rho=RHO,
-                                          decoder="peeling"), None,
-                         device="cpu")
+    # the peeling decoder runs through run_simulation's own driver (JAX's
+    # words at make_chunk_fn), on irregular ensembles too
+    peel = SimulationConfig(n=256, lam=LAM, rho=RHO, decoder="peeling",
+                            batch=256, num_tests=256)
+    with pytest.raises(NotImplementedError, match="own host driver"):
+        mc.make_chunk_fn(peel, None, device="cpu")
+    assert mc.run_simulation(peel, None, device="cpu").num_trials == 256
     # random-codeword transmit (queue 1 item 11) runs on irregular
     # ensembles; with expurgation it stays a configuration error
     for kw in (dict(channel="AWGN", decoder="minsum"), dict()):
