@@ -78,6 +78,22 @@ min-sum and f32 sum-product at n = 10^4, 10^5 and 10^6, with the n = 10^6
 int8 chunk profiled.  For S1 and S2 ``launches`` counts the (3,6) int8
 AWGN path of 4 chunks; for P1 the experiment at 400 repeats.
 
+Phases 38-41 do the same for edge-sharded erasure BP (BASELINE.json
+config 5) and batch sharding over a process group: the edge round's two
+kernels, X1 (the candidate plane of a check shard) and X2 (the OR over
+the ranks' candidates fused with the update and the count), against their
+plain versions on a fixed (3,6) code of n = 10^6 at W = 48 for every shard
+of D = 1, 2 and 4 ranks, each round also against the K2/K3 round; the
+whole edge-sharded decode against the K2/K3 decode (launches K2 = X1 = X2
+= rounds) and GPU against CPU at n = 10^5; the edge-sharded path through
+``cli.main --edge-sharded`` and ``run_simulation`` equal to the unsharded
+run in every counter, with a bracket at eps = 0.42 / 0.44 around eps*(3,6)
+= 0.4294 and the decode's info bits/s beside the K2/K3 decode's; and two
+ranks on the one card over gloo (spawned): the edge decode at n = 10^5
+equal to world size 1, a batch-sharded fixed-BEC run equal to the per-rank
+chunks summed, and the dry run.  For X1 and X2 ``launches`` counts the
+edge-sharded CLI path of 2 chunks.
+
 Every kernel row of the JSON line carries ``bound_ms``, the least time the
 card could take for the same work at the shape of its ``ms``: the larger
 of its bytes (each input read once, each output written once, counted from
@@ -144,6 +160,12 @@ QC_NB_IRR, QC_Z_IRR = 24, 417
 # trials; the peeling R-process at docs/VALIDATION.md's point
 SIGMA_QC = 0.841
 PEEL_N, PEEL_EPS, PEEL_REPEATS, PEEL_REPEATS_BIG = 16_384, 0.42, 400, 4000
+# edge sharding (phases 38-41, BASELINE.json config 5): a fixed (3,6) code
+# of n = 10^6 (m = 500,000, divided by 1, 2 and 4) at W = 48 (1,536
+# trials); GPU against CPU and the 2-rank group at n = 10^5
+N_EDGE, W_EDGE, N_EDGE_CPU, EDGE_SIZES = 1_000_000, 48, 100_000, (1, 2, 4)
+EDGE_RUN_FIELDS = ("num_trials", "block_errors", "bit_errors",
+                   "bit_errors_sq", "error_counts_per_iteration")
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # FP32 outside the tensor cores, and FP64 and INT32 at half that rate (64
 # such lanes an SM against 128 FP32 lanes)
@@ -2835,6 +2857,347 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     return out
 
 
+def _edge_rank_worker(rank: int, port: int, outdir: str, chk_to_var,
+                      n_edge: int, n_batch: int) -> None:
+    """Phase 41: one of two ranks on card 0 over gloo.  Decodes the n =
+    10^5 edge-sharded BEC batch and runs the batch-sharded fixed-BEC
+    engine, and saves what it got for the parent to compare."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models.code import code_from_numpy
+    from iib_project_ldpc_codes_tpu_torch.models.ensemble import (
+        code_for_config)
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops
+    from iib_project_ldpc_codes_tpu_torch.parallel import distributed
+    from iib_project_ldpc_codes_tpu_torch.parallel.edge_sharded import (
+        edge_sharded_bp_decode)
+    from iib_project_ldpc_codes_tpu_torch.parallel.montecarlo import (
+        run_simulation)
+
+    dev = torch.device("cuda", 0)
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, device=dev,
+                           backend="gloo", timeout_s=300)
+    try:
+        group = distributed.global_group()
+        code = code_from_numpy(chk_to_var, n_edge, DV, DC, device=dev)
+        erased = bitops.bernoulli_packed(EPS_FULL, (n_edge, W_EDGE), seed=41,
+                                         device=dev)
+        res = edge_sharded_bp_decode(code, erased, ITERS, group)
+        cfg = _edge_batch_cfg(n_batch)
+        run = run_simulation(cfg, code_for_config(cfg), device=dev,
+                             group=group)
+        torch.save({"known": res.known.cpu(),
+                    "error_totals": res.error_totals.cpu(),
+                    "iterations": res.iterations,
+                    "run": [getattr(run, f) for f in EDGE_RUN_FIELDS]},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _edge_batch_cfg(n: int):
+    from iib_project_ldpc_codes_tpu_torch.utils.config import (
+        SimulationConfig)
+
+    return SimulationConfig(channel_param=EPS_FULL, n=n, dv=DV, dc=DC,
+                            iterations=ITERS, batch=32 * WORDS_FULL,
+                            num_tests=2 * 32 * WORDS_FULL, seed=1,
+                            code_mode="fixed", max_block_errors=10**9)
+
+
+def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
+    """Phases 38-41: edge-sharded erasure BP at n = 10^6 (BASELINE.json
+    config 5) and batch sharding over a process group (module docstring).
+    X1 and X2 are held to their plain versions exactly (bitwise
+    arithmetic), whole decodes to the K2/K3 decode bit for bit."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from iib_project_ldpc_codes_tpu_torch import cli
+    from iib_project_ldpc_codes_tpu_torch.models.ensemble import (
+        code_for_config)
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
+    from iib_project_ldpc_codes_tpu_torch.parallel import dryrun
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
+    from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
+    from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
+    from iib_project_ldpc_codes_tpu_torch.utils.results import load_result
+
+    x1, x2 = measured["edge_candidates"], measured["or_reduce_update"]
+
+    def launches_now():
+        return {k: v["wrapper"].launches for k, v in kernels.items()}
+
+    def edge_cfg(**kw):
+        return SimulationConfig(**{
+            "channel_param": EPS_FULL, "n": N_EDGE, "dv": DV, "dc": DC,
+            "iterations": ITERS, "batch": 32 * W_EDGE,
+            "num_tests": 2 * 32 * W_EDGE, "seed": 1, "code_mode": "fixed",
+            "code_number": 1, "max_block_errors": 10**9, **kw})
+
+    # -- 38 -------------------------------------------------------------------
+    phase(f"38 X1 and X2 against their plain versions at n={N_EDGE}, "
+          f"W={W_EDGE}, every shard of D in {EDGE_SIZES}")
+    t0 = time.perf_counter()
+    code_host = code_for_config(edge_cfg())
+    sample_s = time.perf_counter() - t0
+    code = code_host.to(dev)
+    print(f"the n={N_EDGE} (3,6) code (code_for_config, repair, host): "
+          f"{sample_s:.2f} s", flush=True)
+    erased = bitops.bernoulli_packed(EPS_FULL, (N_EDGE, W_EDGE), seed=38,
+                                     device=dev)
+    # a state two rounds in, as the decode meets it
+    known = erasure_bp.bp_decode_packed_allzero(code, erased, 2).known
+    ex_full = erasure_bp.check_exactly_one(code.chk_to_var, known)
+    k3_known = known.clone()
+    k3_errors = torch.zeros(2, dtype=torch.int32, device=dev)
+    erasure_bp.variable_or_update(code.var_to_chk, ex_full, k3_known,
+                                  k3_errors, 1)
+    err1 = err2 = 0
+    ms1, ms2, bound1, bound2 = {}, {}, {}, {}
+    open_words = int((known != -1).sum())     # words X2 reads candidates of
+    for size in EDGE_SIZES:
+        m_local = code.m // size
+        cands = []
+        for r in range(size):
+            off = r * m_local
+            chk_local = code.chk_to_var[off:off + m_local]
+            ex = erasure_bp.check_exactly_one(chk_local, known)
+            check(torch.equal(ex, ex_full[off:off + m_local]),
+                  f"K2 on rows {off}.. differs from the whole summary")
+            got = es.edge_candidates(code.var_to_chk, ex, off)
+            want = es._edge_candidates_plain(code.var_to_chk, ex, off)
+            err1 = max(err1, max_abs_err(got, want))
+            check(err1 == 0, f"X1 (D={size}, shard {r}) differs from its "
+                             f"plain version (max |d| {err1})")
+            cands.append(got)
+            if r == 0:
+                ms1[size] = time_ms(lambda: es.edge_candidates(
+                    code.var_to_chk, ex, off))
+                bound1[size] = bound(nbytes(code.var_to_chk, ex, got))
+                if size == 1:
+                    x1["plain_ms"] = time_ms(
+                        lambda: es._edge_candidates_plain(
+                            code.var_to_chk, ex, off), reps=2)
+        gathered = torch.stack(cands)
+        del cands
+        state, errors = known.clone(), torch.zeros(2, dtype=torch.int32,
+                                                   device=dev)
+        es.or_reduce_update(gathered, state, errors, 1)
+        p_state, p_errors = known.clone(), torch.zeros_like(errors)
+        es._or_reduce_update_plain(gathered, p_state, p_errors, 1)
+        err2 = max(err2, max_abs_err(state, p_state),
+                   max_abs_err(errors, p_errors))
+        check(err2 == 0, f"X2 (D={size}) differs from its plain version "
+                         f"(max |d| {err2})")
+        check(torch.equal(state, k3_known) and torch.equal(errors, k3_errors),
+              f"the D={size} round (K2 on shards, X1, X2) differs from the "
+              "K2/K3 round")
+        fresh = {}
+
+        def prepare():
+            fresh["known"] = known.clone()
+            fresh["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        ms2[size] = time_ms(lambda: es.or_reduce_update(
+            gathered, fresh["known"], fresh["errors"], 1), prepare=prepare)
+        # the candidates of the words not yet all known, known read and
+        # written, the count
+        bound2[size] = bound(size * open_words * 4 + 2 * nbytes(known) + 4)
+        if size == 1:
+            x2["plain_ms"] = time_ms(lambda: es._or_reduce_update_plain(
+                gathered, fresh["known"], fresh["errors"], 1),
+                prepare=prepare, reps=2)
+        del gathered
+        print(f"D={size}: X1 {ms1[size]:.4f} ms (bound "
+              f"{bound1[size]['bound_ms']:.4f}), X2 {ms2[size]:.4f} ms "
+              f"(bound {bound2[size]['bound_ms']:.4f}); equal to plain and "
+              "to the K2/K3 round", flush=True)
+    x1.update(max_abs_err=err1, ms=ms1[1], **bound1[1], library_ms=None,
+              ms_by_ranks=ms1,
+              bound_ms_by_ranks={k: v["bound_ms"] for k, v in bound1.items()})
+    x2.update(max_abs_err=err2, ms=ms2[1], **bound2[1], library_ms=None,
+              ms_by_ranks=ms2,
+              bound_ms_by_ranks={k: v["bound_ms"] for k, v in bound2.items()})
+    print(f"X1 plain {x1['plain_ms']:.3f} ms, X2 plain {x2['plain_ms']:.3f} "
+          f"ms at D=1; card {smi}", flush=True)
+    del known, ex_full, k3_known
+
+    # -- 39 -------------------------------------------------------------------
+    phase(f"39 the whole edge-sharded decode at n={N_EDGE} against the K2/K3 "
+          f"decode; cuda against cpu at n={N_EDGE_CPU}")
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    got = es.edge_sharded_bp_decode(code, erased, ITERS)
+    torch.cuda.synchronize()
+    counts = launches_now()
+    want = erasure_bp.bp_decode_packed_allzero(code, erased, ITERS)
+    check(torch.equal(got.known, want.known)
+          and torch.equal(got.error_totals, want.error_totals)
+          and got.iterations == want.iterations,
+          "the edge-sharded decode differs from the K2/K3 decode")
+    rounds = got.iterations
+    check(counts["check_exactly_one"] == counts["edge_candidates"]
+          == counts["or_reduce_update"] == rounds
+          and counts["variable_or_update"] == 0
+          and counts["per_trial_counts"] == 1,
+          f"edge decode launches {counts} for {rounds} rounds")
+    print(f"n={N_EDGE}, W={W_EDGE}: equal to the K2/K3 decode, {rounds} "
+          f"rounds, final erasures {int(got.error_totals[-1])}; launches K2 "
+          f"{counts['check_exactly_one']}, X1 {counts['edge_candidates']}, "
+          f"X2 {counts['or_reduce_update']}", flush=True)
+    small_cfg = edge_cfg(n=N_EDGE_CPU)
+    small = code_for_config(small_cfg)
+    small_erased = bitops.bernoulli_packed(EPS_FULL, (N_EDGE_CPU, W_EDGE),
+                                           seed=41, device="cpu")
+    on_gpu = es.edge_sharded_bp_decode(small.to(dev), small_erased.to(dev),
+                                       ITERS)
+    on_cpu = es.edge_sharded_bp_decode(small, small_erased, ITERS)
+    check(torch.equal(on_gpu.known.cpu(), on_cpu.known)
+          and torch.equal(on_gpu.error_totals.cpu(), on_cpu.error_totals)
+          and on_gpu.iterations == on_cpu.iterations,
+          f"the n={N_EDGE_CPU} edge decode differs between cuda and cpu")
+    print(f"n={N_EDGE_CPU}: cuda == cpu ({on_cpu.iterations} rounds)",
+          flush=True)
+
+    # -- 40 -------------------------------------------------------------------
+    phase(f"40 the edge-sharded path: cli.main --edge-sharded and "
+          f"run_simulation at n={N_EDGE}, batch {32 * W_EDGE}, 2 chunks")
+    fields = ("num_trials", "block_errors", "bit_errors", "bit_errors_sq",
+              "excluded_trials", "error_counts_per_iteration", "stopped_by")
+    with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
+        cfg_path = os.path.join(tmp, "edge.json")
+        with open(cfg_path, "w") as f:
+            f.write(edge_cfg().to_json())
+        out_dir = os.path.join(tmp, "edge")
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--config", cfg_path, "--edge-sharded", "--devices=1",
+                       f"--output-dir={out_dir}", "--device=cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        path_counts = launches_now()
+        check(rc == 0, f"cli.main --edge-sharded returned {rc}")
+        (name,) = os.listdir(out_dir)
+        via_cli = load_result(os.path.join(out_dir, name))
+    check(via_cli.config.edge_sharded, "the CLI result is not edge-sharded")
+    path_rounds = sum(erasure_bp.bp_decode_packed_allzero(
+        code, bitops.bernoulli_packed(EPS_FULL, (N_EDGE, W_EDGE), seed=1,
+                                      offset=c, device=dev), ITERS).iterations
+                      for c in range(2))
+    for name in ("edge_candidates", "or_reduce_update"):
+        measured[name]["launches"] = path_counts[name]
+    measured["check_exactly_one"]["launches_edge_path"] = \
+        path_counts["check_exactly_one"]
+    check(path_counts["check_exactly_one"] == path_counts["edge_candidates"]
+          == path_counts["or_reduce_update"] == path_rounds > 0
+          and path_counts["variable_or_update"] == 0
+          and path_counts["bernoulli_packed"] == 2,
+          f"edge path launches {path_counts} for {path_rounds} rounds")
+    edge_run = mc.run_simulation(edge_cfg(edge_sharded=True), code,
+                                 device="cuda")
+    plain_run = mc.run_simulation(edge_cfg(), code, device="cuda")
+    for field in fields:
+        check(getattr(via_cli, field) == getattr(edge_run, field)
+              == getattr(plain_run, field),
+              f"edge path {field}: cli {getattr(via_cli, field)}, "
+              f"run_simulation {getattr(edge_run, field)}, unsharded "
+              f"{getattr(plain_run, field)}")
+    print(f"cli.main --edge-sharded: {via_cli.num_trials} trials in "
+          f"{cli_s:.2f} s (code sampling included), FER "
+          f"{via_cli.block_error_rate:.5f} BER {via_cli.bit_error_rate:.3e}; "
+          f"equal to run_simulation edge-sharded and unsharded; launches K2 "
+          f"{path_counts['check_exactly_one']}, X1 "
+          f"{path_counts['edge_candidates']}, X2 "
+          f"{path_counts['or_reduce_update']} = {path_rounds} rounds",
+          flush=True)
+    bracket = {eps: mc.run_simulation(edge_cfg(
+        edge_sharded=True, channel_param=eps, num_tests=32 * W_EDGE), code,
+        device="cuda") for eps in (0.42, 0.44)}
+    check(bracket[0.42].block_error_rate <= 0.01
+          and bracket[0.44].block_error_rate >= 0.99,
+          f"FER {bracket[0.42].block_error_rate} / "
+          f"{bracket[0.44].block_error_rate} at eps 0.42 / 0.44 does not "
+          "bracket eps*(3,6) = 0.4294")
+    decode_ms = {}
+    runs = {"unsharded": lambda: erasure_bp.bp_decode_packed_allzero(
+                code, erased, ITERS),
+            "edge": lambda: es.edge_sharded_bp_decode(code, erased, ITERS)}
+    for way in ("unsharded", "edge", "edge", "unsharded"):
+        decode_ms.setdefault(way, []).append(time_ms(runs[way], reps=3))
+    k_bits = (N_EDGE - code.m) * 32 * W_EDGE
+    rates = {k: k_bits / (sum(v) / len(v) / 1e3) for k, v in decode_ms.items()}
+    chunk = mc.make_edge_sharded_chunk_fn(edge_cfg(edge_sharded=True), code,
+                                          device=dev)
+    int(chunk(9).block_errors)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in range(2):
+        int(chunk(idx).block_errors)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) / 2 * 1e3
+    print(device_time_breakdown(lambda: int(chunk(5).block_errors), chunk_ms,
+                                kernels), flush=True)
+    print(json.dumps({"edge_path": {
+        "n": N_EDGE, "words": W_EDGE, "iterations": ITERS, "rounds": rounds,
+        "fer_eps042": bracket[0.42].block_error_rate,
+        "fer_eps044": bracket[0.44].block_error_rate,
+        "path_fer_eps042": via_cli.block_error_rate,
+        "code_sampling_s": sample_s, "decode_ms": decode_ms,
+        "info_bits_per_s": rates, "chunk_ms": chunk_ms,
+        "chunk_trials_per_s": 32 * W_EDGE / chunk_ms * 1e3,
+        "edge_over_unsharded": rates["edge"] / rates["unsharded"]},
+        "card": smi}), flush=True)
+
+    # -- 41 -------------------------------------------------------------------
+    phase("41 two ranks on the one card over gloo: the edge decode at "
+          f"n={N_EDGE_CPU}, a batch-sharded run, the dry run")
+    alone = es.edge_sharded_bp_decode(
+        small.to(dev), bitops.bernoulli_packed(
+            EPS_FULL, (N_EDGE_CPU, W_EDGE), seed=41, device=dev), ITERS)
+    with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_edge_rank_worker,
+                 args=(dryrun.free_port(), tmp, small.chk_to_var.numpy(),
+                       N_EDGE_CPU, N_FULL), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    for r, o in enumerate(outs):
+        check(torch.equal(o["known"], alone.known.cpu())
+              and torch.equal(o["error_totals"], alone.error_totals.cpu())
+              and o["iterations"] == alone.iterations,
+              f"rank {r}'s 2-rank edge decode differs from world size 1")
+    cfg = _edge_batch_cfg(N_FULL)
+    fixed = code_for_config(cfg).to(dev)
+    sums = None
+    for c in range(2):
+        for r in range(2):
+            s = mc.make_chunk_fn(cfg, fixed, device=dev, rank=r, size=2)(c)
+            row = [int(s.block_errors), int(s.bit_errors),
+                   float(s.bit_errors_sq), *s.error_totals.tolist()]
+            sums = row if sums is None else [a + b for a, b in zip(sums, row)]
+    for r, o in enumerate(outs):
+        got = o["run"]
+        check(got[0] == cfg.num_tests and [got[1], got[2], got[3],
+                                           *got[4]] == sums,
+              f"rank {r}'s batch-sharded run {got[:4]} differs from the "
+              f"per-rank sum {sums[:3]}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "iib_project_ldpc_codes_tpu_torch.parallel."
+         "dryrun", "2"], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0 and "dryrun(2) ok" in proc.stdout,
+          f"the dry run failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    print(f"2 ranks on cuda:0 (gloo): the edge decode equals world size 1, "
+          f"the batch-sharded run equals the per-rank sum (spawn and both "
+          f"{spawn_s:.1f} s); {proc.stdout.strip().splitlines()[-1]}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2861,6 +3224,7 @@ def main() -> int:
                                                       peeling, qc_bp,
                                                       qc_gallager, qc_soft_bp,
                                                       soft_bp)
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded
     from iib_project_ldpc_codes_tpu_torch.parallel.montecarlo import (
         make_chunk_fn, run_simulation)
     from iib_project_ldpc_codes_tpu_torch.utils.config import (
@@ -2962,6 +3326,15 @@ def main() -> int:
             wrapper=peeling.peel_sequential,
             source="iib_project_ldpc_codes_tpu_torch/csrc/peel_sequential.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/peeling.py:68"),
+        "edge_candidates": dict(
+            wrapper=edge_sharded.edge_candidates,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/edge_candidates.cu",
+            replaces="iib_project_ldpc_codes_tpu/parallel/edge_sharded.py:44"),
+        "or_reduce_update": dict(
+            wrapper=edge_sharded.or_reduce_update,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "or_reduce_update.cu",
+            replaces="iib_project_ldpc_codes_tpu/parallel/edge_sharded.py:38"),
     }
     measured = {name: {} for name in kernels}
     t_start = time.perf_counter()
@@ -3454,12 +3827,15 @@ def main() -> int:
     qc_paths(dev, smi, measured, kernels, main_res.block_error_rate)
     t_slice6 = time.perf_counter() - t_start
     qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root)
+    t_slice7 = time.perf_counter() - t_start
+    edge_paths(dev, smi, measured, kernels, scratch_root)
     print(f"wall time: phases 1-12 {t_slice2:.1f} s, phases 13-17 "
           f"{t_slice3 - t_slice2:.1f} s, phases 18-22 "
           f"{t_slice4 - t_slice3:.1f} s, phases 23-27 "
           f"{t_slice5 - t_slice4:.1f} s, phases 28-32 "
           f"{t_slice6 - t_slice5:.1f} s, phases 33-37 "
-          f"{time.perf_counter() - t_start - t_slice6:.1f} s, total "
+          f"{t_slice7 - t_slice6:.1f} s, phases 38-41 "
+          f"{time.perf_counter() - t_start - t_slice7:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -45,6 +45,13 @@ through ``BSC.llr_of_flips`` for the BSC) and its decoders equal the
 generic ones on ``expand()`` bit for bit, so a run's counters do not
 depend on the way taken; only its speed does.
 
+Several devices (a ``torch.distributed`` group, one rank per device;
+:mod:`.mesh`): batch sharding splits each chunk's trials over the ranks
+and sums the counters (every family above), and edge sharding
+(``cfg.edge_sharded``, fixed-code BEC) splits the code's checks over them
+with the batch replicated (:mod:`.edge_sharded`).  Either way a run's
+counters do not depend on how it was split beyond the seeding below.
+
 The peeling decoder (``decoder="peeling"``) runs through its own host
 driver, :func:`_run_peeling`, as in JAX: on the BEC peeling stops at BP's
 fixed point (the maximal stopping set), so its statistics are those of the
@@ -55,8 +62,11 @@ Seeding: chunk ``c`` draws its erasures or flips with Philox key
 scheme), its AWGN noise from the same offset on a key of its own
 (``ops/channels.py``), its information bits (random transmit) from the
 same offset on a third key (``ops/bitops.py::info_planes``), and in
-ensemble mode its codes from the sampler's own Philox stream of (seed, c),
-so any run is reproducible from (seed, batch, codes_per_chunk) alone, on
+ensemble mode its codes from the sampler's own Philox stream of (seed, c).
+Under batch sharding over D ranks, rank r draws all of these at offset
+``c * D + r`` in place of ``c`` (and samples ``codes_per_chunk / D``
+codes); D = 1 is the single-device stream.  So any run is reproducible
+from (seed, batch, codes_per_chunk, D) alone, on
 the CPU and the GPU alike (AWGN LLRs to one float32 ulp: the float64
 transcendentals of the two devices may round apart), and a resumed run is
 bit-identical to an uninterrupted one.  A random-transmit chunk draws the
@@ -79,6 +89,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.code import LDPCCode
 from ..models.encode import code_encoder_planes, encode_packed
@@ -100,6 +111,9 @@ from ..ops.qc_soft_bp import qc_soft_bp_decode
 from ..ops.soft_bp import soft_bp_decode, soft_bp_decode_irregular
 from ..utils.config import SimulationConfig
 from ..utils.results import SimulationResult
+from .edge_sharded import (edge_sharded_bp_decode,
+                           edge_sharded_bp_decode_irregular)
+from .mesh import broadcast_, world
 
 
 _QC_CODES = (QCLDPCCode, IrregularQCLDPCCode)
@@ -257,29 +271,37 @@ def _soft_chunk(code, llr: torch.Tensor, *, iterations: int, method: str,
                               traj=res.traj, num_codes=_codes_in(code))
 
 
-def _ensemble_layout(cfg: SimulationConfig) -> tuple[int, int]:
-    """(codes per chunk, words per code) of ensemble mode: the JAX
-    engine's rule (montecarlo.py:322-331) on one device, in one place so
-    the chunk and the cluster-size accounting (trials_per_code = 32 *
-    words per code) never disagree."""
-    words = cfg.batch // 32
-    num_codes = max(cfg.codes_per_chunk, 1)
+def _ensemble_layout(cfg: SimulationConfig, n_dev: int = 1
+                     ) -> tuple[int, int]:
+    """(codes per rank-chunk, words per code) of ensemble mode over
+    ``n_dev`` ranks: the JAX engine's rule (montecarlo.py:322-331), in one
+    place so the chunk and the cluster-size accounting (trials_per_code =
+    32 * words per code) never disagree."""
+    words = cfg.batch // 32 // n_dev
+    num_codes = max(cfg.codes_per_chunk // n_dev, 1)
     while words % num_codes:
         num_codes -= 1
     return num_codes, words // num_codes
 
 
-def make_chunk_fn(cfg: SimulationConfig, code,
-                  device="cuda") -> Callable[[int], ChunkStats]:
-    """``fn(chunk_idx) -> ChunkStats`` decoding ``cfg.batch`` trials.
+def make_chunk_fn(cfg: SimulationConfig, code, device="cuda", rank: int = 0,
+                  size: int = 1) -> Callable[[int], ChunkStats]:
+    """``fn(chunk_idx) -> ChunkStats`` decoding rank ``rank``'s share,
+    ``cfg.batch / size`` trials, of chunk ``chunk_idx`` (batch sharding
+    over ``size`` ranks; the sum of the ranks' stats is the chunk's).
+    Rank r draws at Philox offset ``chunk_idx * size + r``: an offset
+    names a whole stream (``ops/bitops.py``), so no two ranks or chunks
+    share a draw, and ``size == 1`` is the single-device stream.
 
     The port runs, with all-zero or random-codeword transmit, BEC erasure
     BP, BSC Gallager-A/B and soft BP on BSC or AWGN LLRs (sum-product,
     min-sum; float32, bfloat16 or int8 messages) on (dv,dc)-regular or
     irregular (lam, rho) codes, on a fixed code (the reference's mode 3)
-    or on fresh codes per chunk (mode 0); ML and edge sharding raise,
-    naming the ROADMAP item that ports them, and peeling raises as in JAX:
-    it runs through :func:`_run_peeling`.  ``code`` is the fixed
+    or on fresh codes per chunk (mode 0); ML raises, naming the ROADMAP
+    item that ports it, and peeling raises as in JAX: it runs through
+    :func:`_run_peeling`.  ``cfg.edge_sharded`` is not read here, as in
+    JAX: :func:`run_simulation` takes :func:`make_edge_sharded_chunk_fn`
+    for it, whose counters equal this chunk's.  ``code`` is the fixed
     code: an ``LDPCCode``, an ``IrregularLDPCCode`` for an irregular
     configuration, or a quasi-cyclic code of ``n == cfg.n`` whatever the
     configuration's degrees say (the JAX gate: its kind is the code's
@@ -297,10 +319,11 @@ def make_chunk_fn(cfg: SimulationConfig, code,
         raise NotImplementedError(
             f"{pair} runs through its own host driver (run_simulation's "
             "_run_peeling)")
-    if cfg.edge_sharded:
-        raise NotImplementedError(
-            "edge sharding is not ported yet (ROADMAP queue 1 item 13)")
-    words = cfg.batch // 32
+    if cfg.batch % (32 * size):
+        raise ValueError("batch must divide by 32 * n_devices")
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} outside a group of {size}")
+    words = cfg.batch // 32 // size
 
     random = cfg.transmit == "random"
     if random and cfg.expurgation is not None:
@@ -313,22 +336,22 @@ def make_chunk_fn(cfg: SimulationConfig, code,
                            msg_dtype=cfg.soft_msg_dtype,
                            expurgation=cfg.expurgation, tx=tx)
 
-    def decode(codes, chunk_idx: int) -> ChunkStats:
+    def decode(codes, offset: int) -> ChunkStats:
         tx = None
         if random:      # one codeword per trial, from the chunk's encoder
             enc = enc_planes if cfg.code_mode == "fixed" else \
                 code_encoder_planes(codes)
             tx = encode_packed(enc, info_planes(enc.k, words, seed=cfg.seed,
-                                                offset=chunk_idx,
+                                                offset=offset,
                                                 device=device))
         if cfg.channel == "AWGN":
-            llr = awgn_llr(cfg.channel_param, (cfg.n, cfg.batch),
-                           seed=cfg.seed, offset=chunk_idx, device=device,
+            llr = awgn_llr(cfg.channel_param, (cfg.n, 32 * words),
+                           seed=cfg.seed, offset=offset, device=device,
                            tx=tx)
             return soft(codes, llr, tx)
         # the same K1 planes are erasures on the BEC, flips on the BSC
         planes = bernoulli_packed(cfg.channel_param, (cfg.n, words),
-                                  seed=cfg.seed, offset=chunk_idx,
+                                  seed=cfg.seed, offset=offset,
                                   device=device)
         if cfg.channel == "BEC":
             return _bp_chunk(codes, planes, iterations=cfg.iterations,
@@ -341,8 +364,11 @@ def make_chunk_fn(cfg: SimulationConfig, code,
                                threshold=cfg.gallager_threshold,
                                expurgation=cfg.expurgation, tx=tx)
 
+    def offset(chunk_idx: int) -> int:
+        return chunk_idx * size + rank
+
     if cfg.code_mode == "ensemble":
-        num_codes, _ = _ensemble_layout(cfg)
+        num_codes, _ = _ensemble_layout(cfg, size)
         if cfg.irregular:
             spec = IrregularEnsembleSpec.from_lam_rho(cfg.n, cfg.lam, cfg.rho,
                                                       device=device)
@@ -357,7 +383,8 @@ def make_chunk_fn(cfg: SimulationConfig, code,
                                     cfg.dv, cfg.dc, cfg.sampler,
                                     device=device)
 
-        return lambda chunk_idx: decode(sample(chunk_idx), chunk_idx)
+        return lambda chunk_idx: decode(sample(offset(chunk_idx)),
+                                        offset(chunk_idx))
     if code is None:
         raise ValueError("fixed code_mode requires a code")
     if isinstance(code, _QC_CODES):
@@ -382,7 +409,72 @@ def make_chunk_fn(cfg: SimulationConfig, code,
                          f"!= config {(cfg.n, cfg.dv, cfg.dc)}")
     code = code.to(device)
     enc_planes = code_encoder_planes(code) if random else None
-    return lambda chunk_idx: decode(code, chunk_idx)
+    return lambda chunk_idx: decode(code, offset(chunk_idx))
+
+
+def _reduce_stats(stats: ChunkStats, group) -> ChunkStats:
+    """The ranks' stats summed over ``group`` (JAX's ``psum`` of the
+    counters, montecarlo.py:427-444): one int64 and one float64 sum.
+    The float64 moments are sums of integers below 2^53, so exact in any
+    order: the reduced stats equal the per-rank stats added on one host."""
+    counts = torch.cat([stats.error_totals.to(torch.int64), torch.stack(
+        [stats.block_errors, stats.bit_errors, stats.excluded]).to(
+        torch.int64)])
+    code_sq = stats.code_bit_errors_sq
+    moments = torch.stack([stats.bit_errors_sq,
+                           torch.zeros_like(stats.bit_errors_sq)
+                           if code_sq is None else code_sq])
+    dist.all_reduce(counts, group=group)
+    dist.all_reduce(moments, group=group)
+    return ChunkStats(error_totals=counts[:-3], block_errors=counts[-3],
+                      bit_errors=counts[-2], excluded=counts[-1],
+                      bit_errors_sq=moments[0],
+                      code_bit_errors_sq=None if code_sq is None
+                      else moments[1])
+
+
+def make_edge_sharded_chunk_fn(cfg: SimulationConfig, code, device="cuda",
+                               group=None) -> Callable[[int], ChunkStats]:
+    """``fn(chunk_idx) -> ChunkStats`` of a huge-n fixed-code BEC run with
+    the graph's checks split over ``group``'s ranks
+    (:mod:`.edge_sharded`; default the whole job, or this process alone)
+    and the trial batch replicated (JAX montecarlo.py:638-686).
+
+    Every rank draws chunk ``chunk_idx``'s whole batch at offset
+    ``chunk_idx``, as the unsharded engine does, and the edge-sharded
+    decode reaches the same fixed point, so the counters equal
+    :func:`make_chunk_fn`'s bit for bit on every rank: a rank count
+    changes the wall clock only.  A QC code decodes on ``expand()``."""
+    if code is None:
+        raise ValueError("edge_sharded requires a fixed code")
+    if isinstance(code, _QC_CODES):
+        code = code.expand()     # the counters are the same either way
+    if code.n != cfg.n:
+        raise ValueError(f"code n={code.n} != cfg.n={cfg.n}")
+    code = code.to(device)
+    decode = edge_sharded_bp_decode_irregular \
+        if isinstance(code, IrregularLDPCCode) else edge_sharded_bp_decode
+    words = cfg.batch // 32
+
+    def fn(chunk_idx: int) -> ChunkStats:
+        erased = bernoulli_packed(cfg.channel_param, (cfg.n, words),
+                                  seed=cfg.seed, offset=chunk_idx,
+                                  device=device)
+        res = decode(code, erased, cfg.iterations, group)
+        return _final_count_stats(res.error_totals, res.bit_errors, None)
+
+    return fn
+
+
+def _require_single_process(driver: str) -> None:
+    """The host drivers run no collective: under a job of several
+    processes each would repeat the whole num_tests and could stop at
+    another point (JAX montecarlo.py:688-706)."""
+    if world()[2] > 1:
+        raise RuntimeError(
+            f"the {driver} driver is single-process only: it has no "
+            "reduced counters and no wall-clock broadcast; run it outside "
+            "the torch.distributed job")
 
 
 def _run_peeling(cfg: SimulationConfig, code, device) -> SimulationResult:
@@ -452,7 +544,8 @@ def _run_peeling(cfg: SimulationConfig, code, device) -> SimulationResult:
         stopped_by=stopped_by)
 
 
-def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> SimulationResult:
+def run_simulation(cfg: SimulationConfig, code=None, device="cuda",
+                   group=None) -> SimulationResult:
     """Run the Monte Carlo to the reference's stopping rules and reduce.
 
     Each loop pass decodes one chunk of ``cfg.batch`` trials on
@@ -464,10 +557,33 @@ def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> Simulatio
     ``code_bit_errors_sq``, kept only when the whole run used one cluster
     size (``trials_per_code``), as in the JAX engine.  The peeling decoder
     runs through :func:`_run_peeling` (no checkpoints, as in JAX).
+
+    Several devices (JAX's mesh, montecarlo.py:918-1085): ``group`` is a
+    ``torch.distributed`` group with one rank per device (the whole job:
+    ``distributed.global_group()``); without one, ``cfg.edge_sharded``
+    takes the whole job when one is initialised and a batch-sharded run
+    has one device.  ``cfg.edge_sharded`` splits the fixed code's
+    checks over the ranks (:func:`make_edge_sharded_chunk_fn`, the batch
+    replicated); otherwise each rank decodes ``batch / size`` trials
+    (:func:`make_chunk_fn`) and the counters are summed over the group.
+    Every rank then holds the same totals and stops on the same chunk:
+    the wall clock is rank 0's, broadcast each chunk, a resume starts from
+    rank 0's checkpoint, broadcast, and only rank 0 writes checkpoints.
     """
     if (cfg.channel, cfg.decoder) == ("BEC", "peeling"):
+        _require_single_process("peeling")
         return _run_peeling(cfg, code, device)
-    chunk_fn = make_chunk_fn(cfg, code, device)
+    if group is not None or cfg.edge_sharded:
+        group, rank, size = world(group)
+    else:
+        rank, size = 0, 1
+    multi = size > 1
+    if cfg.edge_sharded:        # the stats are replicated: nothing to sum
+        chunk_fn = make_edge_sharded_chunk_fn(cfg, code, device, group)
+    else:
+        local_fn = make_chunk_fn(cfg, code, device, rank, size)
+        chunk_fn = local_fn if not multi else (
+            lambda chunk_idx: _reduce_stats(local_fn(chunk_idx), group))
 
     start = time.time()
     trials = 0
@@ -477,10 +593,19 @@ def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> Simulatio
     bit_errors_sq = code_bit_errors_sq = 0.0
     cluster_ok = True
     ensemble = cfg.code_mode == "ensemble"
-    trials_per_code = 32 * _ensemble_layout(cfg)[1] if ensemble else None
+    trials_per_code = 32 * _ensemble_layout(cfg, size)[1] if ensemble \
+        else None
     stopped_by = "num_tests"
 
-    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+    def wall_clock_exceeded() -> bool:
+        hit = time.time() - start > cfg.max_seconds
+        if multi:      # rank 0's clock decides for every rank
+            flag = torch.tensor([int(hit)], dtype=torch.int64, device=device)
+            hit = bool(broadcast_(flag, group)[0])
+        return hit
+
+    if cfg.checkpoint_path and rank == 0 and \
+            os.path.exists(cfg.checkpoint_path):
         with open(cfg.checkpoint_path) as f:
             ck = json.load(f)
         if ck["seed"] == cfg.seed and ck["batch"] == cfg.batch:
@@ -497,8 +622,25 @@ def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> Simulatio
             if ensemble and ("code_bit_errors_sq" not in ck or
                              ck.get("trials_per_code") != trials_per_code):
                 cluster_ok = False
+    if cfg.checkpoint_path and multi:
+        # rank 0's file is the one that counts (it may be on a disk of its
+        # own); a rank starting at another chunk would strand the others
+        # in the chunk's collective
+        state = broadcast_(torch.tensor(
+            [trials, chunk_idx, block_errors, bit_errors, excluded,
+             int(cluster_ok), *error_totals.tolist()], dtype=torch.int64,
+            device=device), group).tolist()
+        moments = broadcast_(torch.tensor(
+            [bit_errors_sq, code_bit_errors_sq], dtype=torch.float64,
+            device=device), group).tolist()
+        trials, chunk_idx, block_errors, bit_errors, excluded = state[:5]
+        cluster_ok = bool(state[5])
+        error_totals = np.asarray(state[6:], np.int64)
+        bit_errors_sq, code_bit_errors_sq = moments
 
     def write_checkpoint():
+        if rank != 0:
+            return
         tmp = cfg.checkpoint_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(dict(seed=cfg.seed, batch=cfg.batch, trials=trials,
@@ -531,7 +673,7 @@ def run_simulation(cfg: SimulationConfig, code=None, device="cuda") -> Simulatio
         if block_errors >= cfg.max_block_errors:
             stopped_by = "block_errors"
             break
-        if time.time() - start > cfg.max_seconds:
+        if wall_clock_exceeded():
             stopped_by = "wall_clock"
             break
     if cfg.checkpoint_path:

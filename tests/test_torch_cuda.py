@@ -1085,3 +1085,130 @@ def test_parallel_peel_on_gpu_equals_plain(cuda, eps):
     assert erasure_bp.check_exactly_one.launches == before + rounds
     want, want_rounds = peeling.peel_decode_parallel_plain(code, rx)
     assert torch.equal(got.cpu(), want) and rounds == want_rounds
+
+
+# ---------------------------------------------------------------------------
+# Edge sharding: X1 (edge_candidates), X2 (or_reduce_update)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n, words", [(12, 1), (600, 7), (3000, 33)])
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_edge_round_kernels_equal_plain(cuda, n, words, size):
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
+
+    code = _code(n, seed=size)
+    rng = np.random.default_rng(size)
+    known = torch.from_numpy(rng.integers(-2**31, 2**31, (n, words),
+                                          dtype=np.int64).astype(np.int32))
+    m_local = -(-code.m // size)
+    cands = []
+    for r in range(size):
+        off = r * m_local
+        ex = erasure_bp._check_exactly_one_plain(
+            code.chk_to_var[off:off + m_local], known)
+        got = es.edge_candidates(code.var_to_chk.to(cuda), ex.to(cuda), off)
+        want = es._edge_candidates_plain(code.var_to_chk, ex, off)
+        assert torch.equal(got.cpu(), want)
+        cands.append(want)
+    gathered = torch.stack(cands)
+    state = known.to(cuda)
+    errors = torch.zeros(3, dtype=torch.int32, device=cuda)
+    es.or_reduce_update(gathered.to(cuda), state, errors, 1)
+    want_known, want_errors = known.clone(), torch.zeros(3, dtype=torch.int32)
+    es._or_reduce_update_plain(gathered, want_known, want_errors, 1)
+    assert torch.equal(state.cpu(), want_known)
+    assert torch.equal(errors.cpu(), want_errors)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("eps", [0.35, 0.45])
+def test_edge_sharded_decode_on_gpu_equals_packed_and_cpu(cuda, family, eps):
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
+
+    n, words = 1200, 5
+    if family == "regular":
+        code = _code(n, seed=7)
+        edge, packed = es.edge_sharded_bp_decode, \
+            erasure_bp.bp_decode_packed_allzero
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+            n, [0, 1 / 3, 0, 2 / 3], [0, 0, 0, 0, 0, 1.0])
+        code = irregular.sample_irregular_code(
+            torch.Generator().manual_seed(7), spec)
+        edge, packed = es.edge_sharded_bp_decode_irregular, \
+            erasure_bp.bp_decode_packed_allzero_irregular
+    erased = bitops.bernoulli_packed(eps, (n, words), seed=3, device="cpu")
+    before = (es.edge_candidates.launches, es.or_reduce_update.launches,
+              erasure_bp.check_exactly_one.launches)
+    got = edge(code.to(cuda), erased.to(cuda), 60)
+    rounds = got.iterations
+    assert (es.edge_candidates.launches, es.or_reduce_update.launches,
+            erasure_bp.check_exactly_one.launches) == tuple(
+        b + rounds for b in before)
+    for want in (packed(code.to(cuda), erased.to(cuda), 60),
+                 edge(code, erased, 60)):
+        assert torch.equal(got.known.cpu(), want.known.cpu())
+        assert torch.equal(got.error_totals.cpu(), want.error_totals.cpu())
+        assert got.iterations == want.iterations
+
+
+def _nccl_rank(rank, size, port, outdir):
+    """One rank of an NCCL group, one card each: the edge-sharded decode
+    and a batch-sharded fixed-BEC run, saved for the parent."""
+    from iib_project_ldpc_codes_tpu_torch.parallel import distributed
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
+
+    distributed.initialize(f"127.0.0.1:{port}", size, rank,
+                           device=f"cuda:{rank}", timeout_s=300)
+    try:
+        dev = torch.device("cuda", rank)
+        erased = bitops.bernoulli_packed(0.42, (2400, 3), seed=9, device=dev)
+        res = es.edge_sharded_bp_decode(_code(2400, seed=5, device=dev),
+                                        erased, 60)
+        run = mc.run_simulation(_nccl_cfg(size), _code(600, seed=6),
+                                device=dev, group=distributed.global_group())
+        torch.save({"known": res.known.cpu(),
+                    "error_totals": res.error_totals.cpu(),
+                    "iterations": res.iterations,
+                    "run": (run.num_trials, run.block_errors, run.bit_errors,
+                            run.error_counts_per_iteration)},
+                   f"{outdir}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _nccl_cfg(size):
+    return SimulationConfig(channel_param=0.42, n=600, iterations=30,
+                            batch=64 * size, num_tests=128 * size, seed=2,
+                            code_mode="fixed", max_block_errors=10**9)
+
+
+def test_nccl_group_of_every_card_equals_one_process(cuda, tmp_path):
+    import torch.multiprocessing as mp
+
+    from iib_project_ldpc_codes_tpu_torch.parallel import dryrun
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
+
+    size = torch.cuda.device_count()
+    if size < 2:
+        pytest.skip("needs two or more GPUs (NCCL refuses two ranks on "
+                    "one card)")
+    mp.spawn(_nccl_rank, args=(size, dryrun.free_port(), str(tmp_path)),
+             nprocs=size, join=True)
+    outs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(size)]
+    erased = bitops.bernoulli_packed(0.42, (2400, 3), seed=9, device=cuda)
+    alone = es.edge_sharded_bp_decode(_code(2400, seed=5, device=cuda),
+                                      erased, 60)
+    cfg, code = _nccl_cfg(size), _code(600, seed=6)
+    fns = [mc.make_chunk_fn(cfg, code, device=cuda, rank=r, size=size)
+           for r in range(size)]
+    stats = [fn(c) for c in range(2) for fn in fns]
+    want = (cfg.num_tests, sum(int(s.block_errors) for s in stats),
+            sum(int(s.bit_errors) for s in stats),
+            sum(s.error_totals.cpu().to(torch.int64) for s in stats).tolist())
+    for o in outs:
+        assert torch.equal(o["known"], alone.known.cpu())
+        assert torch.equal(o["error_totals"], alone.error_totals.cpu())
+        assert o["iterations"] == alone.iterations
+        assert o["run"] == want

@@ -198,6 +198,18 @@ def test_unported_modes_name_their_roadmap_item(kw, item):
         assert res.num_trials == 512 and res.error_rate_per_iteration == []
         assert 0 <= res.block_errors <= 512
         return
+    if item == "item 13":
+        # edge sharding (item 13) is ported: as in JAX, make_chunk_fn does
+        # not read the flag, and run_simulation's edge-sharded chunk counts
+        # exactly what it counts
+        ours = mc.make_chunk_fn(_cfg(**kw), code, device="cpu")(1)
+        edge = mc.make_edge_sharded_chunk_fn(_cfg(**kw), code,
+                                             device="cpu")(1)
+        for f in ("error_totals", "block_errors", "bit_errors",
+                  "bit_errors_sq"):
+            assert torch.equal(getattr(ours, f), getattr(edge, f)), f
+        assert int(ours.error_totals[0]) > 0
+        return
     with pytest.raises(NotImplementedError, match=item):
         mc.make_chunk_fn(_cfg(**kw), code, device="cpu")
 
