@@ -36,8 +36,9 @@ and irregular BEC paths at n = 10^4, AWGN sum-product and BSC bf16 min-sum
 at n = 8192, and the ensemble BEC and AWGN min-sum paths at the JAX
 package's validation scale, n = 2048, 32 codes of 768 trials a chunk, with
 an encoder derived per code and chunk), each held to its zero-transmit run
-at the same seed, and their timing: kernel E beside its bound and a
-library matmul, chunks against the zero-transmit chunks, and the encoder
+at the same seed, and their timing: kernel E beside its bound (the least
+over a walk of the set map bits, the method of Four Russians and the
+tensor-core product) and a library matmul, chunks against the zero-transmit chunks, and the encoder
 derivation at n = 10^4 and per ensemble chunk.  For kernel E and the two
 value kernels ``launches`` counts the fixed random BEC path.
 
@@ -172,6 +173,7 @@ EDGE_RUN_FIELDS = ("num_trials", "block_errors", "bit_errors",
 HBM_BYTES_S, FP32_OPS_S, FP64_OPS_S, INT32_OPS_S = 3.35e12, 67e12, 33.5e12, \
     33.5e12
 BF16_TENSOR_OPS_S = 989e12      # dense bf16 on the tensor cores
+INT8_TENSOR_OPS_S = 1979e12     # dense int8 on the tensor cores
 PHILOX_OPS = 100                # 10 rounds of 4 multiplies, 4 XORs, 2 adds
 
 
@@ -1700,23 +1702,38 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
     library_ms = time_ms(library)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     del mask01, info01, sums
-    # the least work for the function on this map: one word XOR per set
-    # map bit and word (kernel E's walk), or the same product on the tensor
-    # cores (2 operations a multiply-add over the unpacked bits)
+    # the least work for the function on this map, the least over designs:
+    # one word XOR per set map bit and word (a walk of the set bits); the
+    # method of Four Russians, whose table of the 2^g XOR combinations of g
+    # information rows turns a row's g bits into one lookup (rank *
+    # ceil(k/g) lookups and ceil(k/g) * 2^g table entries a word, at its
+    # best g); the product of the unpacked bits on the tensor cores, bf16
+    # or int8 (2 operations a multiply-add)
     e_bytes = nbytes(info, pl.mask, pl.free, pl.pivots, tx)
-    e_bound = min(
-        bound(e_bytes, int(bitops.total_popcount(pl.mask)) * WORDS_FULL,
-              INT32_OPS_S),
-        bound(e_bytes, 2.0 * pl.rank * pl.k * 32 * WORDS_FULL,
-              BF16_TENSOR_OPS_S),
-        key=lambda b: b["bound_ms"])
+    e_designs = {
+        "set-bit XOR, INT32": bound(
+            e_bytes, int(bitops.total_popcount(pl.mask)) * WORDS_FULL,
+            INT32_OPS_S),
+        "Four Russians, INT32": bound(e_bytes, min(
+            (pl.rank + 2 ** g) * -(-pl.k // g) * WORDS_FULL
+            for g in range(1, 17)), INT32_OPS_S),
+        "bf16 tensor cores": bound(
+            e_bytes, 2.0 * pl.rank * pl.k * 32 * WORDS_FULL,
+            BF16_TENSOR_OPS_S),
+        "int8 tensor cores": bound(
+            e_bytes, 2.0 * pl.rank * pl.k * 32 * WORDS_FULL,
+            INT8_TENSOR_OPS_S)}
+    e_design = min(e_designs, key=lambda d: e_designs[d]["bound_ms"])
     measured["encode_packed"].update(
         max_abs_err=err_e, ms=e_ms, plain_ms=e_plain_ms,
         library_ms=library_ms, library_call=library_call,
-        ensemble_ms=e_ens_ms, **e_bound)
+        ensemble_ms=e_ens_ms, bound_design=e_design, **e_designs[e_design])
+    print("kernel E's bound by design, ms: " + json.dumps(
+        {d: b["bound_ms"] for d, b in e_designs.items()}) +
+          f"; the least: {e_design}", flush=True)
     print(f"kernel E at rank {pl.rank}, k_eff {pl.k}, W {WORDS_FULL}: "
           f"{e_ms:.4f} ms (bound {measured['encode_packed']['bound_ms']:.4f} "
-          f"ms, {measured['encode_packed']['bound_by']}; plain "
+          f"ms, {measured['encode_packed']['bound_by']}, {e_design}; plain "
           f"{e_plain_ms:.2f} ms; {library_call} mod 2: {library_ms:.4f} ms); "
           f"{CODES_RT_ENS} codes of n={N_RT_ENS}: {e_ens_ms:.4f} ms",
           flush=True)

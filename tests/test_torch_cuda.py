@@ -579,8 +579,15 @@ def _encoded(code, words, seed, device="cpu"):
     return planes, info, encode.encode_packed(planes, info)
 
 
+# kernel E's tiles are 32 words of one code by 128-1024 parity rows, and
+# it walks information rows in chunks of 32: words per code of 1, 3, 24,
+# 33 and 70 (tiles narrower than a warp, several codes a row of tiles, a
+# ragged last tile), k_eff of 48, 252 and 300 (not all multiples of 8 or
+# 32), and rank 5000 at n = 10^4 (several row tiles)
 @pytest.mark.parametrize("n, words, num", [(96, 3, 1), (600, 70, 1),
-                                           (504, 24, 24), (504, 72, 3)])
+                                           (504, 24, 24), (504, 72, 3),
+                                           (600, 33, 1), (504, 99, 3),
+                                           (10_000, 40, 1)])
 def test_encode_kernel_equals_plain_and_cpu(cuda, n, words, num):
     codes = ensemble.sample_codes(5, 0, num, n, 3, 6, "repair")
     code = codes if num > 1 else codes.select(0)
@@ -595,6 +602,35 @@ def test_encode_kernel_equals_plain_and_cpu(cuda, n, words, num):
         syndrome ^= erasure_bp._code_major_to_plane(
             erasure_bp._gather_rows(cpu, code.chk_to_var, j), num)
     assert not syndrome.any()
+
+
+@pytest.mark.parametrize("wpc", [1, 3, 24, 33])
+def test_encode_kernel_mixed_rank_batch(cuda, wpc):
+    # a regular (3,6) code and two irregular codes of one n: their ranks
+    # differ, so the padded planes hold sentinel pivots past each code's
+    # rank and zero mask bits past its k_eff
+    n = 300
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
+    codes = [_code(n, seed=21)] + [
+        irregular.sample_irregular_codes(22, 0, 2, spec).select(i)
+        for i in range(2)]
+    encoders = [encode.make_encoder(c) for c in codes]
+    assert len({e.rank for e in encoders}) > 1
+    planes = encode.encoder_planes_padded(encoders, n, device=cuda)
+    info = bitops.info_planes(planes.k, wpc * len(codes), seed=23,
+                              device=cuda)
+    before = encode.encode_packed.launches
+    got = encode.encode_packed(planes, info)
+    assert encode.encode_packed.launches == before + 1
+    assert torch.equal(got, encode._encode_packed_plain(planes, info))
+    cpu_planes = encode.encoder_planes_padded(encoders, n)
+    assert torch.equal(got.cpu(), encode._encode_packed_plain(
+        cpu_planes, info.cpu()))
+    bits = bitops.unpack_bits(got.cpu()).to(torch.int64)      # [n, 32W]
+    for i, c in enumerate(codes):
+        h = encode._dense_of(c).to(torch.int64)
+        cols = bits[:, 32 * wpc * i:32 * wpc * (i + 1)]
+        assert not bool(((h @ cols) % 2).any())
 
 
 @pytest.mark.parametrize("wpc, num", [(33, 1), (1, 24), (3, 8)])
