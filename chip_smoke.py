@@ -66,7 +66,11 @@ instantiations on the nb = 12 (3,6) base at n = 10,008 (24,576 trials) and
 n = 1,000,008 (1,536) and on the irregular nb = 24 base, and the peel
 kernel (P1) against its plain version on 400 fresh codes of n = 16,384,
 regular and irregular; whole int8 decodes against the plain path and
-kernels B and C on ``expand()``, GPU runs against CPU runs, every peel's
+kernels B and C on ``expand()``, S2's int8 instantiation also on planes
+drawn from {-128, -127, -1, 0, 1, 127} (saturation and ties), with its
+registers, stack frame, spills and SASS instruction count read from the
+built library and its rate on the bytes it really moves (pm once per
+check socket, messages in and out); GPU runs against CPU runs, every peel's
 final set against the batched BP fixed point and the parallel peel against
 its plain version; the int8 min-sum path (AWGN sigma = 0.841 and BSC
 p = 0.04) with S1 and S2 launches equal to the rounds run and counters
@@ -2362,6 +2366,60 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                                 chunk6_ms, kernels), flush=True)
 
 
+def s2_int8_resources(smi: str) -> dict:
+    """Registers, stack frame, local memory (spills) and SASS instructions
+    of each int8 instantiation of S2 in the built library, read with the
+    toolkit's cuobjdump; the theoretical occupancy its registers allow at
+    256 threads a block (a warp's registers allocated in units of 256, at
+    most 64 warps an SM).  Fails on a stack frame or local memory."""
+    import re
+
+    from iib_project_ldpc_codes_tpu_torch.kernels.build import (find_nvcc,
+                                                                library_path)
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+
+    def dump(*flags):
+        return subprocess.run([tool, *flags, str(library_path())],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+
+    usage = dict(re.findall(r"Function (\S*qc_soft_check_kernel_int8\S*):"
+                            r"\s*(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
+                            dump("-res-usage")))
+    check(len(usage) == 3, f"S2 int8: {len(usage)} instantiations in the "
+          "library, expected 3")
+    sass = {}
+    # disassembling only these three keeps the call to seconds
+    for body in dump("-sass", "-fun", ",".join(usage)).split(
+            "Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "qc_soft_check_kernel_int8" in name:
+            sass[name] = [op for op in re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                body) if not op.startswith("NOP")]
+    out = {}
+    for name, text in usage.items():
+        words, max_dc = map(int, re.search(
+            r"kernel_int8ILi(\d+)ELi(\d+)E", name).groups())
+        f = {k.lower(): int(v) for k, v in
+             (kv.split(":") for kv in text.split())}
+        ops = len(sass[name])
+        warp_regs = -(-f["reg"] * 32 // 256) * 256
+        blocks = min(65536 // (warp_regs * 8), 8)
+        f.update(sass_instructions=ops,
+                 per_socket_and_word=ops / (max_dc * words),
+                 occupancy_from_registers=blocks * 8 / 64)
+        out[f"U{words}_dc{max_dc}"] = f
+        check(f["stack"] == 0 and f["local"] == 0,
+              f"S2 int8 {name}: stack frame or local memory {text}")
+    print(f"S2 int8 instantiations (U words a thread, up to dc sockets; "
+          f"per_socket_and_word: the kernel's SASS, set-up and reduction "
+          f"included, over dc * U; card {smi}): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     """Phases 33-37: the QC soft decoder by circulant index (S1, S2) and the
     sequential peeling decoder (P1) with its R-process experiment (module
@@ -2454,26 +2512,37 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
             kw = dict(method=method)
             if method == "minsum" and dtype != torch.int8:
                 kw.update(alpha=0.8, beta=0.25)
-            got = []
-            for fn in (qc_soft_bp.qc_soft_check,
-                       qc_soft_bp._qc_soft_check_plain):
-                msg = msg0.clone()
-                unsat = torch.zeros(1, dtype=torch.int32, device=dev)
-                fn(pm0, msg, adj, one, unsat, **kw)
-                got.append((msg, unsat))
-            torch.cuda.synchronize()
-            (mk, uk), (mp, up) = got
-            diff = max(float((a.float() - b.float()).abs().max())
-                       for a, b in zip(mk.split(1 << 16), mp.split(1 << 16)))
-            check(torch.equal(uk, up) and int(up) > 0,
-                  f"S2 ({label}, {method}, {dtype}): syndromes {int(uk)} / "
-                  f"{int(up)}")
-            check(diff == 0.0 if method == "minsum"
-                  else diff <= sp_atol[dtype],
-                  f"S2 ({label}, {method}, {dtype}) differs from its plain "
-                  f"version by {diff}")
-            err[names[1]] = max(err[names[1]], diff)
-            del got, mk, mp
+
+            def s2_against_plain(pm_in, msg_in, what):
+                got = []
+                for fn in (qc_soft_bp.qc_soft_check,
+                           qc_soft_bp._qc_soft_check_plain):
+                    msg = msg_in.clone()
+                    unsat = torch.zeros(1, dtype=torch.int32, device=dev)
+                    fn(pm_in, msg, adj, one, unsat, **kw)
+                    got.append((msg, unsat))
+                torch.cuda.synchronize()
+                (mk, uk), (mp, up) = got
+                diff = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(mk.split(1 << 16),
+                                           mp.split(1 << 16)))
+                check(torch.equal(uk, up) and int(up) > 0,
+                      f"S2 ({label}, {method}, {dtype}{what}): syndromes "
+                      f"{int(uk)} / {int(up)}")
+                check(diff == 0.0 if method == "minsum"
+                      else diff <= sp_atol[dtype],
+                      f"S2 ({label}, {method}, {dtype}{what}) differs from "
+                      f"its plain version by {diff}")
+                err[names[1]] = max(err[names[1]], diff)
+
+            s2_against_plain(pm0, msg0, "")
+            if dtype == torch.int8:
+                # r = p - m hits +-255, +-128, +-127 and 0; ties everywhere
+                edge = torch.tensor([-128, -127, -1, 0, 1, 127],
+                                    dtype=torch.int8, device=dev)
+                s2_against_plain(*(edge[torch.randint(
+                    0, len(edge), shape, generator=g, device=dev)]
+                    for shape in ((code.n, c), (rows, c))), ", edge values")
             timed = label in ("n1e4", "n1e6") and (method, dtype) in (
                 ("minsum", torch.int8), ("sumproduct", torch.float32))
             if timed:
@@ -2504,6 +2573,16 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
                             warmup=False),
                         **bound(nbytes(pm0, msg0, msg0, adj.chk_block,
                                        adj.chk_shift, adj.row_offs)))}
+                s2 = single[key][names[1]]
+                moved = 3 * rows * c * pm0.element_size()
+                s2.update(moved_gb=moved / 1e9,
+                          moved_gb_per_s=moved / (s2["ms"] / 1e3) / 1e9)
+                print(f"S2 {key}: {s2['ms']:.4f} ms, "
+                      f"{s2['moved_gb_per_s']:.1f} GB/s on the "
+                      f"{s2['moved_gb']:.3f} GB it moves (pm once per check "
+                      "socket, messages in and out; 3350 GB/s peak); bound "
+                      f"as counted {s2['bound_ms']:.4f} ms; card {smi}",
+                      flush=True)
                 print(f"single launches {key} (n={code.n}, B={c}): "
                       f"{json.dumps(single[key])}", flush=True)
                 del pm, msg
@@ -2511,6 +2590,7 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
             torch.cuda.empty_cache()
         print(f"S1, S2 equal to plain on {label}: n={code.n}, Z={code.Z}, "
               f"B={cols}, E_b={adj.num_rows}", flush=True)
+    measured[names[1]]["int8_resources"] = s2_int8_resources(smi)
     for name in names[:2]:
         measured[name].update(
             max_abs_err=err[name], library_ms=None,

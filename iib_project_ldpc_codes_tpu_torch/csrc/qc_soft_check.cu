@@ -2,42 +2,61 @@
 // messages).
 //
 // Replaces the check side of iib_project_ldpc_codes_tpu/ops/qc_soft_bp.py
-// _qc_soft_iteration (:83-104).  Messages are check-resident, [E_b * Z, B]
-// in the working type T as in JAX: plane off[c] + jj holds socket jj of base
-// check c, row z of it lifted check (c, z), so an irregular base has no
-// padded rows.  For base check c (blockIdx.y), lifted row z and trial b,
-// over the dc_c real sockets jj of c (variable block chk_block[c, jj], shift
-// chk_shift[c, jj], compacted to the left; dc_c = off[c+1] - off[c]):
+// _qc_soft_iteration (:72-104), with _check_update_minsum (int8: mag_cap =
+// 127) or _check_update_sumproduct of ops/soft_bp.py (:97-158).  Messages
+// are check-resident, [E_b * Z, B] in the working type T as in JAX: plane
+// off[c] + jj holds socket jj of base check c, row z of it lifted check
+// (c, z), so an irregular base has no padded rows.  For base check c
+// (blockIdx.y), lifted row z and trial b, over the dc_c real sockets jj of c
+// (variable block chk_block[c, jj], shift chk_shift[c, jj], compacted to the
+// left; dc_c = off[c+1] - off[c]):
 //   p_jj = pm[chk_block[c, jj]*Z + (z + s_jj) mod Z, b]     (qc::row_plus)
 //   syndrome: XOR_jj [p_jj < 0]; the unsatisfied (check, trial) pairs are
-//             added into unsat[0] (one atomic per warp);
+//             added into unsat[0];
 //   r_jj  = p_jj - msg[(off[c] + jj)*Z + z, b] in the accumulation type,
 //           clipped to +-30 for float messages;
-//   msg[(off[c] + jj)*Z + z, b] = the check update of the r's, in place:
-//           min-sum (alpha, beta), int8 min-sum saturated at 127, or
-//           sum-product, the function soft_check.cu uses
-//           (soft.cuh::check_update; its header states the rules).
+//   msg[(off[c] + jj)*Z + z, b] = the check update of the r's, in place.
 // JAX rolls every pm plane by -s into the check frame; here (z + s) mod Z is
 // one conditional subtract in the load address and no rolled copy exists.
 // A thread reads its own dc_c messages before it writes them and no other
 // thread touches them, so the update is in place.  Nothing runs when
 // active[0] is 0.
 //
-// Bound on the H100: memory.  Per (check, trial): dc_c pm gathers, dc_c
-// message loads and dc_c message stores in the working type; the nb = 12
-// (3,6) base at Z = 834, B = 24,576 moves 2.21 GB a round in int8.  Design
-// as qc_soft_posterior.cu: a grid row per base check (its tables uniform
-// loads), 32-bit in-plane indices, V adjacent trials a thread for checks of
-// degree up to 8: 16-byte accesses in float32 and bfloat16 (V = 4, 8),
-// 8-byte in int8 (V = 8; 16 lanes of 8 sockets spilled registers on the
-// H100).  The per-socket values stay in registers, so the kernel is
-// instantiated by the largest base check degree (6, 8; above 8, up to 32,
-// one trial a thread, two in int8), as Q4 is.
+// Bound on the H100: memory.  Counted with each input read once and each
+// output written once, a pass moves n*B bytes of pm and 2*E*B of messages in
+// the working type: 10.75 GB in int8 on the nb = 12 (3,6) base at Z =
+// 83,334, B = 1,536, 3.21 ms at 3.35 TB/s.  This design reads pm once per
+// check socket, dvb times in all, so it really moves 3*E*B bytes: 13.8 GB,
+// 4.1 ms (2.21 GB, 0.66 ms at Z = 834, B = 24,576).  A grid row per base
+// check keeps its tables uniform loads; in-plane indices are 32-bit.
+//
+// int8 (min-sum saturated at 127, the engine's path) runs on packed lanes,
+// four trials a 32-bit word, never one byte at a time.  JAX's update,
+//   out_j = sign_j * min(min_{k != j} |r_k|, 127),  r_k in [-255, 255],
+// sign_j the XOR of the other sockets' signs, is exact on r'_k = sat8(r_k):
+// |r'_k| = min(|r_k|, 127) by saturating absolute value and sign(r'_k) =
+// sign(r_k), zero included.  With m1 <= m2 the two smallest |r'| and 127,
+// out_j's magnitude is m2 where |r'_j| = m1 and m1 elsewhere (ties give m1 =
+// m2), so no index is kept, and a degree-1 check gives +127 as JAX's big =
+// 4 * 127 does.  Per socket and word: r' = __vsubss4(p, m), a = __vabsss4,
+// m2 = min(m2, max(m1, a)), m1 = min(m1, a) in unsigned bytes, the signs
+// XORed in bit 7 of every byte; the syndrome is the popcount of the sign
+// bits of the XORed p words.  A thread takes 4 words (16 bytes, 16 trials)
+// of a row where B % 16 == 0 and every degree is at most 8, else one word,
+// for degrees up to 32; the dc r' words stay in registers, so nothing is
+// reread and nothing spills (-Xptxas -v).  The block sums its unsatisfied
+// pairs (warp shuffles, then shared memory) into one atomicAdd.
+//
+// float32 and bfloat16 (min-sum with alpha and beta, sum-product): V
+// adjacent trials a thread, 16-byte accesses, for checks of degree up to 8
+// (above, one trial a thread), the update of soft.cuh::check_update that
+// soft_check.cu uses, one atomic a warp for the syndrome.
 #include "qc.cuh"
 #include "soft.cuh"
 
 namespace {
 
+using ldpc::qc::Words;
 using ldpc::soft::clipf;
 using ldpc::soft::Elem;
 using ldpc::soft::kLlrClip;
@@ -49,6 +68,10 @@ using ldpc::soft::store_lanes;
 
 constexpr int kMaxDegree = 32;
 
+// ---------------------------------------------------------------------------
+// float32 and bfloat16
+// ---------------------------------------------------------------------------
+
 template <typename T, int kMethod, int V, int kMaxDc>
 __global__ void qc_soft_check_kernel(
     const T* __restrict__ pm, T* __restrict__ msg,
@@ -57,7 +80,6 @@ __global__ void qc_soft_check_kernel(
     const int32_t* __restrict__ row_offs, const int32_t* __restrict__ active,
     int32_t* __restrict__ unsat, int dcb, int lift, int cols, float alpha,
     float beta) {
-  constexpr bool kQuantised = sizeof(T) == 1;
   using E = Elem<T>;
   using Acc = typename E::Acc;
   if (!__ldg(active)) return;               // one code: uniform over the grid
@@ -93,8 +115,7 @@ __global__ void qc_soft_check_kernel(
         if (jj < dc) {
           const Acc p = E::acc(pv[jj].v[k]);
           parity ^= p < 0;
-          r[jj] = E::sub(p, E::acc(mv[jj].v[k]));
-          if constexpr (!kQuantised) r[jj] = clipf(r[jj], kLlrClip);
+          r[jj] = clipf(E::sub(p, E::acc(mv[jj].v[k])), kLlrClip);
         }
       }
       bad += parity;
@@ -139,17 +160,157 @@ int dispatch(const void* pm, void* msg, const void* chk_block,
              const void* chk_shift, const void* row_offs, const void* active,
              void* unsat, int mb, int dcb, int max_dc, int lift, int cols,
              float alpha, float beta, cudaStream_t s) {
-  // int8 takes 8 lanes, not 16: 16 int8 lanes of 8 sockets spill
-  constexpr int kWide = sizeof(T) == 1 ? 8 : 16 / sizeof(T);
-  constexpr int kNarrow = sizeof(T) == 1 ? 2 : 1;
+  constexpr int kWide = 16 / sizeof(T);
   if (!ldpc::qc::vector_ok(4, {pm, msg}))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const bool wide = cols % kWide == 0 && max_dc <= 8;
-  auto fn = !wide ? launch_check<T, kMethod, kNarrow, kMaxDegree>
+  auto fn = !wide ? launch_check<T, kMethod, 1, kMaxDegree>
                   : (max_dc <= 6 ? launch_check<T, kMethod, kWide, 6>
                                  : launch_check<T, kMethod, kWide, 8>);
   fn(pm, msg, chk_block, chk_shift, row_offs, active, unsat, mb, dcb, lift,
      cols, alpha, beta, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// int8: four trials a 32-bit word
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kSignBits = 0x80808080u;   // bit 7 of every byte
+constexpr uint32_t kCap = 0x7F7F7F7Fu;        // 127 in every byte
+
+// 0xFF in every byte whose bit 7 is set, else 0 (prmt's sign replication)
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(d) : "r"(x));
+  return d;
+}
+
+// -x in every byte, for bytes in [0, 127]: 0x80 - x never borrows, and
+// (0x80 - x) ^ 0x80 is 256 - x, or 0 for x = 0
+__device__ __forceinline__ uint32_t negate_bytes(uint32_t x) {
+  return (kSignBits - x) ^ kSignBits;
+}
+
+// The unsatisfied pairs of the block into unsat[0]: warp shuffles, one
+// shared-memory slot a warp, one atomic.  Every thread of the block calls it.
+__device__ __forceinline__ void add_block_count(int v, int32_t* unsat) {
+  __shared__ int per_warp[ldpc::kThreads / 32];
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1)
+    v += __shfl_down_sync(0xFFFFFFFFu, v, offset);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) per_warp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < ldpc::kThreads / 32 ? per_warp[lane] : 0;
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1)
+      v += __shfl_down_sync(0xFFFFFFFFu, v, offset);
+    if (lane == 0 && v) atomicAdd(unsat, v);
+  }
+}
+
+// U words (4 * U trials) of one lifted row a thread; kMaxDc bounds the base
+// check degree, so the dc * U extrinsic words are registers.
+template <int U, int kMaxDc>
+__global__ void __launch_bounds__(ldpc::kThreads) qc_soft_check_kernel_int8(
+    const int32_t* __restrict__ pm, int32_t* __restrict__ msg,
+    const int32_t* __restrict__ chk_block,
+    const int32_t* __restrict__ chk_shift,
+    const int32_t* __restrict__ row_offs, const int32_t* __restrict__ active,
+    int32_t* __restrict__ unsat, int dcb, int lift, int words) {
+  if (!__ldg(active)) return;               // one code: uniform over the grid
+  const int c = blockIdx.y;
+  const int off = __ldg(row_offs + c);
+  const int dc = __ldg(row_offs + c + 1) - off;
+  const int groups = words / U;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int bad = 0;
+  if (i < lift * groups) {
+    const int z = i / groups;
+    const int w0 = (i - z * groups) * U;
+    const long long plane = static_cast<long long>(lift) * words;
+    const int own = z * words + w0;
+    const int32_t* blocks = chk_block + c * dcb;
+    const int32_t* shifts = chk_shift + c * dcb;
+    uint32_t r[kMaxDc][U];
+    uint32_t m1[U], m2[U], signs[U], parity[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      m1[u] = m2[u] = kCap;
+      signs[u] = parity[u] = 0u;
+    }
+#pragma unroll
+    for (int jj = 0; jj < kMaxDc; ++jj) {
+      if (jj < dc) {
+        const int zz = ldpc::qc::row_plus(z, __ldg(shifts + jj), lift);
+        const Words<U> p = ldpc::qc::load<U>(pm + __ldg(blocks + jj) * plane +
+                                             zz * words + w0);
+        const Words<U> m = ldpc::qc::load<U>(msg + (off + jj) * plane + own);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const uint32_t x = __vsubss4(p.v[u], m.v[u]);
+          const uint32_t a = __vabsss4(x);
+          r[jj][u] = x;
+          parity[u] ^= p.v[u];
+          signs[u] ^= x;
+          m2[u] = __vminu4(m2[u], __vmaxu4(m1[u], a));
+          m1[u] = __vminu4(m1[u], a);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) bad += __popc(parity[u] & kSignBits);
+#pragma unroll
+    for (int jj = 0; jj < kMaxDc; ++jj) {
+      if (jj < dc) {
+        Words<U> o;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const uint32_t x = r[jj][u];
+          const uint32_t at_min = __vcmpeq4(__vabsss4(x), m1[u]);
+          const uint32_t mag = m1[u] ^ (at_min & (m1[u] ^ m2[u]));
+          const uint32_t neg = sign_bytes(signs[u] ^ x);
+          o.v[u] = mag ^ (neg & (mag ^ negate_bytes(mag)));
+        }
+        ldpc::qc::store<U>(msg + (off + jj) * plane + own, o);
+      }
+    }
+  }
+  add_block_count(bad, unsat);
+}
+
+template <int U, int kMaxDc>
+void launch_int8(const void* pm, void* msg, const void* chk_block,
+                 const void* chk_shift, const void* row_offs,
+                 const void* active, void* unsat, int mb, int dcb, int lift,
+                 int words, cudaStream_t stream) {
+  const long long items = static_cast<long long>(lift) * (words / U);
+  const dim3 grid(static_cast<unsigned int>(
+                      (items + ldpc::kThreads - 1) / ldpc::kThreads),
+                  static_cast<unsigned int>(mb));
+  qc_soft_check_kernel_int8<U, kMaxDc><<<grid, ldpc::kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(pm), static_cast<int32_t*>(msg),
+      static_cast<const int32_t*>(chk_block),
+      static_cast<const int32_t*>(chk_shift),
+      static_cast<const int32_t*>(row_offs),
+      static_cast<const int32_t*>(active), static_cast<int32_t*>(unsat), dcb,
+      lift, words);
+}
+
+int dispatch_int8(const void* pm, void* msg, const void* chk_block,
+                  const void* chk_shift, const void* row_offs,
+                  const void* active, void* unsat, int mb, int dcb,
+                  int max_dc, int lift, int cols, cudaStream_t s) {
+  if (!ldpc::qc::vector_ok(4, {pm, msg}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int words = cols / 4;
+  const bool wide = words % 4 == 0 && max_dc <= 8;
+  auto fn = !wide ? launch_int8<1, kMaxDegree>
+                  : (max_dc <= 6 ? launch_int8<4, 6> : launch_int8<4, 8>);
+  fn(pm, msg, chk_block, chk_shift, row_offs, active, unsat, mb, dcb, lift,
+     words, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,8 +350,7 @@ extern "C" int ldpc_qc_soft_check(const void* pm, void* msg,
         max_dc, lift, cols, alpha, beta, s);
   if (dtype == ldpc::soft::kInt8 && method == kMinSum && alpha == 1.0f &&
       beta == 0.0f)
-    return dispatch<int8_t, kMinSum>(pm, msg, chk_block, chk_shift, row_offs,
-                                     active, unsat, mb, dcb, max_dc, lift,
-                                     cols, alpha, beta, s);
+    return dispatch_int8(pm, msg, chk_block, chk_shift, row_offs, active,
+                         unsat, mb, dcb, max_dc, lift, cols, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1024,6 +1024,56 @@ def test_qc_soft_check_kernel_equals_plain(cuda, family, Z, cols, method,
     assert torch.equal(msg.cpu(), case["msg"])
 
 
+INT8_EDGES = np.array([-128, -127, -1, 0, 1, 127], np.int8)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
+@pytest.mark.parametrize("cols", [4, 16, 36, 1536])
+@pytest.mark.parametrize("case", ["edges", "zeros", "saturated"])
+def test_qc_soft_check_kernel_equals_plain_int8_adversarial(cuda, family,
+                                                            cols, case):
+    """S2's packed int8 lanes bit for bit against the plain version where
+    saturation and ties decide: planes drawn from {-128, -127, -1, 0, 1,
+    127} (r = p - m hits +-255, +-254, +-128, +-127 and 0, ties at the
+    minimum are everywhere), all-zero extrinsics (every output 0), and
+    |r| = 254 on every socket (every magnitude saturates at 127).  Both
+    lane widths run: 16 bytes a thread (cols % 16 == 0, degree <= 8) and
+    4 bytes (cols = 4, 36, and the degree-10 family)."""
+    rng = np.random.default_rng(cols)
+    code = _qc_code(family, 17)
+    adj = qc_bp._adjacency(code, "cpu")
+    rows = adj.num_rows * adj.Z
+    if case == "edges":
+        pm, msg0 = (INT8_EDGES[rng.integers(0, len(INT8_EDGES), shape)]
+                    for shape in ((code.n, cols), (rows, cols)))
+    elif case == "zeros":
+        pm, msg0 = np.zeros((code.n, cols), np.int8), \
+            np.zeros((rows, cols), np.int8)
+    else:
+        sign = np.where(rng.random(cols) < 0.5, 1, -1).astype(np.int8)
+        pm = np.broadcast_to(127 * sign, (code.n, cols))
+        msg0 = np.broadcast_to(-127 * sign, (rows, cols))
+    pm, msg0 = torch.from_numpy(np.ascontiguousarray(pm)), \
+        torch.from_numpy(np.ascontiguousarray(msg0))
+    out = []
+    for device in (cuda, "cpu"):
+        msg = msg0.clone().to(device)
+        unsat = torch.zeros(1, dtype=torch.int32, device=device)
+        qc_soft_bp.qc_soft_check(pm.to(device), msg,
+                                 qc_bp._adjacency(code, device),
+                                 torch.ones(1, dtype=torch.int32,
+                                            device=device), unsat,
+                                 method="minsum")
+        out.append((msg.cpu(), unsat.cpu()))
+    (msg_k, unsat_k), (msg_p, unsat_p) = out
+    assert torch.equal(unsat_k, unsat_p)
+    assert torch.equal(msg_k, msg_p)
+    if case == "zeros":
+        assert not msg_p.any() and int(unsat_p) == 0
+    if case == "saturated":
+        assert bool((msg_p.abs() == 127).all())
+
+
 @pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
 @pytest.mark.parametrize("method, dtype", SOFT)
 def test_qc_soft_decodes_on_gpu_equal_cpu_and_expand(cuda, family, method,

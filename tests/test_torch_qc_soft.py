@@ -331,3 +331,125 @@ def test_engine_float_soft_and_expurgation_go_to_expand(monkeypatch, pairs,
     generic = mc.run_simulation(cfg, code=code.expand(), device="cpu")
     for f in COUNTERS:
         assert getattr(res, f) == getattr(generic, f), f
+
+
+# ---------------------------------------------------------------------------
+# S2's int8 lane arithmetic (csrc/qc_soft_check.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+_SIGN_BITS = np.uint32(0x80808080)
+_CAP = np.uint32(0x7F7F7F7F)
+
+
+def _lanes(words):
+    """uint32 words -> int16 view of their four signed bytes, [..., 4]."""
+    return words[..., None].view(np.int8).reshape(*words.shape, 4) \
+        .astype(np.int16)
+
+
+def _words(lanes):
+    """int16 bytes [..., 4] (each in [-128, 255]) -> uint32 words."""
+    return np.ascontiguousarray((lanes & 0xFF).astype(np.uint8)) \
+        .view(np.uint32)[..., 0]
+
+
+def _vsubss4(a, b):       # __vsubss4: signed bytes, saturated
+    return _words(np.clip(_lanes(a) - _lanes(b), -128, 127))
+
+
+def _vabsss4(a):          # __vabsss4: |signed byte|, saturated
+    return _words(np.minimum(np.abs(_lanes(a)), 127))
+
+
+def _unsigned(a):
+    return _lanes(a) & 0xFF
+
+
+def _vminu4(a, b):
+    return _words(np.minimum(_unsigned(a), _unsigned(b)))
+
+
+def _vmaxu4(a, b):
+    return _words(np.maximum(_unsigned(a), _unsigned(b)))
+
+
+def _vcmpeq4(a, b):
+    return _words(np.where(_unsigned(a) == _unsigned(b), 0xFF, 0))
+
+
+def _sign_bytes(a):       # prmt.b32 a, 0, 0xBA98
+    return _words(np.where(_lanes(a) < 0, 0xFF, 0))
+
+
+def _negate_bytes(a):     # 32-bit arithmetic, as the kernel does it
+    return (_SIGN_BITS - a) ^ _SIGN_BITS
+
+
+def _packed_check(p, m):
+    """The kernel's int8 path on dc planes of words (uint32 [dc, N]): the
+    new message words and the unsatisfied count, step by step as in
+    qc_soft_check_int8_kernel."""
+    m1 = np.full(p.shape[1], _CAP)
+    m2 = m1.copy()
+    signs = np.zeros_like(m1)
+    parity = np.zeros_like(m1)
+    r = []
+    for pj, mj in zip(p, m):
+        x = _vsubss4(pj, mj)
+        a = _vabsss4(x)
+        r.append(x)
+        parity ^= pj
+        signs ^= x
+        m2 = _vminu4(m2, _vmaxu4(m1, a))
+        m1 = _vminu4(m1, a)
+    out = []
+    for x in r:
+        at_min = _vcmpeq4(_vabsss4(x), m1)
+        mag = m1 ^ (at_min & (m1 ^ m2))
+        neg = _sign_bytes(signs ^ x)
+        out.append(mag ^ (neg & (mag ^ _negate_bytes(mag))))
+    bad = sum(bin(int(w)).count("1") for w in parity & _SIGN_BITS)
+    return np.stack(out), bad
+
+
+def _hold_to_jax(p8, m8):
+    """p8, m8: int8 [dc, B] (B a multiple of 4): the packed model equals
+    JAX's _check_update_minsum(mag_cap=127) on int16 planes, and its
+    syndrome count equals the XOR of the signs of p."""
+    from iib_project_ldpc_codes_tpu.ops.soft_bp import _check_update_minsum
+    got, bad = _packed_check(p8.view(np.uint32), m8.view(np.uint32))
+    r = [jnp.asarray(pj.astype(np.int16) - mj.astype(np.int16))
+         for pj, mj in zip(p8, m8)]
+    want = np.stack([np.asarray(o) for o in _check_update_minsum(
+        r, 1.0, 0.0, mag_cap=127)])
+    assert want.dtype == np.int16 and np.abs(want).max() <= 127
+    np.testing.assert_array_equal(got.view(np.int8), want.astype(np.int8))
+    assert bad == int(np.bitwise_xor.reduce(p8 < 0, axis=0).sum())
+
+
+_EDGE_VALUES = np.array([-127, -64, -1, 0, 1, 64, 127], np.int8)
+
+
+@pytest.mark.parametrize("dc", [1, 2, 3])
+def test_int8_lane_model_equals_jax_exhaustively(dc):
+    """Every (p, m) of every socket over {-127, -64, -1, 0, 1, 64, 127}:
+    r hits +-254, +-128, +-127 and 0, ties at the minimum and all-zero
+    extrinsics."""
+    v = len(_EDGE_VALUES)
+    idx = np.indices((v,) * (2 * dc)).reshape(2 * dc, -1)
+    pad = -idx.shape[1] % 4
+    idx = np.pad(idx, ((0, 0), (0, pad)))
+    planes = _EDGE_VALUES[idx]
+    _hold_to_jax(planes[:dc], planes[dc:])
+
+
+@pytest.mark.parametrize("dc", range(1, 11))
+def test_int8_lane_model_equals_jax_on_draws(dc):
+    """Seeded draws over the whole int8 range (-128 included), half of them
+    from the edge values, so ties and saturation are common."""
+    rng = np.random.default_rng(dc)
+    shape = (dc, 4096)
+    full = rng.integers(-128, 128, size=(2,) + shape).astype(np.int8)
+    edge = rng.choice(_EDGE_VALUES, size=(2,) + shape)
+    planes = np.where(rng.random((2,) + shape) < 0.5, full, edge)
+    _hold_to_jax(planes[0], planes[1])
