@@ -16,7 +16,15 @@ modes at the same shape: the irregular (lam, rho) = (x/3 + 2x^3/3, x^5)
 ensemble on the BEC at eps = 0.42, Gallager-A on (3,6) codes on the BSC
 at p = 0.03, and Gallager-A on (lam, rho) = (x^2/2 + x^3/2, x^5) at
 p = 0.04, with the irregular sampler and the Gallager check and variable
-kernels held to their plain versions.
+kernels held to their plain versions.  Kernel G, the whole Gallager decode
+of one code per block, is held to its plain version on all three outputs
+(decision, per-code errors per round, rounds) at 768 codes, regular and
+irregular, with and without a plane the errors count against, and on
+small adversarial batches; its decode at 768 codes is timed beside the
+round kernels' and the plain one, and its launches are counted on the
+ensemble paths (where the round kernels must not run), the n = 1024
+brackets and the random ensemble Gallager path (phase 26), the round
+kernels' on the fixed and expurgated paths.
 
 Phases 18-22 do the same for soft-decision BP (BASELINE.json config 3,
 ``bench.py``'s soft tripwire): kernel A (AWGN LLRs), kernel B (posterior)
@@ -111,9 +119,12 @@ per word); their single-code times from phase 4 stand beside as
 ``fixed_ms``.  ``launches`` counts the ensemble main path, ``launches_fixed``
 the fixed-code one; for the kernels of the later paths, ``launches``
 counts the ensemble path each serves first (the irregular BEC path for the
-irregular sampler, the (3,6) Gallager path for the Gallager kernels, the
-AWGN sum-product path for kernels A, B and C) and ``launches_by_path``
-every path of phases 16 and 21.
+irregular sampler, the (3,6) Gallager path for kernel G, the AWGN
+sum-product path for kernels A, B and C; the fixed (3,6) Gallager path
+for the Gallager check and variable kernels, which the ensemble paths no
+longer run) and ``launches_by_path`` every path of phases 16 and 21.
+Kernel G's bound is its shared-memory accesses for the rounds its codes
+ran, over 132 SMs x 32 a clock at 1.98 GHz, or its device-memory bytes.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  On success the last three lines are the card's name and power
@@ -177,6 +188,10 @@ EDGE_RUN_FIELDS = ("num_trials", "block_errors", "bit_errors",
 HBM_BYTES_S, FP32_OPS_S, FP64_OPS_S, INT32_OPS_S = 3.35e12, 67e12, 33.5e12, \
     33.5e12
 BF16_TENSOR_OPS_S = 989e12      # dense bf16 on the tensor cores
+# shared-memory accesses of 4 bytes a second: 32 banks (128 bytes) a clock
+# on each of the 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
+# architecture documents and data sheet)
+SMEM_ACCESS_S = 132 * 32 * 1.98e9
 INT8_TENSOR_OPS_S = 1979e12     # dense int8 on the tensor cores
 PHILOX_OPS = 100                # 10 rounds of 4 multiplies, 4 XORs, 2 adds
 
@@ -327,6 +342,154 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def round_kernel_decode(c, rx, iters: int):
+    """The Gallager-A decode of ``c`` through the round kernels
+    (``gallager_check``, ``gallager_variable``) and the host loop, with
+    ``record="total"``: what the engine ran before kernel G."""
+    from iib_project_ldpc_codes_tpu_torch.ops import gallager
+
+    graph = gallager._graph(c)
+    t = graph.var_to_sock.shape[-1] if graph.irregular else DV - 1
+    return gallager._round_loop(graph, rx, iters, lambda _it: t,
+                                lambda _it: False, False,
+                                gallager._KERNEL_PASSES, None)
+
+
+def decode_smem_accesses(graph, rounds, wpc: int) -> int:
+    """Kernel G's shared-memory accesses (4 bytes each) for the rounds
+    ``rounds`` int[C] its codes ran: the first messages, then a round's
+    check pass (every socket read, every parity written) and variable pass
+    (message and parity read, message written, per real socket)."""
+    import torch
+
+    table = graph.var_to_sock[..., :graph.n, :]
+    real = (table < graph.pad_pos).reshape(graph.num_codes, -1).sum(1)
+    sockets = graph.chk_to_var.shape[-2] * graph.dc
+    rows = graph.chk_to_var.shape[-2]
+    per_round = (sockets + rows + 3 * real.to(torch.int64)) * wpc
+    return int(graph.num_codes * sockets * wpc
+               + (rounds.to(torch.int64) * per_round).sum())
+
+
+def gallager_decode_phase(dev, cases) -> dict:
+    """Phase 14's kernel G part: the whole decode against its plain
+    version on all three outputs at 768 codes of n = 10^4 (regular and
+    irregular, without and with a plane of errors counted against: random
+    bits), then on small adversarial batches (thresholds from "always
+    flips" to "never flips", random change_ahead flags, budgets of 0, 1
+    and 50 rounds, 1 and 3 words a code, degrees up to 6); its times and
+    bound.  Returns kernel G's row of the JSON line."""
+    import numpy as np
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models import ensemble, irregular
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops, gallager
+
+    def both(args, kw):
+        got = gallager.gallager_decode(*args, **kw)
+        want = gallager._gallager_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        return got, max(max_abs_err(a, b) for a, b in zip(got, want))
+
+    row, err_g, timed = {}, 0, {}
+    for label in ("regular_768", "irregular_768"):
+        c, rx = cases[label]
+        graph = gallager._graph(c)
+        t = graph.var_to_sock.shape[-1] if graph.irregular else DV - 1
+        per_round = (torch.full((ITERS,), t, dtype=torch.int32, device=dev),
+                     torch.zeros(ITERS, dtype=torch.int32, device=dev))
+        noise = bitops.bernoulli_packed(0.5, tuple(rx.shape), seed=8,
+                                        device=dev)
+        for tx in (None, noise):
+            args = (rx if tx is None else rx ^ tx, graph.chk_to_var,
+                    graph.var_to_sock, *per_round)
+            kw = dict(dc=graph.dc, pad_pos=graph.pad_pos,
+                      clamp=graph.irregular, tx=tx)
+            got, err = both(args, kw)
+            check(err == 0, f"kernel G ({label}, tx={tx is not None}) "
+                            f"differs from its plain version (max |d| {err})")
+            err_g = max(err_g, err)
+            rounds = got[2]
+            print(f"kernel G {label} tx={tx is not None}: equal to plain on "
+                  f"decided, round_errors and rounds; rounds max "
+                  f"{int(rounds.max())}, mean {float(rounds.float().mean()):.2f}"
+                  f", errors {int(got[1][:, 0].sum())} -> "
+                  f"{int(got[1][:, -1].sum())}", flush=True)
+            timed[label, tx is not None] = (args, kw, graph, rounds)
+    # small adversarial batches
+    lam_wide, rho_wide = [0, 0.3, 0.3, 0, 0, 0.4], [0, 0, 0, 0, 0, 0.5, 0.5]
+    rng = np.random.default_rng(5)
+    small = 0
+    for family in ("regular", "dv5", "irregular", "wide"):
+        for wpc, num in ((1, 40), (3, 7)):
+            if family in ("regular", "dv5"):
+                dv, dc = (DV, DC) if family == "regular" else (5, 10)
+                codes = ensemble.sample_codes(5, 0, num, 600, dv, dc,
+                                              "repair", device=dev)
+            else:
+                spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+                    600, *((LAM_GAL, RHO6) if family == "irregular"
+                           else (lam_wide, rho_wide)), device=dev)
+                codes = irregular.sample_irregular_codes(5, 0, num, spec,
+                                                         device=dev)
+            graph = gallager._graph(codes)
+            dv = graph.var_to_sock.shape[-1]
+            flips = torch.cat([bitops.bernoulli_packed(
+                float(p), (600, wpc), seed=5, offset=g, device=dev)
+                for g, p in enumerate(np.linspace(0.0, 0.12, num))], dim=1)
+            noise = bitops.bernoulli_packed(0.5, tuple(flips.shape), seed=6,
+                                            device=dev)
+            for iters in (0, 1, ITERS):
+                per_round = [torch.from_numpy(x.astype(np.int32)).to(dev)
+                             for x in (rng.integers(-1, dv + 2, size=iters),
+                                       rng.random(iters) < 0.3)]
+                for tx in (None, noise):
+                    got, err = both(
+                        (flips if tx is None else flips ^ tx,
+                         graph.chk_to_var, graph.var_to_sock, *per_round),
+                        dict(dc=graph.dc, pad_pos=graph.pad_pos,
+                             clamp=graph.irregular, tx=tx))
+                    check(err == 0, f"kernel G ({family}, wpc {wpc}, "
+                                    f"{iters} rounds, tx={tx is not None})"
+                                    f" differs from its plain version")
+                    check(int(got[2][0]) == 0, "kernel G ran rounds on a "
+                                               "code without errors")
+                    small += 1
+    print(f"kernel G equal to plain on {small} small adversarial batches "
+          "(n = 600; (3,6), (5,10), dv 3/4 and dv 2/3/6 irregular; 1 and 3 "
+          "words a code; budgets 0, 1, 50; random thresholds and "
+          "change_ahead; with and without tx)", flush=True)
+    # times at 768 codes, and the bound of this run's rounds
+    for (label, with_tx), (args, kw, graph, rounds) in timed.items():
+        key = label + ("_tx" if with_tx else "")
+        row[f"{key}_ms"] = time_ms(lambda: gallager.gallager_decode(*args,
+                                                                    **kw))
+        if not with_tx:
+            row[f"{key}_plain_ms"] = time_ms(
+                lambda: gallager._gallager_decode_plain(*args, **kw),
+                reps=1, warmup=False)
+            wpc = args[0].shape[1] // graph.num_codes
+            outputs = gallager.gallager_decode(*args, **kw)
+            row[f"{key}_rounds"] = {
+                "max": int(rounds.max()), "sum": int(rounds.sum()),
+                "mean": float(rounds.float().mean())}
+            row[f"{key}_ms_per_round"] = row[f"{key}_ms"] / int(rounds.max())
+            row[f"{key}_bound"] = bound(
+                nbytes(*args, *outputs),
+                decode_smem_accesses(graph, rounds, wpc), SMEM_ACCESS_S)
+    row.update(max_abs_err=err_g, ms=row["regular_768_ms"],
+               plain_ms=row["regular_768_plain_ms"], library_ms=None,
+               **row["regular_768_bound"])
+    print(f"kernel G at 768 codes, n = {N_FULL}: regular "
+          f"{row['regular_768_ms']:.4f} ms ({row['regular_768_ms_per_round']:.4f}"
+          f" a round of the longest code; bound {row['bound_ms']:.4f} ms, "
+          f"{row['bound_by']}; plain {row['plain_ms']:.1f} ms), irregular "
+          f"{row['irregular_768_ms']:.4f} ms, with tx "
+          f"{row['regular_768_tx_ms']:.4f} / {row['irregular_768_tx_ms']:.4f}"
+          " ms", flush=True)
+    return row
 
 
 def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
@@ -531,6 +694,7 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
               f"iterations {res_k.iterations}, errors "
               f"{int(res_k.error_totals[0])} -> "
               f"{int(res_k.error_totals[-1])}", flush=True)
+    measured["gallager_decode"].update(gallager_decode_phase(dev, cases))
 
     # -- 15 -------------------------------------------------------------------
     phase("15 run_simulation of the new paths on cuda against cpu")
@@ -551,7 +715,11 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
             "codes_per_chunk": 64, "max_block_errors": 10**9, **fields})
         fixed = ensemble.code_for_config(cfg) \
             if cfg.code_mode == "fixed" else None
+        gal = ("gallager_decode", "gallager_variable")
+        for k in gal:
+            kernels[k]["wrapper"].launches = 0
         r_gpu = mc.run_simulation(cfg, fixed, device="cuda")
+        used = {k: kernels[k]["wrapper"].launches for k in gal}
         r_cpu = mc.run_simulation(cfg, fixed, device="cpu")
         for field in ("num_trials", "block_errors", "bit_errors",
                       "excluded_trials", "bit_errors_sq",
@@ -560,10 +728,18 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
             check(getattr(r_gpu, field) == getattr(r_cpu, field),
                   f"cuda and cpu differ in {field} ({fields}): "
                   f"{getattr(r_gpu, field)} vs {getattr(r_cpu, field)}")
+        if cfg.decoder == "gallager":
+            # kernel G: the ensemble chunks of one word a code without
+            # expurgation; the round kernels: expurgated and fixed chunks
+            whole = cfg.code_mode == "ensemble" and cfg.expurgation is None
+            check((used["gallager_decode"] > 0) == whole
+                  and (used["gallager_variable"] > 0) != whole,
+                  f"Gallager route on {fields}: {used}")
         print(f"{cfg.channel} {cfg.decoder} "
               f"{'irregular' if cfg.irregular else '(3,6)'} {cfg.code_mode} "
               f"expurgation={cfg.expurgation}: identical, block_errors "
-              f"{r_gpu.block_errors}, bit_errors {r_gpu.bit_errors}",
+              f"{r_gpu.block_errors}, bit_errors {r_gpu.bit_errors}"
+              + (f"; launches {used}" if cfg.decoder == "gallager" else ""),
               flush=True)
 
     # -- 16 -------------------------------------------------------------------
@@ -576,16 +752,20 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                            "variable_or_update", "per_trial_counts")),
         "gallager_36": (dict(channel="BSC", decoder="gallager",
                              channel_param=P_GAL),
-                        ("bernoulli_packed", "per_trial_counts",
-                         "gallager_check", "gallager_variable")),
+                        ("bernoulli_packed", "per_trial_counts")),
         "gallager_irregular": (dict(channel="BSC", decoder="gallager",
                                     channel_param=P_GAL_IRR, lam=LAM_GAL,
                                     rho=RHO6),
-                               ("bernoulli_packed", "per_trial_counts",
-                                "gallager_check", "gallager_variable"))}
+                               ("bernoulli_packed", "per_trial_counts"))}
     sampler_of = {"bec_irregular": "sample_irregular_codes",
                   "gallager_36": "sample_regular_codes",
                   "gallager_irregular": "sample_irregular_codes"}
+    # the Gallager decode by shape (ops/gallager.py::takes_decode_kernel):
+    # kernel G on the ensemble chunks (one word a code), the round kernels
+    # on the fixed code at 768 words; the other route is not launched
+    rounds_pair = ("gallager_check", "gallager_variable")
+    route = {"ensemble": (("gallager_decode",), rounds_pair),
+             "fixed": (rounds_pair, ("gallager_decode",))}
     by_path = {name: {} for name in kernels}
     results = {}
     with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
@@ -594,6 +774,10 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                 name = f"{path}_{mode}"
                 needed = uses + ((sampler_of[path],) if mode == "ensemble"
                                  else ())
+                idle = ()
+                if path.startswith("gallager"):
+                    needed += route[mode][0]
+                    idle = route[mode][1]
                 for k in kernels.values():
                     k["wrapper"].launches = 0
                 t0 = time.perf_counter()
@@ -610,6 +794,10 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                     check(launches[k] > 0,
                           f"kernel {k} was not launched on the {name} path")
                     by_path[k][name] = launches[k]
+                for k in idle:
+                    check(launches[k] == 0, f"kernel {k} was launched "
+                                            f"{launches[k]} times on {name}")
+                    by_path[k][name] = 0
                 rates = res.error_rate_per_iteration
                 check(res.num_trials == 2 * 32 * WORDS_FULL,
                       f"{name} ran {res.num_trials} trials")
@@ -642,6 +830,8 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                 check(ber < 0.1 * p, f"{name}_{mode}: BER {ber} at p = {p}")
         # and the waterfalls sit where density evolution puts them (n=1024)
         brackets = {}
+        for k in kernels.values():
+            k["wrapper"].launches = 0
         for name, fields, lo, hi, lo_max, hi_min in (
                 ("bec_irregular", dict(lam=LAM_BEC, rho=RHO6),
                  EPS_STAR_IRR - 0.12, EPS_STAR_IRR + 0.12, 2e-3, 0.15),
@@ -661,11 +851,20 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                   f"{name}: BER {bers} at {lo:.4f} / {hi:.4f} does not "
                   "bracket the threshold")
             brackets[name] = {"at": [lo, hi], "ber": bers}
+        # the brackets' 256 codes of n = 1024 at one word a code
+        gal = {k: kernels[k]["wrapper"].launches
+               for k in ("gallager_decode",) + rounds_pair}
+        check(gal["gallager_decode"] > 0 and gal["gallager_variable"] == 0
+              and gal["gallager_check"] == 0,
+              f"the n=1024 Gallager brackets launched {gal}")
+        brackets["gallager_launches"] = gal
         print(json.dumps({"threshold_brackets_n1024": brackets}), flush=True)
     for k in ("sample_irregular_codes",):
         measured[k]["launches"] = by_path[k]["bec_irregular_ensemble"]
-    for k in ("gallager_check", "gallager_variable"):
-        measured[k]["launches"] = by_path[k]["gallager_36_ensemble"]
+    measured["gallager_decode"]["launches"] = \
+        by_path["gallager_decode"]["gallager_36_ensemble"]
+    for k in rounds_pair:                # the fixed code's path since kernel G
+        measured[k]["launches"] = by_path[k]["gallager_36_fixed"]
     for k in kernels:
         measured[k]["launches_by_path"] = by_path[k]
 
@@ -686,9 +885,15 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                 ("plain", lambda: irregular_plain(c, erased, ITERS))):
             decode_ms.setdefault(f"{label}_{name}", []).append(
                 time_ms(fn, reps=1 if name == "plain" else 3))
+    # record="total" decodes: at 768 codes three ways -- the engine's route
+    # (kernel G), the round kernels with the host loop, and plain
     for label, (c, rx, kern, plain) in decodes.items():
-        for name, fn in (("plain", plain), ("kernel", kern),
-                         ("kernel", kern), ("plain", plain)):
+        turns = (("plain", plain), ("kernel", kern), ("kernel", kern),
+                 ("plain", plain))
+        if label.endswith("_768"):
+            turns = turns[:2] + (("rounds", round_kernel_decode),) * 2 + \
+                turns[2:]
+        for name, fn in turns:
             decode_ms.setdefault(f"gallager_{label}_{name}", []).append(
                 time_ms(lambda: fn(c, rx, ITERS),
                         reps=1 if name == "plain" else 3))
@@ -771,11 +976,12 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
             "chunk_trials_per_s": trials_per_s},
         "n": N_FULL, "words": WORDS_FULL, "codes_per_chunk": CODES_FULL,
         "eps": EPS_FULL, "p": [P_GAL, P_GAL_IRR], "card": smi}), flush=True)
-    gal_chunk_ms = sum(chunk_s["gallager_36_ensemble"]) / \
-        len(chunk_s["gallager_36_ensemble"]) * 1e3
-    print(device_time_breakdown(lambda: int(
-        chunk_fns["gallager_36_ensemble"](5).block_errors), gal_chunk_ms,
-        kernels), flush=True)
+    for name in ("gallager_36_ensemble", "gallager_irregular_ensemble"):
+        chunk_ms = sum(chunk_s[name]) / len(chunk_s[name]) * 1e3
+        print(f"{name} chunk ({chunk_ms:.3f} ms) by device time: "
+              + device_time_breakdown(lambda: int(
+                  chunk_fns[name](5).block_errors), chunk_ms, kernels),
+              flush=True)
 
 
 def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
@@ -1602,13 +1808,24 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
                                       channel_param=SIGMA_RT_ENS,
                                       codes_per_chunk=CODES_RT_ENS),
                                  soft_uses + ("awgn_llr",
-                                              "sample_regular_codes"))}
+                                              "sample_regular_codes")),
+        # kernel G with codewords: 4 words (128 trials) a code, whose
+        # messages fit one block (114,704 bytes at n = 2048)
+        "gallager_36_ensemble": (dict(code_mode="ensemble", n=N_RT_ENS,
+                                      channel="BSC", decoder="gallager",
+                                      channel_param=P_GAL,
+                                      codes_per_chunk=CODES_RT_ENS,
+                                      batch=CODES_RT_ENS * 32 * 4),
+                                 rt_uses + ("gallager_decode",
+                                            "per_trial_counts",
+                                            "sample_regular_codes"))}
     by_path = {name: {} for name in kernels}
     anchors = {}
     with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
         for name, (fields, needed) in paths.items():
-            common = dict(iterations=ITERS, batch=32 * WORDS_FULL,
-                          num_tests=2 * 32 * WORDS_FULL, seed=1, **fields)
+            common = {"iterations": ITERS, "batch": 32 * WORDS_FULL,
+                      "seed": 1, **fields}
+            common["num_tests"] = 2 * common["batch"]
             for k in kernels.values():
                 k["wrapper"].launches = 0
             t0 = time.perf_counter()
@@ -1621,9 +1838,12 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
                       f"kernel {k} was not launched on the random {name} "
                       "path")
                 by_path[k][f"random_{name}"] = launches[k]
+            if "gallager_decode" in needed:
+                check(launches["gallager_variable"] == 0,
+                      f"the round kernels ran on the random {name} path")
             zero = cli_run(tmp, f"{name}_zero", transmit="zero", **common)
             rates = res.error_rate_per_iteration
-            check(res.num_trials == 2 * 32 * WORDS_FULL
+            check(res.num_trials == common["num_tests"]
                   and len(rates) == ITERS + 1
                   and all(map(math.isfinite, rates))
                   and res.config.transmit == "random",
@@ -1784,6 +2004,11 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
         cfgs[f"bec_36_ensemble_{transmit}"] = config(
             n=N_RT_ENS, channel_param=EPS_RT_ENS, code_mode="ensemble",
             codes_per_chunk=CODES_RT_ENS, transmit=transmit)
+        cfgs[f"gallager_36_ensemble_{transmit}"] = config(
+            n=N_RT_ENS, channel="BSC", decoder="gallager",
+            channel_param=P_GAL, code_mode="ensemble",
+            codes_per_chunk=CODES_RT_ENS, batch=CODES_RT_ENS * 32 * 4,
+            transmit=transmit)
     chunk_fns, setup_s = {}, {}
     for k, cfg in cfgs.items():
         fixed = ensemble.code_for_config(cfg) \
@@ -1791,7 +2016,8 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
         chunk_fns[k], setup_s[k] = seconds(
             lambda: mc.make_chunk_fn(cfg, fixed, device=dev))
     chunk_s = {}
-    for pair in ("bec_36_fixed", "awgn_sp_f32_fixed", "bec_36_ensemble"):
+    for pair in ("bec_36_fixed", "awgn_sp_f32_fixed", "bec_36_ensemble",
+                 "gallager_36_ensemble"):
         for name in (f"{pair}_zero", f"{pair}_random", f"{pair}_random",
                      f"{pair}_zero"):
             chunk_fns[name](9)                   # warm-up
@@ -1801,7 +2027,7 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
                 int(chunk_fns[name](idx).block_errors)
             torch.cuda.synchronize()
             chunk_s.setdefault(name, []).append((time.perf_counter() - t0) / 2)
-    trials_per_s = {k: 32 * WORDS_FULL / (sum(v) / len(v))
+    trials_per_s = {k: cfgs[k].batch / (sum(v) / len(v))
                     for k, v in chunk_s.items()}
     # an ensemble chunk's encoders: the batched elimination of its codes
     ens_encoder_s = []
@@ -3365,6 +3591,11 @@ def main() -> int:
             source="iib_project_ldpc_codes_tpu_torch/csrc/"
                    "gallager_variable.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/gallager.py:238"),
+        "gallager_decode": dict(
+            wrapper=gallager.gallager_decode,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/"
+                   "gallager_decode.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/gallager.py:238"),
         "awgn_llr": dict(
             wrapper=channels.awgn_llr,
             source="iib_project_ldpc_codes_tpu_torch/csrc/awgn_llr.cu",
@@ -3946,6 +4177,7 @@ def main() -> int:
          **({"batched": True} if name in ("check_exactly_one",
                                           "variable_or_update",
                                           "gallager_variable",
+                                          "gallager_decode",
                                           "soft_posterior", "soft_check")
             else {})}
         for name, spec in kernels.items()]}))

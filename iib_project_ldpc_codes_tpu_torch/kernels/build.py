@@ -53,6 +53,8 @@ SIGNATURES = {
     "ldpc_gallager_check": (_P, _P, _I, _I, _I, _P),
     "ldpc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P),
+    "ldpc_gallager_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P, _P),
     "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _P),

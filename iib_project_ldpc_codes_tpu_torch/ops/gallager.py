@@ -23,13 +23,24 @@ max(d-1, 1)), and decide with d // 2 + 1; regular codes use the raw
 threshold (``threshold > dv-1`` never flips, ``<= 0`` always does).
 
 The loop is a host loop with the JAX ``while_loop`` semantics
-(``_gallager_loop``): stop after ``max_iters`` rounds, or when the decision
+(``_round_loop``): stop after ``max_iters`` rounds, or when the decision
 has no error, or when no message changed -- per code of a batch, as the
 JAX engine's vmapped decode stops each code on its own round (a stopped
 code's messages and decision stay frozen while the others run on).
 ``error_totals[0]`` is the raw channel error count, its tail after a code
 stops holds that code's final count, and the totals are summed over codes.
 The host reads one flag a round.
+
+Kernel G, :func:`gallager_decode` (``csrc/gallager_decode.cu``), runs the
+same loop whole on the card, one block per code with the code's messages
+and parities in shared memory, and the host reads once a decode.  One
+rule, :func:`takes_decode_kernel`, picks it by shape: the generic graph
+(not the quasi-cyclic one), ``record="total"``, ``dv <= MAX_DEGREE`` and
+a code's messages and parities within one block's shared memory -- the
+ensemble chunks at one word (32 trials) per code.  Every other shape (a
+fixed code at hundreds of words, the expurgated chunks' per-trial
+records, QC codes) runs the round kernels above; both routes are
+hand-written kernels, and neither gives way to the other.
 
 Random-codeword transmit (``tx_bits`` int32[n, W], the packed transmitted
 codewords; ``received`` is then tx ^ flips): errors are counted against
@@ -54,6 +65,9 @@ from .erasure_bp import (_check_packed_batch_bits, _code_major_to_plane,
 
 #: largest variable degree the variable kernel takes (registers per thread)
 MAX_DEGREE = 32
+#: dynamic shared memory one block may opt into on the kernels' only
+#: target, sm_90 (Hopper: 227 KB of the SM's 256 KB)
+SMEM_OPTIN_BYTES = 232_448
 
 
 def _bitsliced_count_ge(bits: List[torch.Tensor], threshold: int
@@ -371,17 +385,85 @@ def _graph(code) -> _Graph:
                   irregular=False)
 
 
+def _round_loop(graph, received: torch.Tensor, max_iters: int,
+                threshold_of: Callable[[int], int],
+                change_ahead: Callable[[int], bool], per_trial: bool,
+                passes, tx: Optional[torch.Tensor]):
+    """The host loop over the two passes, per code of a batch (module
+    docstring).  Returns the decision (not yet XORed with ``tx``), the
+    per-code counts int32[C, max_iters+1] (row 0 the channel's errors, the
+    tail after a code's stop its final count), the rounds each code ran
+    int32[C], and with ``per_trial`` the per-trial counts of each round."""
+    counts_of = passes[2]
+    num = graph.num_codes
+    device = received.device
+    msg = graph.initial_messages(passes, received)
+    decided = received.clone()
+    channel_err = received if tx is None else received ^ tx
+    if per_trial:
+        traj = [counts_of(channel_err)]
+        current = traj[0].reshape(num, -1).sum(1, dtype=torch.int64)
+    else:
+        traj = None
+        current = popcount(channel_err).sum(0, dtype=torch.int64) \
+            .reshape(num, -1).sum(1)
+    round_errors = torch.zeros((num, max_iters + 1), dtype=torch.int64,
+                               device=device)
+    round_errors[:, 0] = current
+    rounds = torch.zeros(num, dtype=torch.int32, device=device)
+    active = (current > 0).to(torch.int32)
+    counts = torch.zeros((num, 2), dtype=torch.int32, device=device)
+    it = 0
+    while it < max_iters and bool(active.any()):
+        counts.zero_()
+        graph.run_round(passes, msg, received, active, decided, counts,
+                        threshold_of(it), tx)
+        ran = active.bool()
+        rounds += active
+        current = torch.where(ran, counts[:, 0].long(), current)
+        round_errors[:, it + 1] = current
+        if per_trial:
+            traj.append(counts_of(decided if tx is None else decided ^ tx))
+        moving = (counts[:, 1] > 0) | change_ahead(it)
+        active = (ran & (counts[:, 0] > 0) & moving).to(torch.int32)
+        it += 1
+    round_errors[:, it + 1:] = current[:, None]
+    return decided, round_errors.to(torch.int32), rounds, traj
+
+
+def _decode_smem_bytes(rows: int, dc: int, wpc: int) -> int:
+    """Kernel G's shared memory for one code: its message rows (``rows *
+    dc``) and parities (``rows``) of ``wpc`` words, and two counter
+    pairs."""
+    return (rows * dc + rows) * 4 * wpc + 16
+
+
+def takes_decode_kernel(graph, record: str, words: int) -> bool:
+    """The rule that picks kernel G (:func:`gallager_decode`) for a decode
+    of ``words`` words on ``graph``, by shape alone: the generic
+    :class:`_Graph` (the quasi-cyclic decoder keeps its own round
+    kernels), ``record="total"`` (the expurgated chunks' per-trial counts
+    stay with the round kernels), ``dv <= MAX_DEGREE`` and one code's
+    messages and parities within one block's shared memory."""
+    return (type(graph) is _Graph and record == "total"
+            and graph.var_to_sock.shape[-1] <= MAX_DEGREE
+            and _decode_smem_bytes(graph.chk_to_var.shape[-2], graph.dc,
+                                   words // graph.num_codes)
+            <= SMEM_OPTIN_BYTES)
+
+
 def _gallager_loop(graph, received: torch.Tensor, max_iters: int,
                    threshold_of: Callable[[int], int],
                    change_ahead: Callable[[int], bool], record: str,
                    passes, tx: Optional[torch.Tensor]) -> GallagerResult:
-    """Host loop shared by the decoders: the JAX ``_gallager_loop``
-    semantics, per code of a batch (module docstring).  ``graph`` is a
+    """The decoders' shared entry: the JAX ``_gallager_loop`` semantics,
+    per code of a batch (module docstring).  ``graph`` is a
     :class:`_Graph`, or the quasi-cyclic decoder's counterpart with the
     same ``n``, ``num_codes``, ``check_words``, ``initial_messages`` and
     ``run_round`` (``ops/qc_gallager.py``); ``passes`` are its (check,
-    variable, per-trial counts) functions, kernels or plain."""
-    counts_of = passes[2]
+    variable, per-trial counts) functions, kernels or plain.  With the
+    kernels, the shapes :func:`takes_decode_kernel` accepts run kernel G;
+    the rest, and the plain passes, run :func:`_round_loop`."""
     if record not in ("total", "per_trial"):
         raise ValueError(f"unknown record mode {record!r}")
     check_int32("received", received, 2)
@@ -392,51 +474,131 @@ def _gallager_loop(graph, received: torch.Tensor, max_iters: int,
             received.shape:
         raise ValueError(f"tx_bits {tuple(tx.shape)} differs from received "
                          f"{tuple(received.shape)}")
-
-    def as_err(decision: torch.Tensor) -> torch.Tensor:
-        return decision if tx is None else decision ^ tx
-
     _check_packed_batch_bits(n, words)
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
     graph.check_words(words)
-    num = graph.num_codes
-    device = received.device
-    msg = graph.initial_messages(passes, received)
-    decided = received.clone()
-    if record == "per_trial":
-        traj = [counts_of(as_err(received))]
-        current = traj[0].reshape(num, -1).sum(1, dtype=torch.int64)
+    if passes is _KERNEL_PASSES and takes_decode_kernel(graph, record,
+                                                        words):
+        per_round = [torch.tensor([f(it) for it in range(max_iters)],
+                                  dtype=torch.int32, device=received.device)
+                     for f in (threshold_of, change_ahead)]
+        decided, round_errors, rounds = gallager_decode(
+            received, graph.chk_to_var, graph.var_to_sock, *per_round,
+            dc=graph.dc, pad_pos=graph.pad_pos, clamp=graph.irregular, tx=tx)
+        traj = None
     else:
-        current = popcount(as_err(received)).sum(0, dtype=torch.int64) \
-            .reshape(num, -1).sum(1)
-    errors = torch.zeros(max_iters + 1, dtype=torch.int64, device=device)
-    errors[0] = current.sum()
-    active = (current > 0).to(torch.int32)
-    counts = torch.zeros((num, 2), dtype=torch.int32, device=device)
-    it = 0
-    while it < max_iters and bool(active.any()):
-        counts.zero_()
-        graph.run_round(passes, msg, received, active, decided, counts,
-                        threshold_of(it), tx)
-        ran = active.bool()
-        current = torch.where(ran, counts[:, 0].long(), current)
-        errors[it + 1] = current.sum()
-        if record == "per_trial":
-            traj.append(counts_of(as_err(decided)))
-        moving = (counts[:, 1] > 0) | change_ahead(it)
-        active = (ran & (counts[:, 0] > 0) & moving).to(torch.int32)
-        it += 1
-    errors[it + 1:] = current.sum()
+        decided, round_errors, rounds, traj = _round_loop(
+            graph, received, max_iters, threshold_of, change_ahead,
+            record == "per_trial", passes, tx)
+    decided = decided if tx is None else decided ^ tx
+    iterations = int(rounds.max())          # kernel G's one host read
     if record == "total":
-        return GallagerResult(decided=as_err(decided),
-                              error_totals=errors.to(torch.int32),
-                              iterations=it)
-    traj = torch.stack(traj + [traj[-1]] * (max_iters - it))
-    return GallagerResult(decided=as_err(decided),
+        return GallagerResult(decided=decided,
+                              error_totals=round_errors.sum(
+                                  0, dtype=torch.int32),
+                              iterations=iterations)
+    traj = torch.stack(traj + [traj[-1]] * (max_iters - iterations))
+    return GallagerResult(decided=decided,
                           error_totals=traj.sum(1, dtype=torch.int64)
                           .to(torch.int32),
-                          iterations=it, traj=traj)
+                          iterations=iterations, traj=traj)
+
+
+# ---------------------------------------------------------------------------
+# Kernel G: the whole decode, one block per code
+# ---------------------------------------------------------------------------
+
+def _gallager_decode_plain(received, chk_to_var, var_to_sock, thresholds,
+                           change_ahead, *, dc: int, pad_pos: int,
+                           clamp: bool, tx=None):
+    """Plain version of kernel G, on any device: :func:`_round_loop` over
+    the plain passes, with the per-round thresholds and ``change_ahead``
+    flags of the arrays."""
+    graph = _Graph(chk_to_var=chk_to_var, var_to_sock=var_to_sock,
+                   n=received.shape[0], dc=dc, pad_pos=pad_pos,
+                   irregular=clamp)
+    ts, ahead = thresholds.tolist(), change_ahead.tolist()
+    decided, round_errors, rounds, _ = _round_loop(
+        graph, received, len(ts), ts.__getitem__,
+        lambda it: bool(ahead[it]), False, _PLAIN_PASSES, tx)
+    return decided, round_errors, rounds
+
+
+def _plane_to_code_major(x: torch.Tensor, num: int) -> torch.Tensor:
+    """[n, C * wpc] -> [C * n, wpc]: each code's words contiguous (the
+    inverse of :func:`..erasure_bp._code_major_to_plane`)."""
+    if num == 1:
+        return x
+    n, words = x.shape
+    return x.reshape(n, num, words // num).transpose(0, 1).contiguous() \
+        .reshape(num * n, -1)
+
+
+def gallager_decode(received: torch.Tensor, chk_to_var: torch.Tensor,
+                    var_to_sock: torch.Tensor, thresholds: torch.Tensor,
+                    change_ahead: torch.Tensor, *, dc: int, pad_pos: int,
+                    clamp: bool, tx: Optional[torch.Tensor] = None):
+    """Kernel G: the whole Gallager decode of each code of a batch, one
+    block per code.  ``received`` int32[n, W] (code g's words ``g * wpc``
+    onward), the code tables ``chk_to_var`` int32[(C,) rows, dc] (an
+    irregular code's phantom variable is n, its padded sockets read 0) and
+    ``var_to_sock`` int32[(C,) >= n, dv] (socket positions >= ``pad_pos``
+    are padding); round ``it`` flips at ``thresholds[it]`` (clamped per
+    degree with ``clamp``) and goes on after a round without a changed
+    message while ``change_ahead[it]`` (both int32[max_iters]).  Errors
+    are the decision's set bits, or its bits that differ from ``tx``.
+
+    Returns ``(decided, round_errors, rounds)``: the decision int32[n, W]
+    of each code's last round (its channel when it ran none), the errors
+    int32[C, max_iters+1] after each round (row 0 the channel's; after a
+    code's stop its final count) and the rounds int32[C] each code ran.
+    Raises when a code's messages do not fit one block's shared memory."""
+    for name, t in (("received", received), ("thresholds", thresholds),
+                    ("change_ahead", change_ahead)):
+        check_int32(name, t, 1 if name != "received" else 2)
+    if tx is not None and check_int32("tx", tx, 2).shape != received.shape:
+        raise ValueError("tx and received differ in shape")
+    n, words = received.shape
+    wpc = _words_per_code("chk_to_var", chk_to_var, words)
+    _words_per_code("var_to_sock", var_to_sock, words)
+    num = words // wpc
+    max_iters = thresholds.shape[0]
+    rows, dv = chk_to_var.shape[-2], var_to_sock.shape[-1]
+    if change_ahead.shape[0] != max_iters:
+        raise ValueError("thresholds and change_ahead differ in length")
+    if chk_to_var.shape[-1] != dc or var_to_sock.shape[-2] < n:
+        raise ValueError("chk_to_var, var_to_sock and received do not fit "
+                         "together")
+    if not use_kernel(received, chk_to_var, var_to_sock, thresholds,
+                      change_ahead, *(() if tx is None else (tx,))):
+        return _gallager_decode_plain(received, chk_to_var, var_to_sock,
+                                      thresholds, change_ahead, dc=dc,
+                                      pad_pos=pad_pos, clamp=clamp, tx=tx)
+    if dv > MAX_DEGREE:
+        raise ValueError(f"variable degree {dv} above the kernel's "
+                         f"{MAX_DEGREE}")
+    need = _decode_smem_bytes(rows, dc, wpc)
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"a code needs {need} bytes of shared memory, above "
+                         f"one block's {SMEM_OPTIN_BYTES}")
+    channel = _plane_to_code_major(received, num)
+    tx_cm = None if tx is None else _plane_to_code_major(tx, num)
+    decided = torch.empty_like(channel)
+    round_errors = torch.empty((num, max_iters + 1), dtype=torch.int32,
+                               device=received.device)
+    rounds = torch.empty(num, dtype=torch.int32, device=received.device)
+    launch("ldpc_gallager_decode", received.device, channel.data_ptr(),
+           None if tx_cm is None else tx_cm.data_ptr(), chk_to_var.data_ptr(),
+           var_to_sock.data_ptr(), thresholds.data_ptr(),
+           change_ahead.data_ptr(), decided.data_ptr(),
+           round_errors.data_ptr(), rounds.data_ptr(), num, n, rows, dc,
+           var_to_sock.shape[-2], dv, pad_pos, wpc, max_iters, int(clamp))
+    gallager_decode.launches += 1
+    return _code_major_to_plane(decided, num), round_errors, rounds
+
+
+gallager_decode.launches = 0
 
 
 _KERNEL_PASSES = (gallager_check, gallager_variable, per_trial_counts)

@@ -356,6 +356,103 @@ def test_gallager_decodes_on_gpu_equal_cpu(cuda, record, wpc, num):
             assert torch.equal(gpu.traj.cpu(), cpu.traj)
 
 
+# kernel G's families: (3,6), (5,10) (the 32-socket instantiation), the
+# dv 3/4 pair and a dv 2/3/6 irregular pair (the clamp at 32 sockets)
+WIDE = ([0, 0.3, 0.3, 0, 0, 0.4], [0, 0, 0, 0, 0, 0.5, 0.5])
+
+
+def _decode_case(family, wpc, num, seed=0, n=600):
+    """Tables and planes of one kernel G comparison: per-code crossover
+    probabilities from 0 (no round) to 0.12 (no stop)."""
+    rng = np.random.default_rng(seed)
+    if family in ("regular", "dv5"):
+        dv, dc = (3, 6) if family == "regular" else (5, 10)
+        codes = ensemble.sample_codes(seed, 0, num, n, dv, dc, "repair")
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+            n, *(MIXED if family == "irregular" else WIDE))
+        codes = irregular.sample_irregular_codes(seed, 0, num, spec)
+    graph = gallager._graph(codes if num > 1 else codes.select(0))
+    ps = np.linspace(0.0, 0.12, num) if num > 1 else [0.04]
+    flips = torch.cat([bitops.bernoulli_packed(
+        float(p), (n, wpc), seed=seed, offset=g) for g, p in enumerate(ps)],
+        dim=1)
+    tx = bitops.bernoulli_packed(0.5, (n, wpc * num), seed=seed + 1)
+    return graph, flips, tx, rng
+
+
+@pytest.mark.parametrize("family", ["regular", "dv5", "irregular", "wide"])
+@pytest.mark.parametrize("wpc, num", [(1, 40), (3, 7), (9, 1)])
+@pytest.mark.parametrize("max_iters", [0, 1, 50])
+@pytest.mark.parametrize("with_tx", [False, True])
+def test_decode_kernel_equals_plain(cuda, family, wpc, num, max_iters,
+                                    with_tx):
+    graph, flips, tx, rng = _decode_case(family, wpc, num)
+    dv = graph.var_to_sock.shape[-1]
+    # thresholds from "always flips" (<= 0) to "never flips" (> dv) and
+    # change_ahead flags at random: every branch of the stop rule
+    thresholds = torch.from_numpy(rng.integers(
+        -1, dv + 2, size=max_iters).astype(np.int32))
+    ahead = torch.from_numpy((rng.random(max_iters) < 0.3).astype(np.int32))
+    received = flips ^ tx if with_tx else flips
+    out = []
+    for device in (cuda, "cpu"):
+        before = gallager.gallager_decode.launches
+        got = gallager.gallager_decode(
+            received.to(device), graph.chk_to_var.to(device),
+            graph.var_to_sock.to(device), thresholds.to(device),
+            ahead.to(device), dc=graph.dc, pad_pos=graph.pad_pos,
+            clamp=graph.irregular, tx=tx.to(device) if with_tx else None)
+        assert gallager.gallager_decode.launches - before == \
+            (1 if device == cuda else 0)
+        out.append([t.cpu() for t in got])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    rounds = out[1][2]
+    assert int(rounds.max()) <= max_iters
+    if max_iters == 0 or num == 1:
+        return
+    assert rounds[0] == 0                       # no channel errors
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("record", ["total", "per_trial"])
+def test_decode_kernel_launches_by_rule(cuda, family, record):
+    # the ensemble shape at one word a code takes kernel G alone; the
+    # per-trial record keeps the round kernels
+    _, flips, _, _ = _decode_case(family, 1, 24)
+    code = ensemble.sample_codes(0, 0, 24, 600, 3, 6, "repair") \
+        if family == "regular" else irregular.sample_irregular_codes(
+            0, 0, 24, irregular.IrregularEnsembleSpec.from_lam_rho(600,
+                                                                   *MIXED))
+    decode = gallager.gallager_decode_packed if family == "regular" else \
+        gallager.gallager_decode_packed_irregular
+    wrappers = (gallager.gallager_decode, gallager.gallager_check,
+                gallager.gallager_variable)
+    before = [w.launches for w in wrappers]
+    gpu = decode(code.to(cuda), flips.to(cuda), 50, record=record)
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    if record == "total":
+        assert launched == [1, 0, 0]
+    else:
+        assert launched[0] == 0 and launched[1] == launched[2] > 0
+    cpu = decode(code, flips, 50, record=record)
+    assert torch.equal(gpu.decided.cpu(), cpu.decided)
+    assert torch.equal(gpu.error_totals.cpu(), cpu.error_totals)
+    assert gpu.iterations == cpu.iterations
+
+
+def test_decode_kernel_refuses_a_code_beyond_shared_memory(cuda):
+    graph, flips, _, _ = _decode_case("regular", 1, 1)
+    wide = flips.repeat(1, 64).to(cuda)         # 2100 rows x 64 words
+    t = torch.full((5,), 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        gallager.gallager_decode(wide, graph.chk_to_var.to(cuda),
+                                 graph.var_to_sock.to(cuda), t, t,
+                                 dc=graph.dc, pad_pos=graph.pad_pos,
+                                 clamp=False)
+
+
 @pytest.mark.parametrize("fields", [
     dict(lam=LAM, rho=RHO, code_mode="ensemble", expurgation=None),
     dict(lam=LAM, rho=RHO, code_mode="fixed", expurgation=2),

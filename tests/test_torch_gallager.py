@@ -31,11 +31,12 @@ from iib_project_ldpc_codes_tpu.utils.results import load_result as \
 from iib_project_ldpc_codes_tpu.utils.theory import (
     gallager_b_schedule, gallager_b_threshold, irregular_gallager_b_threshold)
 from iib_project_ldpc_codes_tpu_torch import cli
+from iib_project_ldpc_codes_tpu_torch.models import encode, qc
 from iib_project_ldpc_codes_tpu_torch.models.code import (
     code_from_checks, code_from_numpy, codes_from_numpy)
 from iib_project_ldpc_codes_tpu_torch.models.irregular import (
     irregular_code_from_numpy, irregular_codes_from_numpy)
-from iib_project_ldpc_codes_tpu_torch.ops import gallager
+from iib_project_ldpc_codes_tpu_torch.ops import bitops, gallager
 from iib_project_ldpc_codes_tpu_torch.ops.channels import BSC
 from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
 from iib_project_ldpc_codes_tpu_torch.utils.config import SimulationConfig
@@ -259,6 +260,225 @@ def test_decoder_contract_errors():
         gallager.gallager_decode_packed(code, rx[:90].contiguous(), 5)
     res = gallager.gallager_decode_packed(code, rx, 5)
     assert res.iterations == 0 and res.error_totals.tolist() == [0] * 6
+
+
+# ---------------------------------------------------------------------------
+# Kernel G (the whole decode, one block per code): its plain version and
+# the host assembly against JAX's vmapped decode, and the rule that picks it
+# ---------------------------------------------------------------------------
+
+# one crossover probability per code (one word, 32 trials, each): a code
+# without channel errors (0 rounds), codes that stop on different rounds
+# (some at a message fixed point with errors left), codes that never stop
+G_PS = (0.0, 0.005, 0.01, 0.015, 0.02, 0.02, 0.05, 0.08)
+G_ITERS = 30
+# Gallager-B on (4,8): Gallager-A (t = 3) for 12 rounds, then t = 2
+G_SCHEDULE = [3] * 12 + [2] * (G_ITERS - 12)
+
+
+def _g_batch(family):
+    """(JAX codes, port codes, flips int32[n, C]): one code per word."""
+    num = len(G_PS)
+    if family == "regular":
+        n = 128
+        jcodes = jax_sample_codes(jax.random.key(3), num, n, 4, 8)
+        codes = codes_from_numpy(np.asarray(jcodes.chk_to_var), n, 4, 8)
+    else:
+        n = 110
+        jcodes = jir.IrregularEnsembleSpec.from_lam_rho(n, *MIXED) \
+            .sample_batch(jax.random.key(3), num)
+        codes = _carry_irregular(jcodes)
+    flips = np.concatenate([np.asarray(jax_bernoulli_packed(
+        jax.random.key(10 + g), p, (n, 1))) for g, p in enumerate(G_PS)],
+        axis=1)
+    return jcodes, codes, _planes(flips)
+
+
+def _spy_decode(monkeypatch):
+    """Record every call of kernel G's wrapper (here: its plain version)
+    and its raw outputs."""
+    calls = []
+    real = gallager.gallager_decode
+
+    def spy(*args, **kwargs):
+        calls.append(real(*args, **kwargs))
+        return calls[-1]
+
+    monkeypatch.setattr(gallager, "gallager_decode", spy)
+    return calls
+
+
+def _per_code(plane: torch.Tensor):
+    """[n, C] (one word a code) as JAX's vmapped [C, n, 1] uint32."""
+    return jnp.asarray(plane.t().contiguous().numpy().view(np.uint32)
+                       [:, :, None])
+
+
+@pytest.mark.parametrize("family, kw", [
+    ("regular", dict(threshold=None)), ("regular", dict(threshold=1)),
+    ("regular", dict(schedule=G_SCHEDULE)),
+    ("irregular", dict(threshold=None)), ("irregular", dict(threshold=1))])
+@pytest.mark.parametrize("with_tx", [False, True])
+@pytest.mark.parametrize("max_iters", [0, 1, G_ITERS])
+def test_decode_kernel_plain_equals_jax_vmap(monkeypatch, family, kw,
+                                             with_tx, max_iters):
+    jcodes, codes, flips = _g_batch(family)
+    tx = None
+    if with_tx:
+        enc = encode.code_encoder_planes(codes)
+        tx = encode.encode_packed(enc, bitops.info_planes(
+            enc.k, len(G_PS), seed=4))
+    received = flips if tx is None else flips ^ tx
+    jfn = jg.gallager_decode_packed if family == "regular" else \
+        jg.gallager_decode_packed_irregular
+    jkw = dict(kw)
+    if "schedule" in kw:
+        # JAX cannot trace a schedule of 0 rounds (it indexes the empty
+        # array); no round runs, so its decode without one is the same
+        jkw["schedule"] = jnp.asarray(kw["schedule"], jnp.int32) \
+            if max_iters else None
+    if tx is None:
+        want = jax.vmap(lambda c, r: jfn(c, r, max_iters, **jkw))(
+            jcodes, _per_code(received))
+    else:
+        want = jax.vmap(lambda c, r, t: jfn(c, r, max_iters, tx_bits=t,
+                                            **jkw))(
+            jcodes, _per_code(received), _per_code(tx))
+    decode = gallager.gallager_decode_packed if family == "regular" else \
+        gallager.gallager_decode_packed_irregular
+    calls = _spy_decode(monkeypatch)
+    got = decode(codes, received, max_iters, tx_bits=tx, **kw)
+    assert len(calls) == 1                  # the whole decode, once
+    decided, round_errors, rounds = calls[0]
+    # the raw outputs, code by code: JAX's per-code totals and rounds
+    assert np.array_equal(round_errors.numpy(), np.asarray(want.error_totals))
+    assert np.array_equal(rounds.numpy(), np.asarray(want.iterations))
+    err = decided if tx is None else decided ^ tx
+    assert np.array_equal(err.t().numpy(),
+                          np.asarray(want.decided)[:, :, 0].view(np.int32))
+    # the host assembly
+    assert np.array_equal(got.decided.t().numpy(),
+                          np.asarray(want.decided)[:, :, 0].view(np.int32))
+    assert np.array_equal(got.error_totals.numpy(),
+                          np.asarray(want.error_totals).sum(0))
+    assert got.iterations == int(np.asarray(want.iterations).max())
+    assert got.traj is None
+    stops = np.asarray(want.iterations)
+    assert stops[0] == 0                    # no channel errors: no round
+    if max_iters == G_ITERS and kw.get("threshold") is None:
+        # Gallager-A and the schedule stop the codes on different rounds
+        # (t = 1 on these degrees runs every code to the budget)
+        assert len(set(stops.tolist())) > 3 and stops.max() == G_ITERS
+
+
+def test_decode_kernel_schedule_runs_past_a_fixed_point():
+    # under the constant t = 3, some code stops at a message fixed point
+    # with errors left before the schedule switches; the schedule's
+    # change_ahead keeps it running into the t = 2 rounds
+    _, codes, flips = _g_batch("regular")
+    graph = gallager._graph(codes)
+    ahead = [any(G_SCHEDULE[j] != G_SCHEDULE[i] for j in range(i + 1,
+                                                               G_ITERS))
+             for i in range(G_ITERS)]
+    runs = {}
+    for name, sched, flags in (("constant", [3] * G_ITERS, [0] * G_ITERS),
+                               ("schedule", G_SCHEDULE, ahead)):
+        runs[name] = gallager._gallager_decode_plain(
+            flips, graph.chk_to_var, graph.var_to_sock,
+            torch.tensor(sched, dtype=torch.int32),
+            torch.tensor(flags, dtype=torch.int32), dc=8,
+            pad_pos=graph.pad_pos, clamp=False)
+    _, errs, rounds = runs["constant"]
+    stuck = [g for g in range(len(G_PS)) if 0 < rounds[g] < 12
+             and errs[g, -1] > 0]
+    assert stuck
+    assert all(runs["schedule"][2][g] > 12 for g in stuck)
+    # and the public decoder builds the same flags
+    got = gallager.gallager_decode_packed(codes, flips, G_ITERS,
+                                          schedule=G_SCHEDULE)
+    assert torch.equal(got.error_totals,
+                       runs["schedule"][1].sum(0, dtype=torch.int32))
+
+
+def _shape_graph(num, n, dv, dc, irregular=False):
+    """A graph of ``num`` codes with the tables' shapes only (expanded
+    views, no memory): what the rule reads."""
+    rows = n * dv // dc + (1 if irregular else 0)
+    zero = torch.zeros((1, 1, 1), dtype=torch.int32)
+    return gallager._Graph(
+        chk_to_var=zero.expand(num, rows, dc),
+        var_to_sock=zero.expand(num, n + (1 if irregular else 0), dv), n=n,
+        dc=dc, pad_pos=(rows - (1 if irregular else 0)) * dc,
+        irregular=irregular)
+
+
+@pytest.mark.parametrize("num, n, dv, dc, irregular, words, record, takes", [
+    # the ensemble chunks at one word per code: n = 10^4, 768 codes
+    (768, 10_000, 3, 6, False, 768, "total", True),
+    (768, 10_000, 4, 6, True, 768, "total", True),     # dv_max 4, dc_max 6
+    (256, 1024, 3, 6, False, 256, "total", True),      # n = 1024 brackets
+    (16, 1024, 3, 6, False, 64, "total", True),        # 4 words a code
+    # the expurgated chunks keep the round kernels
+    (768, 10_000, 3, 6, False, 768, "per_trial", False),
+    # a fixed code at W = 768 does not fit one block
+    (1, 10_000, 3, 6, False, 768, "total", False),
+    # the edge of one block's shared memory: (3,6) at n = 16,602 / 16,604
+    (4, 16_602, 3, 6, False, 4, "total", True),
+    (4, 16_604, 3, 6, False, 4, "total", False),
+    # degrees above the kernel's
+    (8, 66, 33, 66, False, 8, "total", False)])
+def test_decode_kernel_rule(num, n, dv, dc, irregular, words, record, takes):
+    graph = _shape_graph(num, n, dv, dc, irregular)
+    assert gallager.takes_decode_kernel(graph, record, words) is takes
+    need = (graph.chk_to_var.shape[1] * (dc + 1)) * 4 * (words // num) + 16
+    assert (need <= gallager.SMEM_OPTIN_BYTES) is (takes or record !=
+                                                   "total" or dv > 32)
+
+
+def test_decode_kernel_rule_on_the_paths(monkeypatch):
+    # which decodes reach kernel G's wrapper: the ensemble chunk at one
+    # word a code, not the expurgated chunk, a wide fixed code or QC codes
+    _, codes, flips = _g_batch("regular")
+    calls = _spy_decode(monkeypatch)
+    mc._gallager_chunk(codes, flips, iterations=20, threshold=None,
+                       expurgation=None)
+    assert len(calls) == 1
+    mc._gallager_chunk(codes, flips, iterations=20, threshold=None,
+                       expurgation=0)
+    wide = flips.repeat(1, 20)                  # one code, 160 words
+    rule = gallager.takes_decode_kernel(gallager._graph(codes.select(0)),
+                                        "total", wide.shape[1])
+    gallager.gallager_decode_packed(codes.select(0), wide, 20)
+    assert not rule and len(calls) == 1
+    qc_code = qc.sample_qc_code(torch.Generator().manual_seed(0), nb=12,
+                                dv=3, dc=6, Z=10)
+    qflips = bitops.bernoulli_packed(0.03, (qc_code.n, 1), seed=1)
+    mc._gallager_chunk(qc_code, qflips, iterations=20, threshold=None,
+                       expurgation=None)
+    assert len(calls) == 1
+    # the plain decoders run the round loop, the reference of both routes
+    plain = gallager.gallager_decode_packed_plain(codes, flips, 20)
+    assert len(calls) == 1
+    assert torch.equal(plain.error_totals, gallager.gallager_decode_packed(
+        codes, flips, 20).error_totals) and len(calls) == 2
+
+
+def test_decode_kernel_contract_errors():
+    _, codes, flips = _g_batch("regular")
+    graph = gallager._graph(codes)
+    t = torch.full((5,), 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="differ in length"):
+        gallager.gallager_decode(flips, graph.chk_to_var, graph.var_to_sock,
+                                 t, t[:4].contiguous(), dc=8,
+                                 pad_pos=graph.pad_pos, clamp=False)
+    with pytest.raises(ValueError, match="split evenly"):
+        gallager.gallager_decode(flips[:, :6].contiguous(), graph.chk_to_var,
+                                 graph.var_to_sock, t, t, dc=8,
+                                 pad_pos=graph.pad_pos, clamp=False)
+    with pytest.raises(ValueError, match="differ in shape"):
+        gallager.gallager_decode(flips, graph.chk_to_var, graph.var_to_sock,
+                                 t, t, dc=8, pad_pos=graph.pad_pos,
+                                 clamp=False, tx=flips[:5].contiguous())
 
 
 # ---------------------------------------------------------------------------
