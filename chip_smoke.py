@@ -32,7 +32,12 @@ and kernel C (check update) against their plain versions in all five
 (method, message type) instantiations, whole decodes against the plain
 path at n = 8192, 24,576 trials (768 codes of 32 in ensemble mode), 50
 iterations, GPU runs against CPU runs, the new paths through the CLI with
-their BER anchors and threshold brackets, and their timing.
+their BER anchors and threshold brackets, and their timing: kernel C in
+each of its five instantiations at 768 codes and at one code (ms, bound,
+plain ms, launch geometry and the rate on the bytes its bound counts),
+and the device time of the AWGN sum-product and int8 ensemble chunks.
+Phase 33 also reads the registers, stack frame and spills of every
+instantiation of kernel C from the built library.
 
 Phases 23-27 do the same for random-codeword transmit (``transmit=
 "random"``): kernel E (the systematic encoder) and the two value-plane
@@ -1061,6 +1066,7 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
              "irregular_768": irr_batch}
     err_b, err_c, err_c_exact = 0, 0.0, 0.0
     pass_ms = {}
+    l2_bytes = soft_bp._l2_bytes(torch.cuda.current_device())
     for label, c in cases.items():
         graph = soft_bp._graph(c)
         num = graph.num_codes
@@ -1137,6 +1143,16 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
                                          m_k, u_k), ops_c,
                                   INT32_OPS_S if dtype == torch.int8
                                   else FP32_OPS_S))
+            # kernel C's launch geometry, and its rate on the bytes its
+            # bound counts (pm read once): the DRAM bytes are not measured
+            vec, tile = soft_bp.soft_check_geometry(
+                pm.element_size(), COLS_SOFT, COLS_SOFT // num, graph.dc,
+                pm.shape[0], l2_bytes)
+            counted = nbytes(p_p, m_k, graph.chk_to_var, active, m_k, u_k)
+            times.update(check_vec=vec, check_tile=tile,
+                         check_counted_gb=counted / 1e9,
+                         check_counted_gb_per_s=counted / 1e6 /
+                         times["check_ms"])
             if label == "regular_one" and kind == "sumproduct_f32":
                 # one PyTorch call summing each message into its variable
                 owner = graph.chk_to_var.reshape(-1).long()
@@ -1161,12 +1177,29 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         fixed_plain_ms=one_b["posterior_plain_ms"],
         fixed_bound_ms=one_b["posterior_bound"]["bound_ms"],
         fixed_library_ms=one_b["posterior_library_ms"])
+    # kernel C's every instantiation at 768 codes and (fixed_) at one code
+    by_kind = {}
+    for kind in kinds:
+        entry = by_kind[kind] = {}
+        for pre, label in (("", "regular_768"), ("fixed_", "regular_one")):
+            t = pass_ms[f"{label}_{kind}"]
+            entry.update({
+                f"{pre}ms": t["check_ms"],
+                f"{pre}bound_ms": t["check_bound"]["bound_ms"],
+                f"{pre}plain_ms": t["check_plain_ms"],
+                f"{pre}counted_gb": t["check_counted_gb"],
+                f"{pre}counted_gb_per_s": t["check_counted_gb_per_s"],
+                f"{pre}vec": t["check_vec"], f"{pre}tile": t["check_tile"]})
     measured["soft_check"].update(
         max_abs_err=err_c, max_abs_err_minsum=err_c_exact,
         ms=main_b["check_ms"], plain_ms=main_b["check_plain_ms"],
         **main_b["check_bound"], library_ms=None,
         fixed_ms=one_b["check_ms"], fixed_plain_ms=one_b["check_plain_ms"],
-        fixed_bound_ms=one_b["check_bound"]["bound_ms"])
+        fixed_bound_ms=one_b["check_bound"]["bound_ms"],
+        by_kind=by_kind)
+    print("kernel C by instantiation (ms, bound, plain, GB/s on the bytes "
+          f"the bound counts; card {smi}): "
+          f"{json.dumps(measured['soft_check']['by_kind'])}", flush=True)
 
     # -- 19 -------------------------------------------------------------------
     phase("19 whole soft decodes against the plain path at n=8192, 24576 "
@@ -1470,6 +1503,11 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         len(chunk_s["awgn_sp_f32_ensemble"]) * 1e3
     print(device_time_breakdown(lambda: int(
         chunk_fns["awgn_sp_f32_ensemble"](5).block_errors), sp_chunk_ms,
+        kernels), flush=True)
+    int8_chunk_ms = sum(chunk_s["awgn_int8_ensemble"]) / \
+        len(chunk_s["awgn_int8_ensemble"]) * 1e3
+    print("int8 ensemble chunk: " + device_time_breakdown(lambda: int(
+        chunk_fns["awgn_int8_ensemble"](5).block_errors), int8_chunk_ms,
         kernels), flush=True)
 
 
@@ -2592,12 +2630,17 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                                 chunk6_ms, kernels), flush=True)
 
 
-def s2_int8_resources(smi: str) -> dict:
-    """Registers, stack frame, local memory (spills) and SASS instructions
-    of each int8 instantiation of S2 in the built library, read with the
-    toolkit's cuobjdump; the theoretical occupancy its registers allow at
-    256 threads a block (a warp's registers allocated in units of 256, at
-    most 64 warps an SM).  Fails on a stack frame or local memory."""
+def kernel_resources(smi: str) -> dict:
+    """Registers, stack frame and local memory (spills), read with the
+    toolkit's cuobjdump from the built library, of every instantiation of
+    kernel C (``soft_check``) and of S2's int8 instantiations
+    (``qc_soft_check_int8``, with their SASS instruction counts); with the
+    theoretical occupancy the registers allow at 256 threads a block (a
+    warp's registers allocated in units of 256, at most 64 warps an SM).
+    Fails on a stack frame or local memory in S2 int8 and on local memory
+    in C; C's stack frames (spill slots) are printed: its int8
+    instantiations up to degree 6 are held to 80 registers for three
+    blocks an SM, measured faster with a few bytes spilled than at 96."""
     import re
 
     from iib_project_ldpc_codes_tpu_torch.kernels.build import (find_nvcc,
@@ -2610,38 +2653,64 @@ def s2_int8_resources(smi: str) -> dict:
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
 
-    usage = dict(re.findall(r"Function (\S*qc_soft_check_kernel_int8\S*):"
-                            r"\s*(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
-                            dump("-res-usage")))
-    check(len(usage) == 3, f"S2 int8: {len(usage)} instantiations in the "
-          "library, expected 3")
+    def fields(text):
+        f = {k.lower(): int(v) for k, v in
+             (kv.split(":") for kv in text.split())}
+        warp_regs = -(-f["reg"] * 32 // 256) * 256
+        f["occupancy_from_registers"] = min(65536 // (warp_regs * 8),
+                                            8) * 8 / 64
+        return f
+
+    usage = dict(re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
+                            r"SHARED:\d+ LOCAL:\d+)", dump("-res-usage")))
+    s2 = {k: v for k, v in usage.items() if "qc_soft_check_kernel_int8" in k}
+    check(len(s2) == 3, f"S2 int8: {len(s2)} instantiations in the library, "
+          "expected 3")
     sass = {}
     # disassembling only these three keeps the call to seconds
-    for body in dump("-sass", "-fun", ",".join(usage)).split(
-            "Function : ")[1:]:
+    for body in dump("-sass", "-fun", ",".join(s2)).split("Function : ")[1:]:
         name = body.split("\n", 1)[0].strip()
-        if "qc_soft_check_kernel_int8" in name:
+        if name in s2:
             sass[name] = [op for op in re.findall(
                 r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                 body) if not op.startswith("NOP")]
-    out = {}
-    for name, text in usage.items():
+    out = {"qc_soft_check_int8": {}, "soft_check": {}}
+    for name, text in s2.items():
         words, max_dc = map(int, re.search(
             r"kernel_int8ILi(\d+)ELi(\d+)E", name).groups())
-        f = {k.lower(): int(v) for k, v in
-             (kv.split(":") for kv in text.split())}
+        f = fields(text)
         ops = len(sass[name])
-        warp_regs = -(-f["reg"] * 32 // 256) * 256
-        blocks = min(65536 // (warp_regs * 8), 8)
         f.update(sass_instructions=ops,
-                 per_socket_and_word=ops / (max_dc * words),
-                 occupancy_from_registers=blocks * 8 / 64)
-        out[f"U{words}_dc{max_dc}"] = f
+                 per_socket_and_word=ops / (max_dc * words))
+        out["qc_soft_check_int8"][f"U{words}_dc{max_dc}"] = f
         check(f["stack"] == 0 and f["local"] == 0,
               f"S2 int8 {name}: stack frame or local memory {text}")
-    print(f"S2 int8 instantiations (U words a thread, up to dc sockets; "
-          f"per_socket_and_word: the kernel's SASS, set-up and reduction "
-          f"included, over dc * U; card {smi}): {json.dumps(out)}",
+    # kernel C: soft_check_kernel<T, method, V, kDc, exact> and
+    # soft_check_kernel_int8<U, kDc, exact> (17 and 22 letters mangled)
+    for name, text in usage.items():
+        m = re.search(r"(17soft_check_kernel|22soft_check_kernel_int8)I"
+                      r"(\w*?)EEv", name)
+        if not m:
+            continue
+        args = list(map(int, re.findall(r"L[ib](\d+)E", m.group(2))))
+        if m.group(1).endswith("int8"):
+            words, max_dc, exact = args
+            key = f"int8_minsum_V{4 * words}"
+        else:
+            method, vec, max_dc, exact = args
+            key = ("bf16" if "bfloat16" in m.group(2) else "f32") + \
+                ("_sumproduct" if method else "_minsum") + f"_V{vec}"
+        key += f"_dc{max_dc}" if exact else f"_dcmax{max_dc}"
+        f = fields(text)
+        out["soft_check"][key] = f
+        check(f["local"] == 0, f"kernel C {key}: local memory {text}")
+    check(len(out["soft_check"]) == 115, f"kernel C: "
+          f"{len(out['soft_check'])} instantiations in the library, "
+          "expected 115")
+    print(f"kernel resources (S2 int8: U words a thread, up to dc sockets, "
+          f"per_socket_and_word the kernel's SASS over dc * U; kernel C: "
+          f"type, method, V trials a thread, the exact degree or the "
+          f"bound of the generic path; card {smi}): {json.dumps(out)}",
           flush=True)
     return out
 
@@ -2816,7 +2885,12 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
             torch.cuda.empty_cache()
         print(f"S1, S2 equal to plain on {label}: n={code.n}, Z={code.Z}, "
               f"B={cols}, E_b={adj.num_rows}", flush=True)
-    measured[names[1]]["int8_resources"] = s2_int8_resources(smi)
+    resources = kernel_resources(smi)
+    measured[names[1]]["int8_resources"] = resources["qc_soft_check_int8"]
+    # the main paths' degree (dc = 6) in the kernels line; every
+    # instantiation is on the resources line above
+    measured["soft_check"]["resources_dc6"] = {
+        k: v for k, v in resources["soft_check"].items() if k.endswith("_dc6")}
     for name in names[:2]:
         measured[name].update(
             max_abs_err=err[name], library_ms=None,

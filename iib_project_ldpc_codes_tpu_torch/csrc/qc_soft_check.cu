@@ -31,21 +31,13 @@
 // check keeps its tables uniform loads; in-plane indices are 32-bit.
 //
 // int8 (min-sum saturated at 127, the engine's path) runs on packed lanes,
-// four trials a 32-bit word, never one byte at a time.  JAX's update,
-//   out_j = sign_j * min(min_{k != j} |r_k|, 127),  r_k in [-255, 255],
-// sign_j the XOR of the other sockets' signs, is exact on r'_k = sat8(r_k):
-// |r'_k| = min(|r_k|, 127) by saturating absolute value and sign(r'_k) =
-// sign(r_k), zero included.  With m1 <= m2 the two smallest |r'| and 127,
-// out_j's magnitude is m2 where |r'_j| = m1 and m1 elsewhere (ties give m1 =
-// m2), so no index is kept, and a degree-1 check gives +127 as JAX's big =
-// 4 * 127 does.  Per socket and word: r' = __vsubss4(p, m), a = __vabsss4,
-// m2 = min(m2, max(m1, a)), m1 = min(m1, a) in unsigned bytes, the signs
-// XORed in bit 7 of every byte; the syndrome is the popcount of the sign
-// bits of the XORed p words.  A thread takes 4 words (16 bytes, 16 trials)
-// of a row where B % 16 == 0 and every degree is at most 8, else one word,
-// for degrees up to 32; the dc r' words stay in registers, so nothing is
-// reread and nothing spills (-Xptxas -v).  The block sums its unsatisfied
-// pairs (warp shuffles, then shared memory) into one atomicAdd.
+// four trials a 32-bit word, never one byte at a time, with the update of
+// soft.cuh's MinSum8 (shared with soft_check.cu), exact against JAX's.  A
+// thread takes 4 words (16 bytes, 16 trials) of a row where B % 16 == 0 and
+// every degree is at most 8, else one word, for degrees up to 32; the dc r'
+// words stay in registers, so nothing is reread and nothing spills
+// (-Xptxas -v).  The block sums its unsatisfied pairs (warp shuffles, then
+// shared memory) into one atomicAdd.
 //
 // float32 and bfloat16 (min-sum with alpha and beta, sum-product): V
 // adjacent trials a thread, 16-byte accesses, for checks of degree up to 8
@@ -61,9 +53,11 @@ using ldpc::soft::clipf;
 using ldpc::soft::Elem;
 using ldpc::soft::kLlrClip;
 using ldpc::soft::kMinSum;
+using ldpc::soft::kSignBits;
 using ldpc::soft::kSumProduct;
 using ldpc::soft::Lanes;
 using ldpc::soft::load_lanes;
+using ldpc::soft::MinSum8;
 using ldpc::soft::store_lanes;
 
 constexpr int kMaxDegree = 32;
@@ -120,7 +114,7 @@ __global__ void qc_soft_check_kernel(
       }
       bad += parity;
       Acc out[kMaxDc];
-      ldpc::soft::check_update<T, kMethod, kMaxDc>(r, dc, alpha, beta, out);
+      ldpc::soft::check_update<kMethod, kMaxDc>(r, dc, alpha, beta, out);
 #pragma unroll
       for (int jj = 0; jj < kMaxDc; ++jj)
         if (jj < dc) mv[jj].v[k] = E::store(out[jj]);
@@ -176,22 +170,6 @@ int dispatch(const void* pm, void* msg, const void* chk_block,
 // int8: four trials a 32-bit word
 // ---------------------------------------------------------------------------
 
-constexpr uint32_t kSignBits = 0x80808080u;   // bit 7 of every byte
-constexpr uint32_t kCap = 0x7F7F7F7Fu;        // 127 in every byte
-
-// 0xFF in every byte whose bit 7 is set, else 0 (prmt's sign replication)
-__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(d) : "r"(x));
-  return d;
-}
-
-// -x in every byte, for bytes in [0, 127]: 0x80 - x never borrows, and
-// (0x80 - x) ^ 0x80 is 256 - x, or 0 for x = 0
-__device__ __forceinline__ uint32_t negate_bytes(uint32_t x) {
-  return (kSignBits - x) ^ kSignBits;
-}
-
 // The unsatisfied pairs of the block into unsat[0]: warp shuffles, one
 // shared-memory slot a warp, one atomic.  Every thread of the block calls it.
 __device__ __forceinline__ void add_block_count(int v, int32_t* unsat) {
@@ -235,12 +213,8 @@ __global__ void __launch_bounds__(ldpc::kThreads) qc_soft_check_kernel_int8(
     const int32_t* blocks = chk_block + c * dcb;
     const int32_t* shifts = chk_shift + c * dcb;
     uint32_t r[kMaxDc][U];
-    uint32_t m1[U], m2[U], signs[U], parity[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      m1[u] = m2[u] = kCap;
-      signs[u] = parity[u] = 0u;
-    }
+    MinSum8 acc[U];
+    uint32_t parity[U] = {};
 #pragma unroll
     for (int jj = 0; jj < kMaxDc; ++jj) {
       if (jj < dc) {
@@ -250,13 +224,8 @@ __global__ void __launch_bounds__(ldpc::kThreads) qc_soft_check_kernel_int8(
         const Words<U> m = ldpc::qc::load<U>(msg + (off + jj) * plane + own);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const uint32_t x = __vsubss4(p.v[u], m.v[u]);
-          const uint32_t a = __vabsss4(x);
-          r[jj][u] = x;
+          r[jj][u] = acc[u].add(p.v[u], m.v[u]);
           parity[u] ^= p.v[u];
-          signs[u] ^= x;
-          m2[u] = __vminu4(m2[u], __vmaxu4(m1[u], a));
-          m1[u] = __vminu4(m1[u], a);
         }
       }
     }
@@ -267,13 +236,7 @@ __global__ void __launch_bounds__(ldpc::kThreads) qc_soft_check_kernel_int8(
       if (jj < dc) {
         Words<U> o;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const uint32_t x = r[jj][u];
-          const uint32_t at_min = __vcmpeq4(__vabsss4(x), m1[u]);
-          const uint32_t mag = m1[u] ^ (at_min & (m1[u] ^ m2[u]));
-          const uint32_t neg = sign_bytes(signs[u] ^ x);
-          o.v[u] = mag ^ (neg & (mag ^ negate_bytes(mag)));
-        }
+        for (int u = 0; u < U; ++u) o.v[u] = acc[u].out(r[jj][u]);
         ldpc::qc::store<U>(msg + (off + jj) * plane + own, o);
       }
     }

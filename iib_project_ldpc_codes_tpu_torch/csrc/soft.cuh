@@ -3,9 +3,10 @@
 //
 // Message planes are [rows, B] in the working type T (float, bfloat16 or
 // int8), trial b in column b; for a batch of C codes column b belongs to
-// code b / (B / C).  A thread takes 4 bytes of a row, kCols = 4 / sizeof(T)
-// adjacent columns, so a warp moves 128 contiguous bytes of a row whatever
-// the type.  The wrappers require B and B / C to be multiples of 4.
+// code b / (B / C).  A thread takes a run of adjacent columns of a row (4
+// to 16 bytes, each kernel says which), so a warp moves a contiguous
+// segment of the row.  The wrappers require B and B / C to be multiples
+// of 4.
 //
 // Arithmetic follows the JAX package's soft_bp.py: float32 for float32 and
 // bfloat16 messages (bfloat16 is widened exactly and rounded to nearest even
@@ -65,7 +66,6 @@ struct Elem<int8_t> {
 
 constexpr float kLlrClip = 30.0f;
 constexpr float kTanhClip = 0.999999f;
-constexpr int kInt8Max = 127;
 
 enum Method { kMinSum = 0, kSumProduct = 1 };
 
@@ -73,29 +73,25 @@ __device__ __forceinline__ float clipf(float x, float c) {
   return fminf(fmaxf(x, -c), c);
 }
 
-// The check update of one check and trial, shared by soft_check.cu and
-// qc_soft_check.cu: the dc extrinsic inputs r[0 .. dc-1] (accumulation
-// type, float inputs already clipped to +-kLlrClip) -> the dc new messages
-// out[0 .. dc-1] (soft_check.cu's header states the rules).  kMaxDc bounds
-// dc at compile time, so both arrays stay in registers.
-template <typename T, int kMethod, int kMaxDc>
-__device__ __forceinline__ void check_update(
-    const typename Elem<T>::Acc (&r)[kMaxDc], int dc, float alpha, float beta,
-    typename Elem<T>::Acc (&out)[kMaxDc]) {
-  using Acc = typename Elem<T>::Acc;
-  constexpr bool kQuantised = sizeof(T) == 1;
+// The check update of one check and trial of float32 or bfloat16 messages,
+// shared by soft_check.cu and qc_soft_check.cu: the dc extrinsic inputs
+// r[0 .. dc-1] (float32, already clipped to +-kLlrClip) -> the dc new
+// messages out[0 .. dc-1] (soft_check.cu's header states the rules).
+// kMaxDc bounds dc at compile time, so both arrays stay in registers; a
+// caller that passes dc = kMaxDc as a constant gets no guard at all.
+template <int kMethod, int kMaxDc>
+__device__ __forceinline__ void check_update(const float (&r)[kMaxDc], int dc,
+                                             float alpha, float beta,
+                                             float (&out)[kMaxDc]) {
   if constexpr (kMethod == kMinSum) {
     // the two smallest magnitudes and the sign parity
-    Acc big;
-    if constexpr (kQuantised) big = 4 * kInt8Max; else big = INFINITY;
-    Acc m1 = big, m2 = big;
+    float m1 = INFINITY, m2 = INFINITY;
     int i1 = -1;
     unsigned signs = 0u, all = 0u;
 #pragma unroll
     for (int j = 0; j < kMaxDc; ++j) {
       if (j < dc) {
-        Acc a;
-        if constexpr (kQuantised) a = r[j] < 0 ? -r[j] : r[j]; else a = fabsf(r[j]);
+        const float a = fabsf(r[j]);
         const unsigned s = r[j] < 0;
         signs |= s << j;
         all ^= s;
@@ -111,13 +107,9 @@ __device__ __forceinline__ void check_update(
 #pragma unroll
     for (int j = 0; j < kMaxDc; ++j) {
       if (j < dc) {
-        Acc mag = j == i1 ? m2 : m1;
-        if constexpr (kQuantised) {
-          mag = min(mag, Acc(kInt8Max));
-        } else {
-          if (beta != 0.0f) mag = fmaxf(__fsub_rn(mag, beta), 0.0f);
-          if (alpha != 1.0f) mag = __fmul_rn(alpha, mag);
-        }
+        float mag = j == i1 ? m2 : m1;
+        if (beta != 0.0f) mag = fmaxf(__fsub_rn(mag, beta), 0.0f);
+        if (alpha != 1.0f) mag = __fmul_rn(alpha, mag);
         out[j] = ((all ^ (signs >> j)) & 1u) ? -mag : mag;
       }
     }
@@ -125,7 +117,7 @@ __device__ __forceinline__ void check_update(
     float tv[kMaxDc], suf[kMaxDc];
 #pragma unroll
     for (int j = 0; j < kMaxDc; ++j)
-      if (j < dc) tv[j] = clipf(tanhf(__fmul_rn(float(r[j]), 0.5f)), kTanhClip);
+      if (j < dc) tv[j] = clipf(tanhf(__fmul_rn(r[j], 0.5f)), kTanhClip);
     float acc = 1.0f;
 #pragma unroll
     for (int j = kMaxDc - 1; j >= 0; --j) {
@@ -145,6 +137,63 @@ __device__ __forceinline__ void check_update(
   }
 }
 
+// ---------------------------------------------------------------------------
+// int8 min-sum on packed lanes: four trials a 32-bit word (soft_check.cu,
+// qc_soft_check.cu)
+// ---------------------------------------------------------------------------
+//
+// JAX's update (ops/soft_bp.py _check_update_minsum, mag_cap = 127),
+//   out_j = sign_j * min(min_{k != j} |r_k|, 127),  r_k = p_k - m_k,
+// sign_j the XOR of the other sockets' signs, is exact on r'_k = sat8(r_k):
+// |r'_k| = min(|r_k|, 127) by saturating absolute value and sign(r'_k) =
+// sign(r_k), zero included.  With m1 <= m2 the two smallest |r'| and 127,
+// out_j's magnitude is m2 where |r'_j| = m1 and m1 elsewhere (ties give m1 =
+// m2), so no index is kept, and a degree-1 check gives +127 as JAX's big =
+// 4 * 127 does.  Per socket and word: r' = __vsubss4(p, m), a = __vabsss4,
+// m2 = min(m2, max(m1, a)), m1 = min(m1, a) in unsigned bytes, the signs
+// XORed in bit 7 of every byte.  The syndrome is the popcount of the sign
+// bits of the XORed p words.
+
+constexpr uint32_t kSignBits = 0x80808080u;   // bit 7 of every byte
+constexpr uint32_t kCap = 0x7F7F7F7Fu;        // 127 in every byte
+
+// 0xFF in every byte whose bit 7 is set, else 0 (prmt's sign replication)
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(d) : "r"(x));
+  return d;
+}
+
+// -x in every byte, for bytes in [0, 127]: 0x80 - x never borrows, and
+// (0x80 - x) ^ 0x80 is 256 - x, or 0 for x = 0
+__device__ __forceinline__ uint32_t negate_bytes(uint32_t x) {
+  return (kSignBits - x) ^ kSignBits;
+}
+
+// The min/sign state of one word of four trials over a check's sockets.
+struct MinSum8 {
+  uint32_t m1 = kCap, m2 = kCap, signs = 0u;
+
+  // folds in the socket with posterior word p and message word m; returns
+  // its r' word
+  __device__ __forceinline__ uint32_t add(uint32_t p, uint32_t m) {
+    const uint32_t x = __vsubss4(p, m);
+    const uint32_t a = __vabsss4(x);
+    signs ^= x;
+    m2 = __vminu4(m2, __vmaxu4(m1, a));
+    m1 = __vminu4(m1, a);
+    return x;
+  }
+
+  // the new message word of the socket whose r' word is x
+  __device__ __forceinline__ uint32_t out(uint32_t x) const {
+    const uint32_t at_min = __vcmpeq4(__vabsss4(x), m1);
+    const uint32_t mag = m1 ^ (at_min & (m1 ^ m2));
+    const uint32_t neg = sign_bytes(signs ^ x);
+    return mag ^ (neg & (mag ^ negate_bytes(mag)));
+  }
+};
+
 template <typename E, int N>
 __device__ __forceinline__ Lanes<E, N> load_lanes(const E* p) {
   return *reinterpret_cast<const Lanes<E, N>*>(p);
@@ -153,6 +202,39 @@ __device__ __forceinline__ Lanes<E, N> load_lanes(const E* p) {
 template <typename E, int N>
 __device__ __forceinline__ void store_lanes(E* p, const Lanes<E, N>& v) {
   *reinterpret_cast<Lanes<E, N>*>(p) = v;
+}
+
+template <int kBytes>
+struct Raw;
+template <>
+struct Raw<4> {
+  using type = unsigned int;
+};
+template <>
+struct Raw<8> {
+  using type = uint2;
+};
+template <>
+struct Raw<16> {
+  using type = uint4;
+};
+
+// The same moves of 4, 8 or 16 bytes, cache-streaming (ld.global.cs /
+// st.global.cs: evict first), for a stream read once and written once that
+// should not push a plane gathered many times out of L2.
+template <typename E, int N>
+__device__ __forceinline__ Lanes<E, N> load_lanes_streaming(const E* p) {
+  using R = typename Raw<sizeof(E) * N>::type;
+  Lanes<E, N> v;
+  *reinterpret_cast<R*>(&v) = __ldcs(reinterpret_cast<const R*>(p));
+  return v;
+}
+
+template <typename E, int N>
+__device__ __forceinline__ void store_lanes_streaming(E* p,
+                                                      const Lanes<E, N>& v) {
+  using R = typename Raw<sizeof(E) * N>::type;
+  __stcs(reinterpret_cast<R*>(p), *reinterpret_cast<const R*>(&v));
 }
 
 }  // namespace soft

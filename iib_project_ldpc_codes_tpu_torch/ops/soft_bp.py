@@ -49,6 +49,7 @@ codeword, while ``posterior`` and ``satisfied`` stay in decision space
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -66,6 +67,11 @@ _INT8_MAX = 127
 _PHANTOM_LLR = 1.0e4
 #: largest degrees the kernels take (registers per thread)
 MAX_DEGREE = 32
+#: kernel C's widths a thread, in bytes, widest first, and the share of the
+#: card's L2 cache that one column tile of the gathered plane may fill (the
+#: message stream passes through the rest)
+_CHECK_VECTOR_BYTES = (16, 8, 4)
+_CHECK_L2_SHARE = 0.2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _METHODS = {"minsum": 0, "sumproduct": 1}
 
@@ -327,6 +333,50 @@ def _soft_check_plain(pm, msg, chk_to_var, active, unsat, *, method: str,
     planes.copy_(torch.where(on[:, None], out, planes))
 
 
+def soft_check_geometry(elem_size: int, cols: int, cpc: int, dc: int,
+                        n_rows: int, l2_bytes: int,
+                        align: int = 16) -> tuple[int, int]:
+    """Kernel C's launch geometry: ``(vec, tile)``.
+
+    ``vec`` is the trials a thread: the widest of 16, 8 and 4 bytes of
+    ``elem_size``-byte elements that divides a code's ``cpc`` columns (one
+    vector never holds two codes' trials) and the planes' alignment
+    ``align``; 4 bytes where ``dc`` is outside the exact-degree templates
+    (2..8).  ``tile`` is the columns of one tile, the launch order's unit:
+    the most whole codes (``cpc < cols``), or runs of 32 vectors (a warp's
+    run of one row, one code), whose slice of the gathered plane,
+    ``n_rows * tile * elem_size`` bytes, fits ``_CHECK_L2_SHARE`` of
+    ``l2_bytes``; all ``cols`` when even one such unit is over that budget
+    (no tile could stay in L2) or the tile would reach past ``cols``."""
+    for nbytes in _CHECK_VECTOR_BYTES:
+        vec = nbytes // elem_size
+        if (nbytes == 4 or 2 <= dc <= 8) and cpc % vec == 0 and \
+                align % nbytes == 0:
+            break
+    else:
+        raise ValueError(f"planes aligned to {align} bytes: kernel C moves "
+                         "at least 4")
+    unit = cpc if cpc < cols else 32 * vec
+    if n_rows * unit == 0:             # an empty plane: one tile of all
+        return vec, cols
+    fit = int(l2_bytes * _CHECK_L2_SHARE) // (n_rows * unit * elem_size)
+    return vec, (min(cols, fit * unit) if fit else cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(index: int) -> int:
+    return torch.cuda.get_device_properties(index).L2_cache_size
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
 def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
                active: torch.Tensor, unsat: torch.Tensor, *, method: str,
                alpha: float = 1.0, beta: float = 0.0,
@@ -337,7 +387,9 @@ def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
     dc]; every message of ``msg`` [rows * dc, B] replaced by its check
     update (``method`` "minsum" with ``alpha``/``beta`` or "sumproduct";
     int8 messages: min-sum, saturated at 127).  Sockets holding variable
-    ``pad_var`` (an irregular code's phantom) get 0."""
+    ``pad_var`` (an irregular code's phantom) get 0.  On the card the
+    kernel's trials a thread and column tiles come from
+    :func:`soft_check_geometry`."""
     dtype = pm.dtype
     if dtype not in _DTYPES or msg.dtype != dtype:
         raise TypeError(f"pm and msg must share a type of {list(_DTYPES)}")
@@ -353,6 +405,8 @@ def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
                          f"{dc}")
     if unsat.dtype != torch.int32 or unsat.shape != active.shape:
         raise ValueError("unsat must be int32[C]")
+    if rows == 0 or pm.shape[1] == 0:                 # no (check, trial)
+        return
     if not use_kernel(pm, msg, chk_to_var, active, unsat):
         _soft_check_plain(pm, msg, chk_to_var, active, unsat, method=method,
                           alpha=alpha, beta=beta, pad_var=pad_var)
@@ -361,9 +415,13 @@ def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
         raise ValueError(f"check degree {dc} above the kernel's "
                          f"{MAX_DEGREE}")
     cols = pm.shape[1]
+    cpc = cols // active.shape[0]
+    vec, tile = soft_check_geometry(
+        pm.element_size(), cols, cpc, dc, pm.shape[0],
+        _l2_bytes(torch.cuda.current_device()), _alignment(pm, msg))
     launch("ldpc_soft_check", pm.device, pm.data_ptr(), msg.data_ptr(),
            chk_to_var.data_ptr(), active.data_ptr(), unsat.data_ptr(), rows,
-           rows, dc, pad_var, cols, cols // active.shape[0], _DTYPES[dtype],
+           rows, dc, pad_var, cols, cpc, vec, tile, _DTYPES[dtype],
            _METHODS[method], float(alpha), float(beta))
     soft_check.launches += 1
 

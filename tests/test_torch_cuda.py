@@ -611,6 +611,150 @@ def test_soft_check_kernel_equals_plain(cuda, family, num, method, dtype):
             assert torch.equal(msg_k[:, cols], case["msg"][:, cols])
 
 
+INT8_EDGE_VALUES = np.array([-128, -127, -1, 0, 1, 127], np.int8)
+
+
+def _check_kernel_case(dtype, dc, cpc, num, n_rows=61, rows=40, seed=0,
+                       planes="draws"):
+    """Random inputs of kernel C alone: a table int32[C, rows, dc] over
+    n_rows variables (a tenth of the sockets on the phantom row n_rows -
+    1), pm [n_rows, B] and msg [rows * dc, B] planes, and an active flag a
+    code (a third of the codes stopped, code 0 active).  ``planes`` for
+    int8: "draws" (the whole range), "edges" (values from INT8_EDGE_VALUES:
+    r = p - m hits +-255, +-254, +-128, +-127 and 0, ties everywhere),
+    "zeros" or "saturated" (|r| = 254 on every socket)."""
+    rng = np.random.default_rng(seed)
+    cols = cpc * num
+    pad_var = n_rows - 1
+    table = rng.integers(0, n_rows - 1, size=(num, rows, dc))
+    table[rng.random(table.shape) < 0.1] = pad_var
+    shapes = ((n_rows, cols), (rows * dc, cols))
+    if dtype != torch.int8:
+        pm, msg = (torch.from_numpy(rng.normal(0, sd, shape).astype(
+            np.float32)).to(dtype) for sd, shape in zip((8, 6), shapes))
+    else:
+        if planes == "draws":
+            pm, msg = (rng.integers(-127, 128, shape) for shape in shapes)
+        elif planes == "edges":
+            pm, msg = (INT8_EDGE_VALUES[rng.integers(0, 6, shape)]
+                       for shape in shapes)
+        elif planes == "zeros":
+            pm, msg = (np.zeros(shape) for shape in shapes)
+        else:
+            sign = np.where(rng.random(cols) < 0.5, 1, -1)
+            pm, msg = (np.broadcast_to(v * sign, shape)
+                       for v, shape in zip((127, -127), shapes))
+        pm, msg = (torch.from_numpy(np.ascontiguousarray(x).astype(np.int8))
+                   for x in (pm, msg))
+    active = torch.from_numpy((rng.random(num) < 0.67).astype(np.int32))
+    active[0] = 1
+    return dict(pm=pm, msg=msg, table=torch.from_numpy(table.astype(np.int32)),
+                active=active, pad_var=pad_var)
+
+
+def _check_kernel_against_plain(cuda, case, method, **kw):
+    """Kernel C against its plain version on one case; returns the plain
+    messages and counts.  Stopped codes' messages must stay as they were."""
+    out = []
+    for device in (cuda, "cpu"):
+        msg = case["msg"].clone().to(device)
+        unsat = torch.zeros(case["active"].shape[0], dtype=torch.int32,
+                            device=device)
+        soft_bp.soft_check(case["pm"].to(device), msg,
+                           case["table"].to(device),
+                           case["active"].to(device), unsat, method=method,
+                           pad_var=case["pad_var"], **kw)
+        out.append((msg.cpu(), unsat.cpu()))
+    (msg_k, unsat_k), (msg_p, unsat_p) = out
+    assert torch.equal(unsat_k, unsat_p)
+    if method == "sumproduct":
+        assert torch.allclose(msg_k.float(), msg_p.float(),
+                              atol=SP_ATOL[case["pm"].dtype], rtol=0)
+    else:
+        assert torch.equal(msg_k, msg_p)
+    cpc = case["pm"].shape[1] // case["active"].shape[0]
+    for g in np.flatnonzero(case["active"].numpy() == 0):
+        cols = slice(cpc * g, cpc * (g + 1))
+        assert torch.equal(msg_k[:, cols], case["msg"][:, cols])
+    return msg_p, unsat_p
+
+
+@pytest.mark.parametrize("method, dtype", SOFT)
+@pytest.mark.parametrize("dc", [2, 3, 6, 7, 8, 12, 32])
+@pytest.mark.parametrize("cpc", [4, 8, 12, 16, 32])
+@pytest.mark.parametrize("num", [1, 6])
+def test_soft_check_kernel_every_degree_and_width(cuda, method, dtype, dc,
+                                                  cpc, num):
+    """Every instantiation of kernel C (the exact degrees 2..8 at 16, 8 and
+    4 bytes a thread, the generic kMaxDc = 16 / 32 above) against its
+    plain version, on B / C = 4, 8, 12, 16 and 32 trials a code, one code
+    and six (two of them stopped), padded sockets in every code."""
+    case = _check_kernel_case(dtype, dc, cpc, num, seed=dc * 100 + cpc)
+    kw = dict(alpha=0.8, beta=0.25) if method == "minsum" and \
+        dtype != torch.int8 else {}
+    vec, _ = soft_bp.soft_check_geometry(case["pm"].element_size(),
+                                         cpc * num, cpc, dc, 61, 50 << 20)
+    assert cpc % vec == 0
+    _, unsat = _check_kernel_against_plain(cuda, case, method, **kw)
+    assert int(unsat.sum()) > 0
+
+
+@pytest.mark.parametrize("method, dtype", SOFT)
+@pytest.mark.parametrize("num", [1, 6])
+def test_soft_check_kernel_on_ragged_column_tiles(cuda, method, dtype, num):
+    """n_rows so large that the card's L2 share holds few columns of pm:
+    the launch runs several column tiles, the last one short (B not a
+    multiple of the tile): one code over 3 1/8 tiles of a warp's run of 512
+    bytes, or six codes of 128 bytes of trials over tiles of five whole
+    codes."""
+    elem = torch.empty(0, dtype=dtype).element_size()
+    l2 = soft_bp._l2_bytes(torch.cuda.current_device())
+    budget = l2 * soft_bp._CHECK_L2_SHARE
+    n_rows = int(budget / (512 * 1.5) if num == 1 else budget / (128 * 5.5))
+    dc = 6
+    cpc = (32 * 16 * 3 + 64) // elem if num == 1 else 128 // elem
+    vec, tile = soft_bp.soft_check_geometry(elem, cpc * num, cpc, dc, n_rows,
+                                            l2)
+    assert tile < cpc * num and (cpc * num) % tile
+    case = _check_kernel_case(dtype, dc, cpc, num, n_rows=n_rows, rows=500,
+                              seed=num)
+    _check_kernel_against_plain(cuda, case, method)
+
+
+@pytest.mark.parametrize("dc", [2, 6, 8, 12])
+@pytest.mark.parametrize("cpc", [4, 8, 16])
+@pytest.mark.parametrize("planes", ["edges", "zeros", "saturated"])
+def test_soft_check_kernel_equals_plain_int8_adversarial(cuda, dc, cpc,
+                                                         planes):
+    """Kernel C's packed int8 lanes bit for bit against the plain version
+    where saturation and ties decide, at 4, 8 and 16 bytes a thread and on
+    the generic degree-12 path, padded sockets and stopped codes
+    included."""
+    case = _check_kernel_case(torch.int8, dc, cpc, 6, seed=dc + cpc,
+                              planes=planes)
+    msg, unsat = _check_kernel_against_plain(cuda, case, "minsum")
+    on = case["active"].bool().repeat_interleave(cpc)
+    if planes == "zeros":
+        assert not msg.any() and int(unsat.sum()) == 0
+    if planes == "saturated":
+        real = (case["table"] != case["pad_var"]).permute(1, 2, 0) \
+            .reshape(-1, 6).repeat_interleave(cpc, 1)
+        assert bool((msg[real & on].abs() == 127).all())
+
+
+@pytest.mark.parametrize("rows, cols", [(0, 64), (5, 0)])
+def test_soft_check_kernel_of_empty_planes_is_a_no_op(cuda, rows, cols):
+    table = torch.zeros((2, rows, 6), dtype=torch.int32, device=cuda)
+    pm = torch.ones((7, cols), device=cuda)
+    msg = torch.full((rows * 6, cols), 3.0, device=cuda)
+    unsat = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = soft_bp.soft_check.launches
+    soft_bp.soft_check(pm, msg, table, torch.ones_like(unsat), unsat,
+                       method="minsum")
+    assert soft_bp.soft_check.launches == before
+    assert not unsat.any() and bool((msg == 3).all())
+
+
 @pytest.mark.parametrize("family", ["regular", "irregular"])
 @pytest.mark.parametrize("num", [1, 5])
 @pytest.mark.parametrize("method, dtype", SOFT)
