@@ -119,17 +119,29 @@ this run's tensors) over 3.35 TB/s and its operations over the peak rate
 of their type (``bound_by`` names the larger), and ``library_ms``, the
 time of one PyTorch call computing the same function where one exists.
 
-K2 and K3 are reported at the ensemble main path's batched shape (one code
-per word); their single-code times from phase 4 stand beside as
-``fixed_ms``.  ``launches`` counts the ensemble main path, ``launches_fixed``
-the fixed-code one; for the kernels of the later paths, ``launches``
-counts the ensemble path each serves first (the irregular BEC path for the
-irregular sampler, the (3,6) Gallager path for kernel G, the AWGN
-sum-product path for kernels A, B and C; the fixed (3,6) Gallager path
-for the Gallager check and variable kernels, which the ensemble paths no
-longer run) and ``launches_by_path`` every path of phases 16 and 21.
-Kernel G's bound is its shared-memory accesses for the rounds its codes
-ran, over 132 SMs x 32 a clock at 1.98 GHz, or its device-memory bytes.
+Kernel D, the whole all-zero erasure-BP decode of one code per block,
+runs the ensemble BEC chunks in place of K2/K3 (ops/erasure_bp.py::
+takes_erasure_decode_kernel): phase 9 holds it to its plain version bit
+for bit (known, per-code errors per round, rounds) at 768 codes, regular
+and irregular, at eps = 0 and 1, at 0 and 1 rounds and on a batch whose
+last code to move reaches zero beside a stuck one; phases 11 and 16
+assert that the ensemble BEC paths launch D and never K2/K3; phase 12
+times D beside the K2/K3 decode it replaced and profiles the ensemble
+chunk.
+
+K2 and K3 are reported at the fixed-code shape of phase 4 (one code, 768
+words), where the fixed path counts their launches; their times at the
+batched shape of 768 codes (one word a code) stand beside as
+``ms_codes768``.  ``launches`` counts the main path each kernel serves
+(the fixed path for K2/K3, the ensemble path for K1, K4, K5 and D); for
+the kernels of the later paths, ``launches`` counts the ensemble path each
+serves first (the irregular BEC path for the irregular sampler, the (3,6)
+Gallager path for kernel G, the AWGN sum-product path for kernels A, B
+and C; the fixed (3,6) Gallager path for the Gallager check and variable
+kernels, which the ensemble paths no longer run) and ``launches_by_path``
+every path of phases 16 and 21.  Kernels G's and D's bounds are their
+shared-memory accesses for the rounds their codes ran, over 132 SMs x 32
+a clock at 1.98 GHz, or their device-memory bytes.
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  On success the last three lines are the card's name and power
@@ -152,7 +164,10 @@ DV, DC = 3, 6
 CODES_FULL = 768          # ensemble main path: one code per 32 trials
 FIXED_PATH = ("bernoulli_packed", "check_exactly_one", "variable_or_update",
               "per_trial_counts")
-ENSEMBLE_PATH = FIXED_PATH + ("sample_regular_codes",)
+# the ensemble chunks decode their batch of codes with kernel D, never K2/K3
+ENSEMBLE_PATH = ("bernoulli_packed", "erasure_decode", "per_trial_counts",
+                 "sample_regular_codes")
+ROUND_PAIR = ("check_exactly_one", "variable_or_update")
 # the repository's irregular pairs (tests/test_irregular.py): the rate-1/2
 # BEC pair (eps* = 0.45265) and the dv >= 3 Gallager pair (p* = 0.0576)
 LAM_BEC, LAM_GAL, RHO6 = [0, 1 / 3, 0, 2 / 3], [0, 0, 0.5, 0.5], \
@@ -378,6 +393,164 @@ def decode_smem_accesses(graph, rounds, wpc: int) -> int:
                + (rounds.to(torch.int64) * per_round).sum())
 
 
+def round_kernel_bec_decode(c, erased, iters: int):
+    """The all-zero BEC decode of ``c`` through K2/K3 and the host loop
+    (one host read a round): what the ensemble chunks ran before kernel
+    D."""
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
+
+    return erasure_bp._decode_allzero(c, erased, iters,
+                                      erasure_bp.check_exactly_one,
+                                      erasure_bp.variable_or_update,
+                                      bitops.per_trial_counts)
+
+
+def erasure_decode_smem_accesses(chk_to_var, rows: int, rounds,
+                                 wpc: int) -> int:
+    """The least shared-memory accesses (4 bytes each) of kernel D for the
+    rounds ``rounds`` int[C] its codes ran: the set-up (the known plane and
+    the socket table written), a round's check pass (each socket's known
+    word read, each check's summary written), and each variable's word
+    written once a decode (a round's variable half updates only the words
+    it makes known, and the scatter counts them from its atomics with no
+    pass over the variables)."""
+    import torch
+
+    checks, dc = chk_to_var.shape[-2:]
+    per_round = (checks * dc + checks) * wpc
+    return int(chk_to_var.shape[0] * (2 * rows * wpc + checks * dc)
+               + rounds.to(torch.int64).sum() * per_round)
+
+
+def erasure_decode_phase(dev, batch_codes, erased, kernels) -> dict:
+    """Phase 9's kernel D part: the whole decode against its plain version
+    on all three outputs (known, per-code round_errors, rounds) at 768 codes of n = 10^4 (regular and irregular) at
+    eps = 0.42, 0 and 1, at budgets of 50, 0 and 1 rounds, and on a batch
+    whose last code to move reaches zero while another is stuck; the
+    assembled decode against the K2/K3 decode and the plain one; the rule
+    on the wpc-24 batch.  Returns kernel D's row of the JSON line (its
+    times come in phase 12)."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models import irregular
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
+
+    codes = batch_codes[1]
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(N_FULL, LAM_BEC, RHO6,
+                                                        device=dev)
+    irr = erasure_bp._phantom_view(irregular.sample_irregular_codes(
+        1, 0, CODES_FULL, spec, "repair", device=dev))
+    converging = bitops.bernoulli_packed(0.3, tuple(erased.shape), seed=9,
+                                         device=dev)
+    converging[:, 0] = -1                     # code 0: every bit erased
+    cases = {
+        "regular_768": (codes, erased, ITERS),
+        "irregular_768": (irr, erasure_bp._pad_phantom_row(erased), ITERS),
+        "eps_0": (codes, torch.zeros_like(erased), ITERS),
+        "eps_1": (codes, torch.full_like(erased, -1), ITERS),
+        "iters_0": (codes, erased, 0),
+        "iters_1": (codes, erased, 1),
+        "stuck_and_zero": (codes, converging, ITERS)}
+    err_d, rounds_of = 0, {}
+    for label, (c, planes, iters) in cases.items():
+        want = erasure_bp._erasure_decode_plain(planes, c.chk_to_var,
+                                                c.var_to_chk, iters)
+        got = erasure_bp.erasure_decode(planes, c.chk_to_var, c.var_to_chk,
+                                        iters)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        check(err == 0, f"kernel D ({label}) differs from its plain version "
+                        f"(max |d| {err})")
+        err_d = max(err_d, err)
+        rounds = want[2]
+        rounds_of[label] = rounds
+        print(f"kernel D {label}: equal to plain on known, "
+              f"round_errors and rounds; rounds max {int(rounds.max())}, "
+              f"mean {float(rounds.float().mean()):.2f}, erasures "
+              f"{int(want[1][:, 0].sum())} -> {int(want[1][:, -1].sum())}",
+              flush=True)
+    r = rounds_of
+    check(int(r["eps_0"].max()) == 0 and bool((r["eps_1"] == 1).all())
+          and int(r["iters_0"].max()) == 0 and bool((r["iters_1"] == 1).all()),
+          "kernel D: rounds at eps 0 / 1 or at budgets 0 / 1")
+    stuck = r["stuck_and_zero"]
+    check(int(stuck[0]) == 1 and 1 < int(stuck[1:].max()) < ITERS,
+          f"kernel D: the stuck code ran {int(stuck[0])} rounds, the others "
+          f"up to {int(stuck[1:].max())}")
+    # the assembled decode: D's sums against the host loop's (the K2/K3
+    # decode and the plain one), "one more" round included
+    for label in ("regular_768", "stuck_and_zero"):
+        c, planes, iters = cases[label]
+        before = kernels["erasure_decode"]["wrapper"].launches
+        got = erasure_bp.bp_decode_packed_allzero(c, planes, iters)
+        check(kernels["erasure_decode"]["wrapper"].launches == before + 1,
+              f"the decode of {label} did not take kernel D")
+        for name, want in (("K2/K3", round_kernel_bec_decode(c, planes,
+                                                             iters)),
+                           ("plain", erasure_bp.bp_decode_packed_allzero_plain(
+                               c, planes, iters))):
+            check(torch.equal(got.known, want.known)
+                  and torch.equal(got.error_totals, want.error_totals)
+                  and got.iterations == want.iterations,
+                  f"decode of {label} by kernel D differs from the {name} "
+                  "decode")
+        print(f"decode {label} by kernel D == K2/K3 == plain: iterations "
+              f"{got.iterations} (codes' rounds max "
+              f"{int(rounds_of[label].max())})", flush=True)
+    # the last code to move reached zero beside a stuck one: the summed
+    # count needs one more, unchanged round to stop
+    check(got.iterations == int(stuck.max()) + 1,
+          f"the stuck batch's decode ran {got.iterations} rounds")
+    # the wpc-24 batch keeps K2/K3 by the rule
+    wide = batch_codes[24]
+    check(not erasure_bp.takes_erasure_decode_kernel(wide, WORDS_FULL),
+          "the rule takes kernel D for 24 words a code")
+    counts = {k: kernels[k]["wrapper"].launches
+              for k in ("erasure_decode",) + ROUND_PAIR}
+    erasure_bp.bp_decode_packed_allzero(wide, erased, ITERS)
+    torch.cuda.synchronize()
+    used = {k: kernels[k]["wrapper"].launches - v for k, v in counts.items()}
+    check(used["erasure_decode"] == 0 and used["check_exactly_one"] > 0,
+          f"the wpc-24 decode launched {used}")
+    print(f"wpc 24 ({wide.num_codes} codes) routes to K2/K3: {used}",
+          flush=True)
+    return {"max_abs_err": err_d, "library_ms": None,
+            "rounds_768": {"max": int(r["regular_768"].max()),
+                           "sum": int(r["regular_768"].sum()),
+                           "mean": float(r["regular_768"].float().mean())}}
+
+
+def erasure_decode_timing(codes, erased) -> dict:
+    """Phase 12's kernel D part at 768 codes of n = 10^4: the wrapper
+    beside its plain version, and its bound for the rounds this run's codes
+    ran (the bytes: the socket table, the erased and known planes, the
+    counts)."""
+    from iib_project_ldpc_codes_tpu_torch.ops import erasure_bp
+
+    def run():
+        return erasure_bp.erasure_decode(erased, codes.chk_to_var,
+                                         codes.var_to_chk, ITERS)
+
+    ms = time_ms(run)
+    known, round_errors, rounds = run()
+    wpc = erased.shape[1] // codes.num_codes
+    accesses = erasure_decode_smem_accesses(codes.chk_to_var, codes.n,
+                                            rounds, wpc)
+    row = dict(
+        ms=ms,
+        plain_ms=time_ms(lambda: erasure_bp._erasure_decode_plain(
+            erased, codes.chk_to_var, codes.var_to_chk, ITERS), reps=1,
+            warmup=False),
+        ms_per_round=ms / int(rounds.max()), smem_accesses=accesses,
+        **bound(nbytes(codes.chk_to_var, erased, known, round_errors,
+                       rounds), accesses, SMEM_ACCESS_S))
+    print(f"kernel D at {codes.num_codes} codes, n = {codes.n}: "
+          f"{row['ms']:.4f} ms, {row['ms_per_round']:.4f} a round of the "
+          f"longest code; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"plain {row['plain_ms']:.1f} ms", flush=True)
+    return row
+
+
 def gallager_decode_phase(dev, cases) -> dict:
     """Phase 14's kernel G part: the whole decode against its plain
     version on all three outputs at 768 codes of n = 10^4 (regular and
@@ -513,7 +686,7 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
 
     # -- 13 -------------------------------------------------------------------
     phase("13 irregular sampler against its plain version; irregular "
-          "K2/K3 decode")
+          "decode (K2/K3 on one code, kernel D on 768)")
     spec = irregular.IrregularEnsembleSpec.from_lam_rho(N_FULL, LAM_BEC, RHO6,
                                                         device=dev)
     spec_small = irregular.IrregularEnsembleSpec.from_lam_rho(
@@ -753,8 +926,7 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
     paths = {
         "bec_irregular": (dict(channel_param=EPS_FULL, lam=LAM_BEC,
                                rho=RHO6),
-                          ("bernoulli_packed", "check_exactly_one",
-                           "variable_or_update", "per_trial_counts")),
+                          ("bernoulli_packed", "per_trial_counts")),
         "gallager_36": (dict(channel="BSC", decoder="gallager",
                              channel_param=P_GAL),
                         ("bernoulli_packed", "per_trial_counts")),
@@ -765,12 +937,15 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
     sampler_of = {"bec_irregular": "sample_irregular_codes",
                   "gallager_36": "sample_regular_codes",
                   "gallager_irregular": "sample_irregular_codes"}
-    # the Gallager decode by shape (ops/gallager.py::takes_decode_kernel):
-    # kernel G on the ensemble chunks (one word a code), the round kernels
-    # on the fixed code at 768 words; the other route is not launched
+    # the decodes by shape (ops/gallager.py::takes_decode_kernel, ops/
+    # erasure_bp.py::takes_erasure_decode_kernel): kernels G and D on the
+    # ensemble chunks (one word a code), the round kernels on the fixed code
+    # at 768 words; the other route is not launched
     rounds_pair = ("gallager_check", "gallager_variable")
-    route = {"ensemble": (("gallager_decode",), rounds_pair),
-             "fixed": (rounds_pair, ("gallager_decode",))}
+    route = {("gallager", "ensemble"): (("gallager_decode",), rounds_pair),
+             ("gallager", "fixed"): (rounds_pair, ("gallager_decode",)),
+             ("bec", "ensemble"): (("erasure_decode",), ROUND_PAIR),
+             ("bec", "fixed"): (ROUND_PAIR, ("erasure_decode",))}
     by_path = {name: {} for name in kernels}
     results = {}
     with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
@@ -779,10 +954,8 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                 name = f"{path}_{mode}"
                 needed = uses + ((sampler_of[path],) if mode == "ensemble"
                                  else ())
-                idle = ()
-                if path.startswith("gallager"):
-                    needed += route[mode][0]
-                    idle = route[mode][1]
+                needed += route[path.split("_")[0], mode][0]
+                idle = route[path.split("_")[0], mode][1]
                 for k in kernels.values():
                     k["wrapper"].launches = 0
                 t0 = time.perf_counter()
@@ -864,8 +1037,8 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
               f"the n=1024 Gallager brackets launched {gal}")
         brackets["gallager_launches"] = gal
         print(json.dumps({"threshold_brackets_n1024": brackets}), flush=True)
-    for k in ("sample_irregular_codes",):
-        measured[k]["launches"] = by_path[k]["bec_irregular_ensemble"]
+    measured["sample_irregular_codes"]["launches"] = \
+        by_path["sample_irregular_codes"]["bec_irregular_ensemble"]
     measured["gallager_decode"]["launches"] = \
         by_path["gallager_decode"]["gallager_36_ensemble"]
     for k in rounds_pair:                # the fixed code's path since kernel G
@@ -881,13 +1054,19 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
     bec_cases = {"bec_irregular_one": irr_one,
                  "bec_irregular_768": irr_batch}
     for label, c in bec_cases.items():
-        for name, fn in (
-                ("plain", lambda: irregular_plain(c, erased, ITERS)),
-                ("kernel", lambda: erasure_bp
-                 .bp_decode_packed_allzero_irregular(c, erased, ITERS)),
-                ("kernel", lambda: erasure_bp
-                 .bp_decode_packed_allzero_irregular(c, erased, ITERS)),
-                ("plain", lambda: irregular_plain(c, erased, ITERS))):
+        # "kernel": kernel D at 768 codes, K2/K3 on one code; "rounds": the
+        # K2/K3 decode of the 768 codes that D replaced
+        turns = (("plain", lambda: irregular_plain(c, erased, ITERS)),
+                 ("kernel", lambda: erasure_bp
+                  .bp_decode_packed_allzero_irregular(c, erased, ITERS)),
+                 ("kernel", lambda: erasure_bp
+                  .bp_decode_packed_allzero_irregular(c, erased, ITERS)),
+                 ("plain", lambda: irregular_plain(c, erased, ITERS)))
+        if label.endswith("_768"):
+            turns = turns[:2] + (("rounds", lambda: round_kernel_bec_decode(
+                erasure_bp._phantom_view(c),
+                erasure_bp._pad_phantom_row(erased), ITERS)),) * 2 + turns[2:]
+        for name, fn in turns:
             decode_ms.setdefault(f"{label}_{name}", []).append(
                 time_ms(fn, reps=1 if name == "plain" else 3))
     # record="total" decodes: at 768 codes three ways -- the engine's route
@@ -1177,12 +1356,17 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         fixed_plain_ms=one_b["posterior_plain_ms"],
         fixed_bound_ms=one_b["posterior_bound"]["bound_ms"],
         fixed_library_ms=one_b["posterior_library_ms"])
-    # kernel C's every instantiation at 768 codes and (fixed_) at one code
-    by_kind = {}
+    # kernels B's and C's every instantiation at 768 codes and (fixed_) at
+    # one code; phase 21 adds the launches of the paths that run each
+    by_kind, b_by_kind = {}, {}
     for kind in kinds:
         entry = by_kind[kind] = {}
         for pre, label in (("", "regular_768"), ("fixed_", "regular_one")):
             t = pass_ms[f"{label}_{kind}"]
+            b_by_kind.setdefault(kind, {}).update({
+                f"{pre}ms": t["posterior_ms"],
+                f"{pre}bound_ms": t["posterior_bound"]["bound_ms"],
+                f"{pre}plain_ms": t["posterior_plain_ms"]})
             entry.update({
                 f"{pre}ms": t["check_ms"],
                 f"{pre}bound_ms": t["check_bound"]["bound_ms"],
@@ -1197,6 +1381,7 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         fixed_ms=one_b["check_ms"], fixed_plain_ms=one_b["check_plain_ms"],
         fixed_bound_ms=one_b["check_bound"]["bound_ms"],
         by_kind=by_kind)
+    measured["soft_posterior"]["by_kind"] = b_by_kind
     print("kernel C by instantiation (ms, bound, plain, GB/s on the bytes "
           f"the bound counts; card {smi}): "
           f"{json.dumps(measured['soft_check']['by_kind'])}", flush=True)
@@ -1410,6 +1595,15 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         print(json.dumps({"soft_threshold_brackets": brackets}), flush=True)
     for k in ("awgn_llr", "soft_posterior", "soft_check"):
         measured[k]["launches"] = by_path[k]["awgn_sp_f32_ensemble"]
+    # each instantiation's launches on the paths that run it: at 768 codes
+    # (launches) and on one code (fixed_launches)
+    for kind, path in (("sumproduct_f32", "awgn_sp_f32"),
+                       ("minsum_int8", "awgn_int8"),
+                       ("minsum_bf16", "bsc_minsum_bf16")):
+        for k in ("soft_posterior", "soft_check"):
+            entry = measured[k]["by_kind"][kind]
+            for pre, mode in (("", "ensemble"), ("fixed_", "fixed")):
+                entry[f"{pre}launches"] = by_path[k].get(f"{path}_{mode}")
     for k in kernels:
         measured[k].setdefault("launches_by_path", {}).update(by_path[k])
 
@@ -2291,6 +2485,11 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                                          tx), prepare=gfresh),
                 init_ms=time_ms(
                     lambda: q4_init(qc_gallager.qc_gallager_variable)),
+                # the first messages: the channel and the tables read, the
+                # messages written
+                init_bound_ms=bound(nbytes(
+                    gstate["rx"], gstate["before"], adj.var_chk, adj.var_row,
+                    adj.var_shift))["bound_ms"],
                 **bound(nbytes(gstate["before"], gstate["before"],
                                gstate["parity"], gstate["rx"],
                                gstate["decided"], gstate["counts"],
@@ -3642,6 +3841,10 @@ def main() -> int:
             wrapper=erasure_bp.variable_or_update,
             source="iib_project_ldpc_codes_tpu_torch/csrc/variable_or_update.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:231"),
+        "erasure_decode": dict(
+            wrapper=erasure_bp.erasure_decode,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/erasure_decode.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:292"),
         "per_trial_counts": dict(
             wrapper=bitops.per_trial_counts,
             source="iib_project_ldpc_codes_tpu_torch/csrc/per_trial_counts.cu",
@@ -3813,7 +4016,8 @@ def main() -> int:
         ms=time_ms(lambda: erasure_bp.check_exactly_one(code.chk_to_var,
                                                         known0)),
         plain_ms=time_ms(lambda: erasure_bp._check_exactly_one_plain(
-            code.chk_to_var, known0)))
+            code.chk_to_var, known0)),
+        **bound(nbytes(code.chk_to_var, known0, ex_k)))
     state = {}
 
     def fresh():
@@ -3837,7 +4041,9 @@ def main() -> int:
             prepare=fresh),
         plain_ms=time_ms(lambda: erasure_bp._variable_or_update_plain(
             code.var_to_chk, ex_k, state["known"], state["errors"], 1),
-            prepare=fresh))
+            prepare=fresh),
+        **bound(nbytes(code.var_to_chk, ex_k, known0, known0,
+                       state["errors"])))
     c_k = bitops.per_trial_counts(erased)
     c_p = bitops._per_trial_counts_plain(erased)
     err = max_abs_err(c_k, c_p)
@@ -4017,13 +4223,9 @@ def main() -> int:
           f"n=1024, C=32: {reject_ms:.3f} ms", flush=True)
 
     # -- 9 batched K2/K3 ----------------------------------------------------
-    phase("9 batched K2/K3 against their plain versions, 1 and 24 words "
-          "per code")
+    phase("9 batched K2/K3 and kernel D against their plain versions, 1 and "
+          "24 words per code")
     batch_codes = {}
-    for name in ("check_exactly_one", "variable_or_update"):
-        entry = measured[name]
-        entry["fixed_ms"], entry["fixed_plain_ms"] = (entry.pop("ms"),
-                                                      entry.pop("plain_ms"))
     for wpc in (1, 24):
         codes = ensemble.sample_codes(2, 0, WORDS_FULL // wpc, N_FULL, DV,
                                       DC, "repair", device=dev)
@@ -4044,14 +4246,16 @@ def main() -> int:
                    max_abs_err(er_k, state["errors"]))
         check(err3 == 0, f"batched K3 (wpc {wpc}) differs from its plain "
                          f"version (max |d| {err3})")
-        suffix = "" if wpc == 1 else f"_wpc{wpc}"
+        suffix = "_codes768" if wpc == 1 else f"_wpc{wpc}"
         k2, k3 = measured["check_exactly_one"], measured["variable_or_update"]
         k2["max_abs_err"] = max(k2["max_abs_err"], err2)
         k3["max_abs_err"] = max(k3["max_abs_err"], err3)
-        if wpc == 1:          # the ensemble main path's shape
-            k2.update(bound(nbytes(codes.chk_to_var, known0, ex_k)))
-            k3.update(bound(nbytes(codes.var_to_chk, ex_k, known0, known0,
-                                   state["errors"])))
+        if wpc == 1:          # the ensemble chunk's shape before kernel D
+            k2["bound_ms_codes768"] = bound(nbytes(
+                codes.chk_to_var, known0, ex_k))["bound_ms"]
+            k3["bound_ms_codes768"] = bound(nbytes(
+                codes.var_to_chk, ex_k, known0, known0,
+                state["errors"]))["bound_ms"]
         k2["ms" + suffix] = time_ms(lambda: erasure_bp.check_exactly_one(
             codes.chk_to_var, known0))
         k2["plain_ms" + suffix] = time_ms(
@@ -4084,6 +4288,8 @@ def main() -> int:
           and torch.equal(er_1, state["errors"]),
           "K3 on a batch of one code differs from the single-code call")
     print("C=1 batches equal the single-code calls", flush=True)
+    measured["erasure_decode"].update(
+        erasure_decode_phase(dev, batch_codes, erased, kernels))
 
     # -- 10 ensemble GPU against CPU ----------------------------------------
     phase("10 ensemble run_simulation on cuda against cpu")
@@ -4126,6 +4332,12 @@ def main() -> int:
             measured[name]["launches"] = kernels[name]["wrapper"].launches
             check(measured[name]["launches"] > 0,
                   f"kernel {name} was not launched on the ensemble path")
+        for name in ROUND_PAIR:
+            launched = kernels[name]["wrapper"].launches
+            check(launched == 0, f"kernel {name} was launched {launched} "
+                                 "times on the ensemble path")
+            # K2/K3's main path is the fixed one since kernel D
+            measured[name]["launches"] = measured[name]["launches_fixed"]
         rates = ens_res.error_rate_per_iteration
         check(ens_res.num_trials == 4 * 32 * WORDS_FULL,
               f"ensemble path ran {ens_res.num_trials} trials")
@@ -4170,17 +4382,24 @@ def main() -> int:
     phase("12 ensemble timing at the headline shape")
     decode_ms = {}
     for wpc, codes in batch_codes.items():
-        for name, fn in (
-                ("plain", erasure_bp.bp_decode_packed_allzero_plain),
-                ("kernel", erasure_bp.bp_decode_packed_allzero),
-                ("kernel", erasure_bp.bp_decode_packed_allzero),
-                ("plain", erasure_bp.bp_decode_packed_allzero_plain)):
+        # "kernel" is the engine's route: kernel D at one word a code,
+        # K2/K3 at 24; "rounds" the K2/K3 decode that D replaced
+        turns = (("plain", erasure_bp.bp_decode_packed_allzero_plain),
+                 ("kernel", erasure_bp.bp_decode_packed_allzero),
+                 ("kernel", erasure_bp.bp_decode_packed_allzero),
+                 ("plain", erasure_bp.bp_decode_packed_allzero_plain))
+        if wpc == 1:
+            turns = turns[:2] + (("rounds", round_kernel_bec_decode),) * 2 \
+                + turns[2:]
+        for name, fn in turns:
             ms = time_ms(lambda: fn(codes, erased, ITERS),
                          reps=1 if name == "plain" else 3)
             decode_ms.setdefault(f"{name}_codes{codes.num_codes}",
                                  []).append(ms)
             print(f"{codes.num_codes} codes (wpc {wpc}), {name}: {ms:.3f} ms "
                   "per decode", flush=True)
+    measured["erasure_decode"].update(erasure_decode_timing(
+        batch_codes[1], erased))
     cfg_ens = SimulationConfig(
         code_mode="ensemble", channel_param=EPS_FULL, n=N_FULL, dv=DV,
         dc=DC, iterations=ITERS, batch=32 * WORDS_FULL,
@@ -4248,8 +4467,7 @@ def main() -> int:
          "replaces": spec["replaces"],
          **{k: measured[name].get(k) for k in keys},
          **{k: v for k, v in measured[name].items() if k not in keys},
-         **({"batched": True} if name in ("check_exactly_one",
-                                          "variable_or_update",
+         **({"batched": True} if name in ("erasure_decode",
                                           "gallager_variable",
                                           "gallager_decode",
                                           "soft_posterior", "soft_check")

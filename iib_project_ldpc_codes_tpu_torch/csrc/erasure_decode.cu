@@ -1,0 +1,243 @@
+// Kernel D: the whole all-zero erasure-BP decode of one code per block.
+//
+// Replaces iib_project_ldpc_codes_tpu/ops/erasure_bp.py
+// bp_decode_packed_allzero (:292-306) as the JAX engine runs it under vmap,
+// one while_loop per code (parallel/montecarlo.py:268-285
+// _fresh_codes_chunk): the rounds of _packed_iteration_allzero (:279-288,
+// the check summary of :186-228 and the variable OR of :231-236) with the
+// stop rule of _run_to_fixed_point (:66-110).  On the port's batched host
+// loop this was K2 and K3 per round and one host read of the summed count
+// per round.
+//
+// Codes never exchange data and a code's stop depends only on its own
+// count, so one block runs every round of its code with no grid-wide sync
+// and no host read.  Dynamic shared memory holds the code's known plane
+// uint32[rows][wpc], its exactly-one plane uint32[checks][wpc], four
+// counters, its chk_to_var table socket-major ([dc][checks], so a warp's
+// index loads are consecutive and free of bank conflicts) and a byte per
+// check and word (the sockets a summary teaches): 185,016 bytes for a
+// (3,6) code of n = 10^4 at one word (32 trials) per code.  A round is
+//   1. the check pass: K2's two running masks (a zero seen once, a zero
+//      seen twice) over the dc known words of each check, out of shared
+//      memory, into the exactly-one plane;
+//   2. __syncthreads();
+//   3. the variable half as a scatter: for each check with a nonzero
+//      exactly-one word e and each of its sockets whose variable is
+//      unknown in a trial of e (noted by the check pass),
+//      atomicOr(&known[v], e).  OR is idempotent and a trial whose bit is
+//      set in e already knows every other participant, so the result is
+//      exact in any order; the atomic's old value counts each newly known
+//      bit exactly once, and the erasures left are the last count less
+//      those bits.  It reads no var_to_chk: the wrapper's chk_to_var and
+//      var_to_chk must describe the same graph, as every code of the
+//      package does;
+//   4. a block reduction of the count, then __syncthreads().
+// On the H100 this scatter was faster than a gather over var_to_chk (K3
+// per variable) and than 16-bit tables (PERF.md, row 7).
+//
+// The stop rule per code is _run_to_fixed_point's: start only if the
+// channel erased a bit, go on while it < max_iters, the count changed and
+// the count > 0.  Outputs: the final known plane, round_errors[code][r]
+// (r = 0 the channel's erasures, then the count after each round run, the
+// tail after the stop holding the final count) and rounds[code].
+//
+// Memory: the erased and known planes are code-major [C][rows][wpc] (the
+// wrapper transposes), so the one load and the one store of a decode
+// coalesce.  A decode's least time on the H100 is set by shared memory
+// (each socket's known word read and each check's summary written every
+// round, each variable's word written) against ~154 MB of device memory
+// for 768 codes of n = 10^4 (the tables and both planes once).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kDecodeThreads = 1024;
+// check degrees up to this run the unrolled socket loop (and the one-byte
+// socket masks); wider checks the loop over a runtime degree
+constexpr int kUnrolledDc = 8;
+
+// Adds v of every thread into *dst: a warp sum, then one atomic a warp.
+// Every thread of the block must call it.
+__device__ __forceinline__ void block_add(int* dst, int v) {
+  v = __reduce_add_sync(0xFFFFFFFFu, v);
+  if ((threadIdx.x & 31) == 0 && v != 0) atomicAdd(dst, v);
+}
+
+template <int kMaxDc>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+erasure_decode_kernel(const int32_t* __restrict__ erased,
+                      const int32_t* __restrict__ chk_to_var,
+                      int32_t* __restrict__ known_out,
+                      int32_t* __restrict__ round_errors,
+                      int32_t* __restrict__ rounds, int rows, int checks,
+                      int dc, int wpc, int max_iters) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int words = rows * wpc;
+  uint32_t* known = smem;                                // [rows][wpc]
+  uint32_t* ex = known + words;                          // [checks][wpc]
+  int* counts = reinterpret_cast<int*>(ex + checks * wpc);  // [4]
+  int32_t* c2v = counts + 4;                             // [dc][checks]
+  uint8_t* teach_of = reinterpret_cast<uint8_t*>(c2v + checks * dc);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const long long code = blockIdx.x;
+  const int32_t* er = erased + code * words;
+  const int32_t* c2v_g = chk_to_var + code * checks * dc;
+  int32_t* errors_out = round_errors + code * (max_iters + 1);
+
+  // set-up: the known plane, the table socket-major, the channel's count
+  if (tid < 4) counts[tid] = 0;
+  int erasures = 0;
+  for (int i = tid; i < words; i += nthreads) {
+    const uint32_t e = static_cast<uint32_t>(__ldg(er + i));
+    known[i] = ~e;
+    erasures += __popc(e);
+  }
+  for (int i = tid; i < checks * dc; i += nthreads) {
+    const int c = i / dc;
+    c2v[(i - c * dc) * checks + c] = __ldg(c2v_g + i);
+  }
+  __syncthreads();                      // counters zeroed, table in place
+  block_add(counts, erasures);
+  __syncthreads();
+  int current = counts[0];
+  if (tid == 0) errors_out[0] = current;
+
+  int it = 0;
+  bool go = current > 0 && max_iters > 0;
+  while (go) {
+    // 1. check pass.  With dc <= kMaxDc the socket loop is unrolled, so a
+    // check's dc index loads, then its dc known loads, are in flight
+    // together, and the sockets whose variable the summary e teaches
+    // (unknown in a trial of e) are noted in teach_of[c][w]; e is stored
+    // only where it is nonzero
+    for (int c = tid; c < checks; c += nthreads) {
+      if (kMaxDc > 0) {
+        int var[kMaxDc > 0 ? kMaxDc : 1];
+#pragma unroll
+        for (int j = 0; j < kMaxDc; ++j)
+          var[j] = j < dc ? c2v[j * checks + c] : 0;
+        for (int w = 0; w < wpc; ++w) {
+          uint32_t unknown[kMaxDc > 0 ? kMaxDc : 1];
+#pragma unroll
+          for (int j = 0; j < kMaxDc; ++j)
+            unknown[j] = j < dc ? ~known[var[j] * wpc + w] : 0u;
+          uint32_t once = 0u, twice = 0u;
+#pragma unroll
+          for (int j = 0; j < kMaxDc; ++j) {
+            twice |= once & unknown[j];
+            once |= unknown[j];
+          }
+          const uint32_t e = once & ~twice;
+          uint32_t teach = 0u;
+#pragma unroll
+          for (int j = 0; j < kMaxDc; ++j)
+            teach |= static_cast<uint32_t>((unknown[j] & e) != 0u) << j;
+          teach_of[c * wpc + w] = static_cast<uint8_t>(teach);
+          if (e != 0u) ex[c * wpc + w] = e;
+        }
+      } else {
+        for (int w = 0; w < wpc; ++w) {
+          uint32_t once = 0u, twice = 0u;
+          for (int j = 0; j < dc; ++j) {
+            const uint32_t unknown = ~known[c2v[j * checks + c] * wpc + w];
+            twice |= once & unknown;
+            once |= unknown;
+          }
+          ex[c * wpc + w] = once & ~twice;
+        }
+      }
+    }
+    __syncthreads();
+    // 3. variable half: the scatter counts the bits it makes known
+    int tally = 0;
+    for (int c = tid; c < checks; c += nthreads) {
+      for (int w = 0; w < wpc; ++w) {
+        if (kMaxDc > 0) {
+          uint32_t teach = teach_of[c * wpc + w];
+          if (teach == 0u) continue;
+          const uint32_t e = ex[c * wpc + w];
+          do {
+            const int j = __ffs(teach) - 1;
+            teach &= teach - 1u;
+            tally += __popc(
+                e & ~atomicOr(known + c2v[j * checks + c] * wpc + w, e));
+          } while (teach != 0u);
+        } else {
+          const uint32_t e = ex[c * wpc + w];
+          if (e == 0u) continue;
+          for (int j = 0; j < dc; ++j) {
+            uint32_t* k = known + c2v[j * checks + c] * wpc + w;
+            // a racing atomic can only have set more bits: skipping an
+            // OR that adds nothing keeps the count exact
+            if ((*reinterpret_cast<volatile uint32_t*>(k) & e) != e)
+              tally += __popc(e & ~atomicOr(k, e));
+          }
+        }
+      }
+    }
+    // 4. the round's count; the next round's counter is zeroed only after
+    // every thread has read this one's twin (two rounds back)
+    int* sum = counts + 1 + (it & 1);
+    block_add(sum, tally);
+    __syncthreads();
+    const int next = current - *sum;
+    if (tid == 0) {
+      errors_out[it + 1] = next;
+      counts[1 + ((it + 1) & 1)] = 0;
+    }
+    ++it;
+    go = it < max_iters && next > 0 && next != current;
+    current = next;
+  }
+  for (int r = it + 1 + tid; r <= max_iters; r += nthreads) errors_out[r] = current;
+  if (tid == 0) rounds[code] = it;
+  int32_t* out = known_out + code * words;
+  for (int i = tid; i < words; i += nthreads) out[i] = static_cast<int32_t>(known[i]);
+}
+
+template <int kMaxDc>
+int launch_decode(int num_codes, size_t smem_bytes, cudaStream_t stream,
+                  const int32_t* erased, const int32_t* chk_to_var,
+                  int32_t* known, int32_t* round_errors, int32_t* rounds,
+                  int rows, int checks, int dc, int wpc, int max_iters) {
+  auto kernel = erasure_decode_kernel<kMaxDc>;
+  const cudaError_t opt = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes));
+  if (opt != cudaSuccess) return static_cast<int>(opt);
+  kernel<<<num_codes, kDecodeThreads, smem_bytes, stream>>>(
+      erased, chk_to_var, known, round_errors, rounds, rows, checks, dc, wpc,
+      max_iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// smem_bytes = (rows + checks) * wpc * 4 + 16 + checks * dc * 4 + checks *
+// wpc (the socket masks); the wrapper computes it and checks it against the
+// opt-in limit, and a refused opt-in or launch returns its CUDA error.
+extern "C" int ldpc_erasure_decode(const void* erased, const void* chk_to_var,
+                                   void* known, void* round_errors,
+                                   void* rounds, int num_codes, int rows,
+                                   int checks, int dc, int wpc, int max_iters,
+                                   void* stream) {
+  if (dc < 1 || wpc < 1 || rows < 1 || checks < 1 || max_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_codes <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem_bytes =
+      (static_cast<size_t>(rows) + checks) * wpc * sizeof(uint32_t) +
+      4 * sizeof(int) + static_cast<size_t>(checks) * dc * sizeof(int32_t) +
+      static_cast<size_t>(checks) * wpc;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* er = static_cast<const int32_t*>(erased);
+  const auto* c2v = static_cast<const int32_t*>(chk_to_var);
+  auto* kn = static_cast<int32_t*>(known);
+  auto* re = static_cast<int32_t*>(round_errors);
+  auto* ro = static_cast<int32_t*>(rounds);
+  if (dc <= kUnrolledDc)
+    return launch_decode<kUnrolledDc>(num_codes, smem_bytes, s, er, c2v, kn,
+                                      re, ro, rows, checks, dc, wpc,
+                                      max_iters);
+  return launch_decode<0>(num_codes, smem_bytes, s, er, c2v, kn, re, ro, rows,
+                          checks, dc, wpc, max_iters);
+}

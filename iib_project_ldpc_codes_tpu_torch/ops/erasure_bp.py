@@ -26,6 +26,15 @@ when every code's count is unchanged, and on the BEC an unchanged count is
 an absorbing fixed point.  ``error_totals`` is then the sum of the JAX
 package's per-code (vmapped) arrays, tails included.
 
+Kernel D, :func:`erasure_decode` (``csrc/erasure_decode.cu``), runs that
+per-code decode whole, every round of a code in one block with its known
+plane and check table in shared memory, and returns the per-code counts;
+their sum is ``error_totals`` and the host loop's rule applied to the sum
+gives ``iterations`` (the "one more" round included), read once a decode.
+:func:`takes_erasure_decode_kernel` picks it by shape alone: a batch of
+codes (not one code, not a quasi-cyclic code) each of which fits one
+block, as the ensemble chunks at one word a code do; the rest run K2/K3.
+
 Irregular codes (:class:`..models.irregular.IrregularLDPCCode`, one or a
 batch) decode through the same K2/K3 on a phantom view of their padded
 tables (:func:`bp_decode_packed_allzero_irregular`): the planes gain the
@@ -207,6 +216,16 @@ def _code_major_to_plane(x: torch.Tensor, num: int) -> torch.Tensor:
         .reshape(x.shape[0] // num, -1)
 
 
+def _plane_to_code_major(x: torch.Tensor, num: int) -> torch.Tensor:
+    """[n, C * wpc] -> [C * n, wpc]: each code's words contiguous (the
+    inverse of :func:`_code_major_to_plane`)."""
+    if num == 1:
+        return x
+    n, words = x.shape
+    return x.reshape(n, num, words // num).transpose(0, 1).contiguous() \
+        .reshape(num * n, -1)
+
+
 def _check_exactly_one_plain(chk_to_var: torch.Tensor,
                              known: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: the JAX package's per-socket prefix/suffix
@@ -251,16 +270,23 @@ def check_exactly_one(chk_to_var: torch.Tensor,
 check_exactly_one.launches = 0
 
 
+def _or_by_variable(var_to_chk: torch.Tensor,
+                    exactly_one: torch.Tensor) -> torch.Tensor:
+    """int32[n, W]: ``OR_j exactly_one[var_to_chk[:, j]]`` per code of a
+    batch (erasure_bp.py:231-236)."""
+    acc = _gather_rows(exactly_one, var_to_chk, 0)
+    for j in range(1, var_to_chk.shape[-1]):
+        acc |= _gather_rows(exactly_one, var_to_chk, j)
+    num = var_to_chk.shape[0] if var_to_chk.dim() == 3 else 1
+    return _code_major_to_plane(acc, num)
+
+
 def _variable_or_update_plain(var_to_chk: torch.Tensor,
                               exactly_one: torch.Tensor, known: torch.Tensor,
                               errors: torch.Tensor, slot: int) -> None:
     """Plain version of K3 (erasure_bp.py:231-236, 279-288), per code of
     a batch."""
-    acc = _gather_rows(exactly_one, var_to_chk, 0)
-    for j in range(1, var_to_chk.shape[-1]):
-        acc |= _gather_rows(exactly_one, var_to_chk, j)
-    num = var_to_chk.shape[0] if var_to_chk.dim() == 3 else 1
-    known |= _code_major_to_plane(acc, num)
+    known |= _or_by_variable(var_to_chk, exactly_one)
     errors[slot] = popcount(~known).sum(dtype=torch.int64).to(torch.int32)
 
 
@@ -295,15 +321,150 @@ def variable_or_update(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
 variable_or_update.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Kernel D: the whole all-zero decode, one block per code
+# ---------------------------------------------------------------------------
+
+#: dynamic shared memory one block may opt into on the kernels' only
+#: target, sm_90 (Hopper: 227 KB of the SM's 256 KB)
+SMEM_OPTIN_BYTES = 232_448
+
+
+def _erasure_decode_smem_bytes(rows: int, checks: int, dc: int,
+                               wpc: int) -> int:
+    """Kernel D's shared memory for one code: its known and exactly-one
+    planes of ``wpc`` words, four counters, its chk_to_var table (int32)
+    and the scatter's socket masks (a byte per check and word)."""
+    return (rows + checks) * wpc * 4 + 16 + checks * dc * 4 + checks * wpc
+
+
+def takes_erasure_decode_kernel(code, words: int) -> bool:
+    """The rule that picks kernel D (:func:`erasure_decode`) for the packed
+    all-zero decode of ``words`` words on ``code``, by shape alone: the
+    generic tables (an :class:`LDPCCode` or an irregular code's phantom
+    view; quasi-cyclic codes keep their circulant-index rounds) with a
+    leading [C] axis (one code keeps K2/K3), split evenly over the codes,
+    and one code's shared memory within one block's."""
+    if not isinstance(code, (LDPCCode, _PhantomView)) or \
+            code.chk_to_var.dim() != 3:
+        return False
+    num, checks, dc = code.chk_to_var.shape
+    return words % num == 0 and _erasure_decode_smem_bytes(
+        code.n, checks, dc, words // num) <= SMEM_OPTIN_BYTES
+
+
+def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
+                          var_to_chk: torch.Tensor, max_iters: int):
+    """Plain version of kernel D, on any device: the batched plain passes
+    with a count and a stop per code (a stopped code's words are frozen),
+    no loop over codes."""
+    num = chk_to_var.shape[0]
+    wpc = erased.shape[1] // num
+
+    def per_code(known):
+        return popcount(~known).sum(0, dtype=torch.int64) \
+            .reshape(num, wpc).sum(1)
+
+    known = ~erased
+    current = per_code(known)
+    round_errors = torch.empty((num, max_iters + 1), dtype=torch.int64,
+                               device=erased.device)
+    round_errors[:, 0] = current
+    rounds = torch.zeros(num, dtype=torch.int32, device=erased.device)
+    active = current > 0
+    it = 0
+    while it < max_iters and bool(active.any()):
+        grown = known | _or_by_variable(
+            var_to_chk, _check_exactly_one_plain(chk_to_var, known))
+        known = torch.where(active.repeat_interleave(wpc)[None, :], grown,
+                            known)
+        new = per_code(known)
+        rounds += active.to(torch.int32)
+        round_errors[:, it + 1] = new
+        active &= (new != current) & (new > 0)
+        current = new
+        it += 1
+    round_errors[:, it + 1:] = current[:, None]
+    return known, round_errors.to(torch.int32), rounds
+
+
+def erasure_decode(erased: torch.Tensor, chk_to_var: torch.Tensor,
+                   var_to_chk: torch.Tensor, max_iters: int):
+    """Kernel D: the whole all-zero decode of each code of a batch, one
+    block per code.  ``erased`` int32[n, W] (code g's words ``g * wpc``
+    onward), the tables ``chk_to_var`` int32[C, m, dc] and ``var_to_chk``
+    int32[C, n, dv] of one graph (an irregular code's phantom view).
+
+    Returns ``(known, round_errors, rounds)``: the final known plane
+    int32[n, W], the erasures int32[C, max_iters+1] after each round (row
+    0 the channel's; after a code's stop its final count) and the rounds
+    int32[C] each code ran, by the stop rule of :func:`_run_to_fixed_point`
+    per code.  The kernel scatters each check's summary into its sockets
+    and reads no ``var_to_chk`` (the plain version does): both tables must
+    describe the same graph.  Raises when a code does not fit one block's
+    shared memory."""
+    check_int32("erased", erased, 2)
+    check_int32("chk_to_var", chk_to_var, 3)
+    check_int32("var_to_chk", var_to_chk, 3)
+    rows, words = erased.shape
+    wpc = _words_per_code("chk_to_var", chk_to_var, words)
+    num, checks, dc = chk_to_var.shape
+    if var_to_chk.shape[:2] != (num, rows):
+        raise ValueError("chk_to_var, var_to_chk and erased do not fit "
+                         "together")
+    _check_packed_batch_bits(rows, words)
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    if not use_kernel(erased, chk_to_var, var_to_chk):
+        return _erasure_decode_plain(erased, chk_to_var, var_to_chk,
+                                     max_iters)
+    need = _erasure_decode_smem_bytes(rows, checks, dc, wpc)
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"a code needs {need} bytes of shared memory, above "
+                         f"one block's {SMEM_OPTIN_BYTES}")
+    planes = _plane_to_code_major(erased, num)
+    known = torch.empty_like(planes)
+    round_errors = torch.empty((num, max_iters + 1), dtype=torch.int32,
+                               device=erased.device)
+    rounds = torch.empty(num, dtype=torch.int32, device=erased.device)
+    launch("ldpc_erasure_decode", erased.device, planes.data_ptr(),
+           chk_to_var.data_ptr(), known.data_ptr(), round_errors.data_ptr(),
+           rounds.data_ptr(), num, rows, checks, dc, wpc, max_iters)
+    erasure_decode.launches += 1
+    return _code_major_to_plane(known, num), round_errors, rounds
+
+
+erasure_decode.launches = 0
+
+
 def _decode_allzero(code: LDPCCode, erased: torch.Tensor, max_iters: int,
-                    check, variable, counts) -> PackedBPResult:
-    """The packed all-zero decode, parametrised by its three passes."""
+                    check, variable, counts,
+                    whole: Optional[Callable] = None) -> PackedBPResult:
+    """The packed all-zero decode, parametrised by its three passes and
+    the whole decode ``whole`` (:func:`erasure_decode`), which runs the
+    shapes :func:`takes_erasure_decode_kernel` accepts: the batch's error
+    totals are then the sum of its per-code counts and ``iterations``
+    follows from them by the host loop's rule (module docstring), read
+    once.  The rest, and every decode without ``whole``, run the host loop
+    over the passes."""
     check_int32("erased", erased, 2)
     if erased.shape[0] != code.n:
         raise ValueError(f"erased has {erased.shape[0]} rows, code n={code.n}")
     _check_packed_batch_bits(code.n, erased.shape[1])
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
+    if whole is not None and takes_erasure_decode_kernel(code,
+                                                         erased.shape[1]):
+        known, round_errors, _ = whole(
+            erased, code.chk_to_var, code.var_to_chk, max_iters)
+        sums = round_errors.sum(0, dtype=torch.int64).tolist()
+        totals, it = _run_to_fixed_point(lambda t: sums[t + 1], sums[0],
+                                         max_iters)
+        return PackedBPResult(
+            known=known,
+            error_totals=torch.tensor(totals, dtype=torch.int32,
+                                      device=erased.device),
+            iterations=it)
     known = ~erased
     total0 = int(counts(erased).sum(dtype=torch.int64))
     errors = torch.zeros(max_iters + 1, dtype=torch.int32,
@@ -328,12 +489,16 @@ def bp_decode_packed_allzero(code: LDPCCode, erased: torch.Tensor,
     batch of C codes (word w on code ``w // (W // C)``).
 
     ``erased`` is int32[n, W] (1 = erased), e.g. from
-    :func:`..channels.bec_packed_channel`.  On CUDA tensors every pass is
-    a hand-written kernel (K4 for the initial count, K2 and K3 per round);
-    on CPU tensors their plain versions run.
+    :func:`..channels.bec_packed_channel`.  On CUDA tensors a batch whose
+    codes each fit one block (:func:`takes_erasure_decode_kernel`) runs
+    kernel D, the whole decode in one launch; one code, and a batch that
+    does not fit, run the host loop over hand-written passes (K4 for the
+    initial count, K2 and K3 per round).  On CPU tensors their plain
+    versions run, by the same rule.
     """
     return _decode_allzero(code, erased, max_iters, check_exactly_one,
-                           variable_or_update, per_trial_counts)
+                           variable_or_update, per_trial_counts,
+                           erasure_decode)
 
 
 def bp_decode_packed_allzero_plain(code: LDPCCode, erased: torch.Tensor,

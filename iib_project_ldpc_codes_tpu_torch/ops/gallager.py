@@ -60,14 +60,12 @@ import torch
 from ..kernels import check_int32, launch, use_kernel
 from ..models.irregular import IrregularLDPCCode
 from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
-from .erasure_bp import (_check_packed_batch_bits, _code_major_to_plane,
-                         _pad_phantom_row, _words_per_code)
+from .erasure_bp import (SMEM_OPTIN_BYTES, _check_packed_batch_bits,
+                         _code_major_to_plane, _pad_phantom_row,
+                         _plane_to_code_major, _words_per_code)
 
 #: largest variable degree the variable kernel takes (registers per thread)
 MAX_DEGREE = 32
-#: dynamic shared memory one block may opt into on the kernels' only
-#: target, sm_90 (Hopper: 227 KB of the SM's 256 KB)
-SMEM_OPTIN_BYTES = 232_448
 
 
 def _bitsliced_count_ge(bits: List[torch.Tensor], threshold: int
@@ -523,16 +521,6 @@ def _gallager_decode_plain(received, chk_to_var, var_to_sock, thresholds,
         graph, received, len(ts), ts.__getitem__,
         lambda it: bool(ahead[it]), False, _PLAIN_PASSES, tx)
     return decided, round_errors, rounds
-
-
-def _plane_to_code_major(x: torch.Tensor, num: int) -> torch.Tensor:
-    """[n, C * wpc] -> [C * n, wpc]: each code's words contiguous (the
-    inverse of :func:`..erasure_bp._code_major_to_plane`)."""
-    if num == 1:
-        return x
-    n, words = x.shape
-    return x.reshape(n, num, words // num).transpose(0, 1).contiguous() \
-        .reshape(num * n, -1)
 
 
 def gallager_decode(received: torch.Tensor, chk_to_var: torch.Tensor,

@@ -203,6 +203,84 @@ def test_ensemble_run_gpu_equals_cpu(cuda, sampler, expurgation):
 
 
 # ---------------------------------------------------------------------------
+# Kernel D: the whole all-zero erasure-BP decode, one block per code
+# ---------------------------------------------------------------------------
+
+def _erasure_batch(family, num, n=600):
+    """A batch of ``num`` codes (the decode's view of them) on the CPU."""
+    if family == "irregular":
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+            n, [0, 1 / 3, 0, 2 / 3], [0, 0, 0, 0, 0, 1.0])
+        return erasure_bp._phantom_view(irregular.sample_irregular_codes(
+            4, 0, num, spec, "repair"))
+    dv, dc = (3, 6) if family == "regular" else (5, 10)    # dc > 8: the
+    return ensemble.sample_codes(4, 0, num, n, dv, dc, "raw")  # runtime loop
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
+@pytest.mark.parametrize("wpc, num", [(1, 40), (3, 7), (2, 1)])
+@pytest.mark.parametrize("max_iters", [0, 1, 50])
+def test_erasure_decode_kernel_equals_plain(cuda, family, wpc, num,
+                                            max_iters):
+    codes = _erasure_batch(family, num)
+    rows = codes.var_to_chk.shape[1]
+    # one erasure probability per code: 0, 1 and between
+    erased = torch.cat([bitops.bernoulli_packed(
+        float(p), (rows, wpc), seed=3, offset=g)
+        for g, p in enumerate(np.resize([0.0, 1.0, 0.3, 0.42, 0.5], num))],
+        dim=1)
+    if family == "irregular":
+        erased[-1] = 0                          # the phantom is never erased
+    out = []
+    for device in (cuda, "cpu"):
+        before = erasure_bp.erasure_decode.launches
+        got = erasure_bp.erasure_decode(
+            erased.to(device), codes.chk_to_var.to(device),
+            codes.var_to_chk.to(device), max_iters)
+        assert erasure_bp.erasure_decode.launches - before == \
+            (1 if device == cuda else 0)
+        out.append([t.cpu() for t in got])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    rounds = out[1][2]
+    assert rounds[0] == 0 and int(rounds.max()) <= max_iters
+    if num > 1 and max_iters:
+        assert rounds[1] == 1                   # every bit erased: stalls
+
+
+def test_erasure_decode_kernel_refuses_a_code_beyond_shared_memory(cuda):
+    codes = ensemble.sample_codes(0, 0, 2, 600, 3, 6, "repair").to(cuda)
+    wide = torch.zeros((600, 2 * 100), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        erasure_bp.erasure_decode(wide, codes.chk_to_var, codes.var_to_chk,
+                                  5)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("expurgation", [None, 1])
+def test_ensemble_bec_runs_take_kernel_d(cuda, family, expurgation):
+    # the ensemble BEC chunks decode by kernel D alone (twice a chunk when
+    # expurgated), and the run equals the CPU's in every counter
+    lam = dict(lam=[0, 1 / 3, 0, 2 / 3], rho=[0, 0, 0, 0, 0, 1.0]) \
+        if family == "irregular" else {}
+    cfg = SimulationConfig(channel_param=0.42, n=504, code_mode="ensemble",
+                           iterations=40, batch=640, num_tests=1920, seed=4,
+                           codes_per_chunk=10, max_block_errors=10**9,
+                           expurgation=expurgation, **lam)
+    wrappers = (erasure_bp.erasure_decode, erasure_bp.check_exactly_one,
+                erasure_bp.variable_or_update)
+    before = [w.launches for w in wrappers]
+    gpu = mc.run_simulation(cfg, device="cuda")
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert launched == [3 * (1 if expurgation is None else 2), 0, 0]
+    cpu = mc.run_simulation(cfg, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
+                  "trials_per_code", "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+# ---------------------------------------------------------------------------
 # Irregular codes and Gallager-A/B
 # ---------------------------------------------------------------------------
 
