@@ -1168,6 +1168,91 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
               flush=True)
 
 
+def misaligned(t, align: int):
+    """A contiguous copy of ``t`` whose data pointer lies ``align`` bytes
+    past a 16-byte boundary, as a view into a larger buffer."""
+    import torch
+
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    skip = align // t.element_size()
+    while buf[skip:].data_ptr() % 16 != align % 16:
+        skip += 1
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def posterior_cases(dev, llr, batch) -> dict:
+    """Kernel B against its plain version where phase 18's main cases do
+    not reach, per working type, at both count widths: 768 codes of 4 and
+    of 8 trials with msg and pm 8 and 4 bytes past a 16-byte boundary (the
+    narrower widths); 64 codes of n = 2048 with dv = 12 (the generic
+    degree path); the 768 codes at 24,576 trials with a third of the codes
+    stopped (their pm columns untouched, their counts 0).  Returns each
+    case's trials a thread by type."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.models import ensemble
+    from iib_project_ldpc_codes_tpu_torch.ops import soft_bp
+
+    dv12 = soft_bp._graph(ensemble.sample_codes(2, 0, 64, 2048, 12, 24,
+                                                "repair", device=dev))
+    graph = soft_bp._graph(batch)
+    stopped = (torch.arange(CODES_SOFT, device=dev) % 3 != 0) \
+        .to(torch.int32)
+    cases = {"cpc4_align8": (graph, 4 * CODES_SOFT, 8, None),
+             "cpc8_align4": (graph, 8 * CODES_SOFT, 4, None),
+             "dv12_64_codes": (dv12, 32 * 64, 16, None),
+             "stopped_third": (graph, COLS_SOFT, 16, stopped)}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for label, (g, cols, align, active) in cases.items():
+        num = g.num_codes
+        if active is None:
+            active = torch.ones(num, dtype=torch.int32, device=dev)
+        on = active.bool().repeat_interleave(cols // num)
+        out[label] = {}
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                            ("int8", torch.int8)):
+            llr_c = llr[:g.n, :cols].contiguous()
+            msg = torch.randn((g.msg_rows, cols), generator=gen,
+                              device=dev) * 6
+            if dtype == torch.int8:
+                llr0, msg = (soft_bp._quantise(x, 4.0) for x in (llr_c, msg))
+            else:
+                llr0, msg = llr_c, msg.to(dtype)
+            pm0 = torch.full(llr0.shape, 3, dtype=dtype, device=dev)
+            msg = misaligned(msg, align)
+            for width in (cols, num):
+                p_k, p_p = misaligned(pm0, align), pm0.clone()
+                c_k, c_p = (torch.zeros(width, dtype=torch.int32, device=dev)
+                            for _ in range(2))
+                soft_bp.soft_posterior(llr0, msg, g.var_to_sock, active, p_k,
+                                       c_k, pad_pos=g.pad_pos)
+                soft_bp._soft_posterior_plain(llr0, msg, g.var_to_sock,
+                                              active, p_p, c_p,
+                                              pad_pos=g.pad_pos)
+                torch.cuda.synchronize()
+                check(torch.equal(p_k, p_p) and torch.equal(c_k, c_p)
+                      and bool((p_k[:, ~on] == 3).all())
+                      and int(c_p.sum()) > 0,
+                      f"kernel B ({label}, {name}, counts of width {width}) "
+                      "differs from its plain version")
+            vec = soft_bp.soft_posterior_vector(
+                p_k.element_size(), cols // num, g.var_to_sock.shape[-1],
+                [(soft_bp._alignment(t), t.element_size())
+                 for t in (llr0, msg, p_k)])
+            out[label][name] = vec
+        print(f"kernel B {label}: equal to plain at both count widths; "
+              f"trials a thread {out[label]}", flush=True)
+    want = {"cpc4_align8": {"f32": 2, "bf16": 4, "int8": 4},
+            "cpc8_align4": {"f32": 1, "bf16": 2, "int8": 4},
+            "dv12_64_codes": {"f32": 1, "bf16": 2, "int8": 4}}
+    check(all(out[k] == v for k, v in want.items()),
+          f"kernel B's widths {out}, expected {want}")
+    return out
+
+
 def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
     """Phases 18-22: soft-decision BP (module docstring).  Tolerances:
     kernel A to one float32 ulp in under 1e-5 of the entries (float64
@@ -1272,16 +1357,23 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
                                       unsat, **kw)
             p_k, p_p = torch.empty_like(pm), torch.empty_like(pm)
             c_k, c_p = torch.zeros_like(counts), torch.zeros_like(counts)
-            soft_bp.soft_posterior(llr0, msg, graph.var_to_sock, active, p_k,
-                                   c_k, pad_pos=graph.pad_pos)
-            soft_bp._soft_posterior_plain(llr0, msg, graph.var_to_sock,
-                                          active, p_p, c_p,
-                                          pad_pos=graph.pad_pos)
+            # B's counts as the engine asks for totals: one per code
+            w_k, w_p = (torch.zeros(num, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+            for cnt_k, cnt_p in ((c_k, c_p), (w_k, w_p)):
+                soft_bp.soft_posterior(llr0, msg, graph.var_to_sock, active,
+                                       p_k, cnt_k, pad_pos=graph.pad_pos)
+                soft_bp._soft_posterior_plain(llr0, msg, graph.var_to_sock,
+                                              active, p_p, cnt_p,
+                                              pad_pos=graph.pad_pos)
             torch.cuda.synchronize()
             e_b = max(float((p_k.float() - p_p.float()).abs().max()),
-                      max_abs_err(c_k, c_p))
-            check(e_b == 0, f"kernel B ({label}, {kind}) differs from its "
-                            f"plain version (max |d| {e_b})")
+                      max_abs_err(c_k, c_p), max_abs_err(w_k, w_p))
+            check(e_b == 0 and torch.equal(
+                w_p, c_p.reshape(num, -1).sum(1, dtype=torch.int32)),
+                  f"kernel B ({label}, {kind}) differs from its plain "
+                  f"version (max |d| {e_b}) or its per-code counts from the "
+                  "per-trial ones")
             m_k, m_p = msg.clone(), msg.clone()
             u_k, u_p = torch.zeros_like(unsat), torch.zeros_like(unsat)
             soft_bp.soft_check(p_p, m_k, graph.chk_to_var, active, u_k, **kw)
@@ -1305,7 +1397,11 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
             ops_c = rows * COLS_SOFT * graph.dc * (7 if method == "sumproduct"
                                                    else 6)
             times = dict(
+                # the engine's launch (per-code counts), and per trial
                 posterior_ms=time_ms(lambda: soft_bp.soft_posterior(
+                    llr0, msg, graph.var_to_sock, active, p_k, w_k,
+                    pad_pos=graph.pad_pos)),
+                posterior_trial_ms=time_ms(lambda: soft_bp.soft_posterior(
                     llr0, msg, graph.var_to_sock, active, p_k, c_k,
                     pad_pos=graph.pad_pos)),
                 posterior_plain_ms=time_ms(
@@ -1317,7 +1413,7 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
                 check_plain_ms=time_ms(lambda: soft_bp._soft_check_plain(
                     p_p, m_p, graph.chk_to_var, active, u_p, **kw), reps=1),
                 posterior_bound=bound(nbytes(llr0, msg, graph.var_to_sock,
-                                             active, p_k, c_k)),
+                                             active, p_k, w_k)),
                 check_bound=bound(nbytes(p_p, m_k, graph.chk_to_var, active,
                                          m_k, u_k), ops_c,
                                   INT32_OPS_S if dtype == torch.int8
@@ -1332,6 +1428,16 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
                          check_counted_gb=counted / 1e9,
                          check_counted_gb_per_s=counted / 1e6 /
                          times["check_ms"])
+            # kernel B's trials a thread, and its rate on the bytes its
+            # bound counts
+            counted = nbytes(llr0, msg, graph.var_to_sock, active, p_k, w_k)
+            dv = graph.var_to_sock.shape[-1]
+            times.update(posterior_vec=soft_bp.soft_posterior_vector(
+                pm.element_size(), COLS_SOFT // num, dv,
+                [(16, t.element_size()) for t in (llr0, msg, p_k)]),
+                posterior_counted_gb=counted / 1e9,
+                posterior_counted_gb_per_s=counted / 1e6 /
+                times["posterior_ms"])
             if label == "regular_one" and kind == "sumproduct_f32":
                 # one PyTorch call summing each message into its variable
                 owner = graph.chk_to_var.reshape(-1).long()
@@ -1340,8 +1446,11 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
                     lambda: acc.index_add_(0, owner, msg))
                 del acc
             pass_ms[f"{label}_{kind}"] = times
-            print(f"  B {times['posterior_ms']:.4f} ms (bound "
-                  f"{times['posterior_bound']['bound_ms']:.4f}, plain "
+            print(f"  B {times['posterior_ms']:.4f} ms (per trial "
+                  f"{times['posterior_trial_ms']:.4f}; bound "
+                  f"{times['posterior_bound']['bound_ms']:.4f}, "
+                  f"{times['posterior_counted_gb_per_s']:.0f} GB/s, V = "
+                  f"{times['posterior_vec']}, plain "
                   f"{times['posterior_plain_ms']:.3f}); C "
                   f"{times['check_ms']:.4f} ms (bound "
                   f"{times['check_bound']['bound_ms']:.4f}, plain "
@@ -1352,7 +1461,11 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
     measured["soft_posterior"].update(
         max_abs_err=err_b, ms=main_b["posterior_ms"],
         plain_ms=main_b["posterior_plain_ms"], **main_b["posterior_bound"],
-        library_ms=None, fixed_ms=one_b["posterior_ms"],
+        library_ms=None, trial_ms=main_b["posterior_trial_ms"],
+        vec=main_b["posterior_vec"],
+        counted_gb_per_s=main_b["posterior_counted_gb_per_s"],
+        fixed_ms=one_b["posterior_ms"],
+        fixed_trial_ms=one_b["posterior_trial_ms"],
         fixed_plain_ms=one_b["posterior_plain_ms"],
         fixed_bound_ms=one_b["posterior_bound"]["bound_ms"],
         fixed_library_ms=one_b["posterior_library_ms"])
@@ -1365,8 +1478,12 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
             t = pass_ms[f"{label}_{kind}"]
             b_by_kind.setdefault(kind, {}).update({
                 f"{pre}ms": t["posterior_ms"],
+                f"{pre}trial_ms": t["posterior_trial_ms"],
                 f"{pre}bound_ms": t["posterior_bound"]["bound_ms"],
-                f"{pre}plain_ms": t["posterior_plain_ms"]})
+                f"{pre}plain_ms": t["posterior_plain_ms"],
+                f"{pre}counted_gb": t["posterior_counted_gb"],
+                f"{pre}counted_gb_per_s": t["posterior_counted_gb_per_s"],
+                f"{pre}vec": t["posterior_vec"]})
             entry.update({
                 f"{pre}ms": t["check_ms"],
                 f"{pre}bound_ms": t["check_bound"]["bound_ms"],
@@ -1385,6 +1502,11 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
     print("kernel C by instantiation (ms, bound, plain, GB/s on the bytes "
           f"the bound counts; card {smi}): "
           f"{json.dumps(measured['soft_check']['by_kind'])}", flush=True)
+    print("kernel B by instantiation (ms with per-code counts, trial_ms "
+          "with per-trial counts, bound, plain, GB/s on the bytes the "
+          f"bound counts, V trials a thread; card {smi}): "
+          f"{json.dumps(b_by_kind)}", flush=True)
+    measured["soft_posterior"]["cases"] = posterior_cases(dev, llr, batch)
 
     # -- 19 -------------------------------------------------------------------
     phase("19 whole soft decodes against the plain path at n=8192, 24576 "
@@ -2832,7 +2954,8 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
 def kernel_resources(smi: str) -> dict:
     """Registers, stack frame and local memory (spills), read with the
     toolkit's cuobjdump from the built library, of every instantiation of
-    kernel C (``soft_check``) and of S2's int8 instantiations
+    kernels C (``soft_check``) and B (``soft_posterior``) and of S2's int8
+    instantiations
     (``qc_soft_check_int8``, with their SASS instruction counts); with the
     theoretical occupancy the registers allow at 256 threads a block (a
     warp's registers allocated in units of 256, at most 64 warps an SM).
@@ -2906,10 +3029,32 @@ def kernel_resources(smi: str) -> dict:
     check(len(out["soft_check"]) == 115, f"kernel C: "
           f"{len(out['soft_check'])} instantiations in the library, "
           "expected 115")
+    # kernel B: soft_posterior_kernel<T, V, kDv, exact> and
+    # soft_posterior_kernel_int8<U, kDv, exact> (21 and 26 letters mangled)
+    out["soft_posterior"] = {}
+    for name, text in usage.items():
+        m = re.search(r"(21soft_posterior_kernel|26soft_posterior_kernel_int8)"
+                      r"I(\w*?)EEv", name)
+        if not m:
+            continue
+        args = list(map(int, re.findall(r"L[ib](\d+)E", m.group(2))))
+        if m.group(1).endswith("int8"):
+            words, max_dv, exact = args
+            key = f"int8_V{4 * words}"
+        else:
+            vec, max_dv, exact = args
+            key = ("bf16" if "bfloat16" in m.group(2) else "f32") + \
+                f"_V{vec}"
+        key += f"_dv{max_dv}" if exact else "_generic"
+        out["soft_posterior"][key] = fields(text)
+    check(len(out["soft_posterior"]) == 66, f"kernel B: "
+          f"{len(out['soft_posterior'])} instantiations in the library, "
+          "expected 66")
     print(f"kernel resources (S2 int8: U words a thread, up to dc sockets, "
-          f"per_socket_and_word the kernel's SASS over dc * U; kernel C: "
-          f"type, method, V trials a thread, the exact degree or the "
-          f"bound of the generic path; card {smi}): {json.dumps(out)}",
+          f"per_socket_and_word the kernel's SASS over dc * U; kernels C "
+          f"and B: type, (C) method, V trials a thread, the exact degree or "
+          f"the generic path (C: its bound); card {smi}): "
+          f"{json.dumps(out)}",
           flush=True)
     return out
 

@@ -194,6 +194,79 @@ struct MinSum8 {
   }
 };
 
+// ---------------------------------------------------------------------------
+// int8 posterior sums on packed lanes: four trials a 32-bit word
+// (soft_posterior.cu; qc_soft_posterior.cu may take it too)
+// ---------------------------------------------------------------------------
+//
+// JAX's posterior (ops/soft_bp.py _posterior in int16, then clip to +-127
+// and the int8 cast) on one word of four trials: each byte is sign-extended
+// into a 16-bit half (prmt with sign-replicating selectors: trials 0, 1
+// into `lo`, trials 2, 3 into `hi`), the halves are summed with __vadd2
+// (two 16-bit adds, no carry between them), saturated at +-127 by
+// __vmins2 / __vmaxs2 and packed back by prmt.  Why it is exact: every
+// addend lies in [-128, 127] and a posterior has at most 1 + 32 of them, so
+// |sum| <= 33 * 128 = 4,224 < 2^15: no half ever wraps, and each half holds
+// JAX's int16 sum exactly (integer addition, so in any order).  Saturation
+// keeps the sign, so the decision sum < 0 is bit 15 of the half.  A
+// saturating byte add per step (__vaddss4) is NOT exact: 127 + 127 - 127
+// gives 0 there, 127 in int16.
+struct Sum8 {
+  uint32_t lo, hi;
+
+  Sum8() = default;
+  __device__ __forceinline__ explicit Sum8(uint32_t x)
+      : lo(widen_lo(x)), hi(widen_hi(x)) {}
+
+  __device__ __forceinline__ void add(uint32_t x) {
+    lo = __vadd2(lo, widen_lo(x));
+    hi = __vadd2(hi, widen_hi(x));
+  }
+
+  // the four sums clipped to +-127, as int8 bytes in trial order
+  __device__ __forceinline__ uint32_t clipped() const {
+    uint32_t d;
+    asm("prmt.b32 %0, %1, %2, 0x6420;"
+        : "=r"(d) : "r"(clip(lo)), "r"(clip(hi)));
+    return d;
+  }
+
+  // bit i set where trial i's sum is negative
+  __device__ __forceinline__ uint32_t negative() const {
+    return ((lo >> 15) & 1u) | ((lo >> 30) & 2u) | ((hi >> 13) & 4u) |
+           ((hi >> 28) & 8u);
+  }
+
+  // trial i's sum
+  __device__ __forceinline__ int value(int i) const {
+    const uint32_t h = i < 2 ? lo : hi;
+    return i & 1 ? static_cast<int>(h) >> 16
+                 : static_cast<int>(static_cast<int16_t>(h & 0xFFFFu));
+  }
+
+  __device__ __forceinline__ static uint32_t widen_lo(uint32_t x) {
+    uint32_t d;
+    asm("prmt.b32 %0, %1, 0, 0x9180;" : "=r"(d) : "r"(x));
+    return d;
+  }
+
+  __device__ __forceinline__ static uint32_t widen_hi(uint32_t x) {
+    uint32_t d;
+    asm("prmt.b32 %0, %1, 0, 0xB3A2;" : "=r"(d) : "r"(x));
+    return d;
+  }
+
+  // each signed half into [-127, 127] (0xFF81 is -127)
+  __device__ __forceinline__ static uint32_t clip(uint32_t h) {
+    return __vmaxs2(__vmins2(h, 0x007F007Fu), 0xFF81FF81u);
+  }
+};
+
+// bit i of a nibble -> byte i (0 or 1): four bool lanes from four flags
+__device__ __forceinline__ uint32_t spread_nibble(uint32_t x) {
+  return (x * 0x00204081u) & 0x01010101u;
+}
+
 template <typename E, int N>
 __device__ __forceinline__ Lanes<E, N> load_lanes(const E* p) {
   return *reinterpret_cast<const Lanes<E, N>*>(p);

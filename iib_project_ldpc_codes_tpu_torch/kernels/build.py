@@ -59,7 +59,7 @@ SIGNATURES = {
                             _P),
     "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P, _P),
     "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "ldpc_soft_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _F, _F, _P),
     "ldpc_encode_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -328,7 +328,6 @@ class _Graph:
     dc: int
     pad_pos: int                # socket positions >= this are padding
     irregular: bool             # phantom row, per-degree threshold clamp
-    counts_total = False        # kernel B counts per trial, never in total
 
     @property
     def num_codes(self) -> int:

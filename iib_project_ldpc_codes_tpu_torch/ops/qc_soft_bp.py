@@ -254,7 +254,6 @@ class _QCSoftGraph:
     num_codes = 1
     irregular = False
     pad_pos = 0
-    counts_total = True        # S1 counts for the batch when asked
 
     @property
     def n(self) -> int:

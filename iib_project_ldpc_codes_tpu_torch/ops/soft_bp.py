@@ -7,7 +7,8 @@ flooding round is two hand-written kernels:
   * the variable pass :func:`soft_posterior` (kernel B,
     ``csrc/soft_posterior.cu``): posterior = channel LLR + the dv incoming
     messages in JAX's order, stored in the working type as the plane the
-    check pass gathers, and the per-trial count of negative posteriors;
+    check pass gathers, and the count of negative posteriors per trial
+    (where the trajectories are returned) or per code (the totals);
   * the check pass :func:`soft_check` (kernel C, ``csrc/soft_check.cu``):
     the syndrome from the sign bits of the gathered plane (a count of
     unsatisfied checks per code), the extrinsic subtraction, and min-sum
@@ -187,7 +188,8 @@ def _soft_posterior_plain(llr0, msg, var_to_sock, active, pm, counts, *,
                           int8_scale: float = 4.0, tx=None) -> None:
     """Plain version of kernel B, in JAX's form (soft_bp.py:166-171):
     the dv gathers summed in the accumulation type, padded sockets
-    reading the phantom check's zero row."""
+    reading the phantom check's zero row; ``counts`` per trial or per
+    code, as the wrapper takes them."""
     n_rows, cols = llr0.shape
     acc = _acc_dtype(pm.dtype)
     table = var_to_sock[..., :n_rows, :].long()
@@ -203,7 +205,12 @@ def _soft_posterior_plain(llr0, msg, var_to_sock, active, pm, counts, *,
     err = total < 0
     if tx is not None:
         err = err ^ unpack_bits(tx)
-    counts += (err & on).sum(0, dtype=torch.int32)
+    per_trial = (err & on).sum(0, dtype=torch.int32)
+    if counts.shape[0] == cols:
+        counts += per_trial
+    else:
+        counts += per_trial.reshape(counts.shape[0], -1).sum(
+            1, dtype=torch.int32)
     if post is not None:
         value = total[:post.shape[0]].to(torch.float32)
         if pm.dtype == torch.int8:
@@ -223,13 +230,15 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
     ``active`` int32[C] is nonzero: ``pm`` [n_rows, B] (working type) =
     the posterior llr0 + the dv messages of ``msg`` [rows * dc, B] at the
     socket rows ``var_to_sock`` int32[(C,) >= n_rows, dv] (rows >=
-    ``pad_pos`` skipped), and ``counts`` int32[B] += [posterior < 0].
-    ``llr0`` is float32 for float32/bfloat16 messages, int8 for int8.
-    With ``post`` float32[n, B] and ``hard`` bool[n, B] given, it also
-    writes the posterior of the first n rows (divided by ``int8_scale`` for
-    int8) and the decisions, in the same columns.  Given the packed
-    codewords ``tx`` int32[n_rows, B // 32], the counts and ``hard`` are of
-    the errors (posterior < 0) ^ tx."""
+    ``pad_pos`` skipped), and ``counts += [posterior < 0]``, per trial
+    (``counts`` int32[B]) or per code (int32[C]).  ``llr0`` is float32 for
+    float32/bfloat16 messages, int8 for int8.  With ``post`` float32[n, B]
+    and ``hard`` bool[n, B] given, it also writes the posterior of the
+    first n rows (divided by ``int8_scale`` for int8) and the decisions, in
+    the same columns.  Given the packed codewords ``tx`` int32[n_rows, B //
+    32], the counts and ``hard`` are of the errors (posterior < 0) ^ tx.
+    On the card the kernel's trials a thread come from
+    :func:`soft_posterior_vector`."""
     dtype = pm.dtype
     if dtype not in _DTYPES or msg.dtype != dtype:
         raise TypeError(f"pm and msg must share a type of {list(_DTYPES)}, "
@@ -242,8 +251,13 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
     _check_planes(msg, pm, active, var_to_sock)
     if llr0.shape != pm.shape or not llr0.is_contiguous():
         raise ValueError("llr0 must be a contiguous plane of pm's shape")
-    if counts.dtype != torch.int32 or counts.shape != (llr0.shape[1],):
-        raise ValueError("counts must be int32[B]")
+    cols = llr0.shape[1]
+    if counts.dtype != torch.int32 or counts.dim() != 1 or \
+            counts.shape[0] not in (cols, active.shape[0]) or \
+            not counts.is_contiguous():
+        raise ValueError(f"counts must be int32[B = {cols}] or int32[C = "
+                         f"{active.shape[0]}], got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
     if tx is not None and (tx.dtype != torch.int32 or not tx.is_contiguous()
                            or llr0.shape[1] % 32 or tuple(tx.shape)
                            != (llr0.shape[0], llr0.shape[1] // 32)):
@@ -252,27 +266,37 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
                              or hard.dtype != torch.bool
                              or post.shape != hard.shape
                              or post.shape[1] != llr0.shape[1]
-                             or post.shape[0] > llr0.shape[0]):
-        raise ValueError("post and hard must be float32 and bool [n, B]")
+                             or post.shape[0] > llr0.shape[0]
+                             or not post.is_contiguous()
+                             or not hard.is_contiguous()):
+        raise ValueError("post and hard must be contiguous float32 and bool "
+                         "[n, B]")
     if not use_kernel(llr0, msg, var_to_sock, active, pm, counts,
                       *(t for t in (post, hard, tx) if t is not None)):
         _soft_posterior_plain(llr0, msg, var_to_sock, active, pm, counts,
                               pad_pos=pad_pos, post=post, hard=hard,
                               int8_scale=int8_scale, tx=tx)
         return
-    n_rows, cols = llr0.shape
+    n_rows = llr0.shape[0]
     dv = var_to_sock.shape[-1]
     if dv > MAX_DEGREE:
         raise ValueError(f"variable degree {dv} above the kernel's "
                          f"{MAX_DEGREE}")
+    if n_rows == 0 or cols == 0:                      # no (variable, trial)
+        return
+    cpc = cols // active.shape[0]
+    planes = [t for t in (llr0, msg, pm, post, hard) if t is not None]
+    vec = soft_posterior_vector(pm.element_size(), cpc, dv,
+                                [(_alignment(t), t.element_size())
+                                 for t in planes])
     launch("ldpc_soft_posterior", pm.device, llr0.data_ptr(), msg.data_ptr(),
            var_to_sock.data_ptr(), active.data_ptr(), pm.data_ptr(),
            counts.data_ptr(), 0 if post is None else post.data_ptr(),
            0 if hard is None else hard.data_ptr(),
            None if tx is None else tx.data_ptr(), n_rows,
            0 if post is None else post.shape[0], var_to_sock.shape[-2], dv,
-           pad_pos, cols, cols // active.shape[0], _DTYPES[dtype],
-           float(int8_scale))
+           pad_pos, cols, cpc, vec, int(counts.shape[0] == cols),
+           _DTYPES[dtype], float(int8_scale))
     soft_posterior.launches += 1
 
 
@@ -361,6 +385,26 @@ def soft_check_geometry(elem_size: int, cols: int, cpc: int, dc: int,
         return vec, cols
     fit = int(l2_bytes * _CHECK_L2_SHARE) // (n_rows * unit * elem_size)
     return vec, (min(cols, fit * unit) if fit else cols)
+
+
+def soft_posterior_vector(elem_size: int, cpc: int, dv: int,
+                          planes=()) -> int:
+    """Kernel B's trials a thread: the widest of 16, 8 and 4 bytes of
+    ``elem_size``-byte trials (the working type) that divides a code's
+    ``cpc`` columns (one vector never holds two codes' trials) and to which
+    every plane is aligned: ``planes`` lists (alignment, element size) of
+    each plane the launch touches, and a plane of e-byte elements moves V
+    of them as accesses of min(16, V * e) bytes.  4 bytes where ``dv`` is
+    outside the exact-degree templates (2..8)."""
+    for nbytes in _CHECK_VECTOR_BYTES:
+        vec = nbytes // elem_size
+        if (nbytes == 4 or 2 <= dv <= 8) and cpc % vec == 0 and \
+                all(align % min(16, vec * elem) == 0
+                    for align, elem in planes):
+            return vec
+    raise ValueError(f"planes aligned to {sorted(set(planes))} (alignment, "
+                     f"element bytes) or {cpc} trials a code: kernel B "
+                     "moves at least 4 bytes of a code's trials")
 
 
 @functools.lru_cache(maxsize=None)
@@ -489,10 +533,9 @@ def _soft_loop(graph: _Graph, llr: torch.Tensor, max_iters: int, method: str,
     llr0 = _quantise(llr, int8_scale) if quantised else llr
     msg = torch.zeros((graph.msg_rows, cols), dtype=msg_dtype, device=device)
     pm = torch.empty(llr0.shape, dtype=msg_dtype, device=device)
-    # one count per trial, or one for the batch where nothing needs more
-    # and the graph's posterior pass takes it
-    width = 1 if graph.counts_total and num == 1 and record == "total" \
-        else cols
+    # the posterior pass counts errors per trial where the trajectories
+    # are returned, else per code: the totals and the tail need no more
+    width = cols if record == "per_trial" else num
     counts = torch.zeros((max_iters + 1, width), dtype=torch.int32,
                          device=device)
     active = torch.ones(num, dtype=torch.int32, device=device)

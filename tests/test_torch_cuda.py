@@ -659,6 +659,188 @@ def test_soft_posterior_kernel_equals_plain(cuda, family, num, dtype, final):
     assert int(out[1][1].sum()) > 0
 
 
+def _misaligned(t, align):
+    """A contiguous copy of ``t`` whose data pointer is ``align`` bytes
+    past a 16-byte boundary (16: aligned), as a view into a larger
+    buffer."""
+    if align == 16:
+        return t.clone()
+    skip = align // t.element_size()
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    while buf[skip:].data_ptr() % 16 != align % 16:
+        skip += 1
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _posterior_kernel_case(dtype, dv, num, cols, seed=0, planes="draws"):
+    """Random inputs of kernel B alone: a table int32[C, n_rows, dv] over
+    the socket rows of a message plane whose last 7 rows are an irregular
+    code's padding (a tenth of the sockets there, their messages 0), LLR,
+    message and pm planes, packed codewords, and an active flag a code (a
+    third of the codes stopped, code 0 active).  ``planes`` for int8:
+    "draws" (the whole int8 range), "edges" (values from INT8_EDGE_VALUES,
+    sums that saturate both ways), "saturated" (llr0 and every message
+    +127 or -127 by column)."""
+    rng = np.random.default_rng(seed)
+    n_rows, rows = 61, 61 * dv + 7
+    pad_pos = rows - 7
+    table = rng.integers(0, pad_pos, size=(num, n_rows, dv))
+    pad = rng.random(table.shape) < 0.1
+    table[pad] = rng.integers(pad_pos, rows, size=int(pad.sum()))
+    if dtype != torch.int8:
+        llr0 = torch.from_numpy(rng.normal(1, 5, (n_rows, cols))
+                                .astype(np.float32))
+        msg = torch.from_numpy(rng.normal(0, 6, (rows, cols))
+                               .astype(np.float32)).to(dtype)
+    else:
+        if planes == "draws":
+            llr0, msg = (rng.integers(-128, 128, shape)
+                         for shape in ((n_rows, cols), (rows, cols)))
+        elif planes == "edges":
+            llr0, msg = (INT8_EDGE_VALUES[rng.integers(0, 6, shape)]
+                         for shape in ((n_rows, cols), (rows, cols)))
+        else:
+            sign = np.where(rng.random(cols) < 0.5, 1, -1)
+            llr0, msg = (np.broadcast_to(127 * sign, shape)
+                         for shape in ((n_rows, cols), (rows, cols)))
+        llr0, msg = (torch.from_numpy(np.ascontiguousarray(x)
+                                      .astype(np.int8)) for x in (llr0, msg))
+    msg[pad_pos:] = 0
+    pm = torch.from_numpy(rng.integers(-100, 100, (n_rows, cols))).to(dtype)
+    tx = torch.from_numpy(rng.integers(-2**31, 2**31, (n_rows, cols // 32))
+                          .astype(np.int32)) if cols % 32 == 0 else None
+    active = torch.from_numpy((rng.random(num) < 0.67).astype(np.int32))
+    active[0] = 1
+    return dict(llr0=llr0, msg=msg, pm=pm, tx=tx, active=active,
+                table=torch.from_numpy(table.astype(np.int32)),
+                pad_pos=pad_pos, n_out=n_rows - 1)
+
+
+def _posterior_kernel_against_plain(cuda, case, align=16):
+    """Kernel B against its plain version on one case, three launches: a
+    round with per-trial counts, a round with per-code counts, and the
+    final launch (post and hard of the first n_out rows, the codewords
+    where B is a multiple of 32) with per-code counts.  Stopped codes'
+    columns must stay as they were.  Returns the plain launches' counts."""
+    num = case["active"].shape[0]
+    cols = case["pm"].shape[1]
+    launches = [dict(width=cols), dict(width=num),
+                dict(width=num, final=True, tx=case["tx"])]
+    out = []
+    for device in (cuda, "cpu"):
+        got = []
+        for spec in launches:
+            pm = case["pm"].to(device)
+            msg = case["msg"].to(device)
+            if device != "cpu":
+                pm, msg = _misaligned(pm, align), _misaligned(msg, align)
+            counts = torch.zeros(spec["width"], dtype=torch.int32,
+                                 device=device)
+            extra = {}
+            if spec.get("final"):
+                extra = dict(post=torch.full((case["n_out"], cols), 7.0,
+                                             device=device),
+                             hard=torch.zeros((case["n_out"], cols),
+                                              dtype=torch.bool, device=device),
+                             int8_scale=4.0)
+                if spec["tx"] is not None:
+                    extra["tx"] = spec["tx"].to(device)
+            soft_bp.soft_posterior(case["llr0"].to(device), msg,
+                                   case["table"].to(device),
+                                   case["active"].to(device), pm, counts,
+                                   pad_pos=case["pad_pos"], **extra)
+            got.append([pm.cpu(), counts.cpu()] + [
+                extra[k].cpu() for k in ("post", "hard") if k in extra])
+        out.append(got)
+    for got, want in zip(*out):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    cpc = cols // num
+    for g in np.flatnonzero(case["active"].numpy() == 0):
+        stopped = slice(cpc * g, cpc * (g + 1))
+        assert torch.equal(out[0][0][0][:, stopped], case["pm"][:, stopped])
+        assert torch.equal(out[0][2][2][:, stopped],
+                           torch.full((case["n_out"], cpc), 7.0))
+    return [w[1] for w in out[1]]
+
+
+#: (codes, trials a code): one code over 33 warps' runs of 32 bytes (a
+#: ragged last tile), one code of 64; eight codes of 32, 8 and 4 trials
+#: (several codes a warp); six of 12 (three float32 vectors a code, idle
+#: lanes); three of 1,024 (two tiles a code in int8)
+POSTERIOR_SHAPES = [(1, 1056), (1, 64), (8, 32), (8, 8), (8, 4), (6, 12),
+                    (3, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dv", [2, 3, 4, 5, 6, 7, 8, 12, 32])
+@pytest.mark.parametrize("num, cpc, align", [
+    (num, cpc, 16) for num, cpc in POSTERIOR_SHAPES] + [
+    (8, 32, 8), (8, 32, 4), (1, 1056, 8), (1, 1056, 4)])
+def test_soft_posterior_kernel_every_degree_and_width(cuda, dtype, dv, num,
+                                                      cpc, align):
+    """Every instantiation of kernel B (the exact degrees 2..8 at 16, 8 and
+    4 bytes a thread, the generic kMaxDv = 16 / 32 above) against its plain
+    version: padded sockets, stopped codes, both count widths, the final
+    launch with codewords; 8- and 4-byte-aligned planes force the narrower
+    widths."""
+    case = _posterior_kernel_case(dtype, dv, num, num * cpc,
+                                  seed=100 * dv + cpc + align)
+    elem = case["pm"].element_size()
+    vec = soft_bp.soft_posterior_vector(elem, cpc, dv, [(align, elem)])
+    want = 4 if not 2 <= dv <= 8 else \
+        max(b for b in (16, 8, 4) if cpc % (b // elem) == 0 and align % b == 0)
+    assert vec * elem == want
+    counts = _posterior_kernel_against_plain(cuda, case, align)
+    assert int(counts[0].sum()) > 0
+
+
+@pytest.mark.parametrize("dv", [2, 3, 6, 8, 12, 32])
+@pytest.mark.parametrize("num, cpc", [(1, 1056), (8, 4), (3, 1024)])
+@pytest.mark.parametrize("planes", ["edges", "saturated"])
+def test_soft_posterior_kernel_int8_adversarial(cuda, dv, num, cpc, planes):
+    """Kernel B's packed int8 lanes where the int16 sum saturates both
+    ways: every addend +-127 (sums up to 33 * 127), and edge values -128,
+    -127, -1, 0, 1, 127 in every combination."""
+    case = _posterior_kernel_case(torch.int8, dv, num, num * cpc,
+                                  seed=dv + cpc, planes=planes)
+    _posterior_kernel_against_plain(cuda, case)
+
+
+@pytest.mark.parametrize("rows, cols", [(0, 64), (5, 0)])
+def test_soft_posterior_kernel_of_empty_planes_is_a_no_op(cuda, rows, cols):
+    table = torch.zeros((2, rows, 3), dtype=torch.int32, device=cuda)
+    llr0 = torch.ones((rows, cols), device=cuda)
+    pm = torch.full((rows, cols), 3.0, device=cuda)
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = soft_bp.soft_posterior.launches
+    soft_bp.soft_posterior(llr0, torch.zeros((7, cols), device=cuda), table,
+                           torch.ones_like(counts), pm, counts, pad_pos=7)
+    assert soft_bp.soft_posterior.launches == before
+    assert not counts.any() and bool((pm == 3).all())
+
+
+@pytest.mark.parametrize("fields", [
+    dict(channel="BSC", decoder="minsum", soft_msg_dtype="int8",
+         channel_param=0.05),
+    dict(channel="BSC", decoder="sumproduct", channel_param=0.05)])
+def test_soft_ensemble_runs_gpu_equal_cpu(cuda, fields):
+    """Ensemble int8 min-sum and sum-product runs (kernel B with per-code
+    counts every round) equal on the card and on the CPU in every
+    counter; the BSC's LLRs are exact on both."""
+    cfg = SimulationConfig(n=504, iterations=30, batch=640, num_tests=1280,
+                           seed=4, codes_per_chunk=20, max_block_errors=10**9,
+                           code_mode="ensemble", **fields)
+    gpu = mc.run_simulation(cfg, None, device="cuda")
+    cpu = mc.run_simulation(cfg, None, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "excluded_trials", "bit_errors_sq", "code_bit_errors_sq",
+                  "trials_per_code", "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
 @pytest.mark.parametrize("family", ["regular", "irregular"])
 @pytest.mark.parametrize("num", [1, 6])
 @pytest.mark.parametrize("method, dtype", SOFT)
