@@ -151,6 +151,7 @@ Without CUDA, or without the package beside it, it exits non-zero.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -196,6 +197,9 @@ QC_NB_IRR, QC_Z_IRR = 24, 417
 # trials; the peeling R-process at docs/VALIDATION.md's point
 SIGMA_QC = 0.841
 PEEL_N, PEEL_EPS, PEEL_REPEATS, PEEL_REPEATS_BIG = 16_384, 0.42, 400, 4000
+# the largest (3,6) n whose 3n sockets the samplers keep in shared memory
+# (models/ensemble.py SHARED_PERM_MAX_SOCKETS); n + 2 takes the global path
+EDGE_SHARED_N = 18_666
 # edge sharding (phases 38-41, BASELINE.json config 5): a fixed (3,6) code
 # of n = 10^6 (m = 500,000, divided by 1, 2 and 4) at W = 48 (1,536
 # trials); GPU against CPU and the 2-rank group at n = 10^5
@@ -248,6 +252,15 @@ def time_ms(run, prepare=None, reps: int = 5, warmup: bool = True) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+@functools.lru_cache(maxsize=None)
+def rounds_model(seed: int, chunk: int, num: int, sockets: int):
+    """The CPU model's rounds of each code's first shuffle
+    (models/ensemble.py first_shuffle_rounds), int64[num] on the CPU."""
+    from iib_project_ldpc_codes_tpu_torch.models import ensemble
+
+    return ensemble.first_shuffle_rounds(seed, chunk, num, sockets)
 
 
 def max_abs_err(a, b) -> int:
@@ -715,6 +728,38 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
         sampled[method] = got
         print(f"irregular sampler {method} equal to plain at n={sp.n}, "
               f"C={num}; structure ok", flush=True)
+    # the layouts' edges on the regular spec, and n = 16,384
+    for n_s, num_s, methods in (
+            (EDGE_SHARED_N, 2, ("raw", "repair", "reject")),
+            (EDGE_SHARED_N + 2, 2, ("raw", "repair", "reject")),
+            (PEEL_N, 400, ("raw", "repair"))):
+        sp = irregular.IrregularEnsembleSpec.regular(n_s, DV, DC, device=dev)
+        for method in methods:
+            got = irregular.sample_irregular_codes(3, 1, num_s, sp, method,
+                                                   device=dev)
+            want = irregular._sample_irregular_codes_plain(3, 1, num_s, sp,
+                                                           method, dev)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(getattr(got, f), getattr(want, f))
+                      for f in tables)
+            check(err == 0, f"irregular sampler ({method}, n={n_s}, "
+                            f"C={num_s}) differs from its plain version "
+                            f"(max |d| {err})")
+            err_s = max(err_s, err)
+            print(f"irregular sampler {method} equal to plain at n={n_s}, "
+                  f"C={num_s} (layout {ensemble.sampler_layout(sp.E)[0]})",
+                  flush=True)
+    rounds = torch.zeros(CODES_FULL, dtype=torch.int32, device=dev)
+    irregular.sample_irregular_codes(1, 0, CODES_FULL, spec, "repair",
+                                     device=dev, rounds=rounds)
+    want = rounds_model(1, 0, CODES_FULL, spec.E)
+    check(torch.equal(rounds.cpu().long(), want),
+          "the irregular sampler's rounds differ from the CPU model's")
+    measured["sample_irregular_codes"].update(
+        rounds_mean=float(want.double().mean()), rounds_max=int(want.max()))
+    print(f"irregular sampler rounds per code (E={spec.E}, C={CODES_FULL}): "
+          f"mean {float(want.double().mean()):.3f}, largest "
+          f"{int(want.max())} (equal to the CPU model's)", flush=True)
     reg_spec = irregular.IrregularEnsembleSpec.regular(N_FULL, DV, DC,
                                                        device=dev)
     a = irregular.sample_irregular_codes(1, 0, 64, reg_spec, "repair",
@@ -4350,9 +4395,60 @@ def main() -> int:
                   f"{expect}, se {se:.4f})", flush=True)
         print(f"K5 {method} equal to plain at n={n_s}, C={num_s}; "
               f"structure ok", flush=True)
+    check(ensemble.sampler_layout(EDGE_SHARED_N * DV)[0]
+          != ensemble.LAYOUT_GLOBAL and
+          ensemble.sampler_layout((EDGE_SHARED_N + 2) * DV)[0]
+          == ensemble.LAYOUT_GLOBAL, f"n={EDGE_SHARED_N} is not the edge "
+                                     "of the samplers' shared layouts")
+    # the layouts' edges (the largest E that keeps the words in shared
+    # memory, the smallest that moves them to the global scratch buffer)
+    # and the R-process experiment's n = 16,384 (words shared, partners in
+    # the global scratch buffer)
+    for n_s, num_s, methods in (
+            (EDGE_SHARED_N, 4, ("raw", "repair", "reject")),
+            (EDGE_SHARED_N + 2, 4, ("raw", "repair", "reject")),
+            (PEEL_N, 400, ("raw", "repair")), (PEEL_N, 2, ("reject",))):
+        for method in methods:
+            got = ensemble.sample_codes(3, 1, num_s, n_s, DV, DC, method,
+                                        device=dev)
+            want = ensemble._sample_codes_plain(3, 1, num_s, n_s, DV, DC,
+                                                method, dev)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(getattr(got, f), getattr(want, f))
+                      for f in tables)
+            check(err == 0, f"K5 ({method}, n={n_s}, C={num_s}, layout "
+                            f"{ensemble.sampler_layout(n_s * DV)[0]}) "
+                            f"differs from its plain version (max |d| {err})")
+            k5_err = max(k5_err, err)
+            print(f"K5 {method} equal to plain at n={n_s}, C={num_s} "
+                  f"(layout {ensemble.sampler_layout(n_s * DV)[0]})",
+                  flush=True)
+    # the shuffle's rounds per code, against the CPU model of the rounds
+    k5_rounds = {}
+    for n_s, num_s in ((N_FULL, CODES_FULL), (EDGE_SHARED_N, 4),
+                       (EDGE_SHARED_N + 2, 4), (PEEL_N, 400)):
+        rounds = torch.zeros(num_s, dtype=torch.int32, device=dev)
+        ensemble.sample_codes(1, 0, num_s, n_s, DV, DC, "repair", device=dev,
+                              rounds=rounds)
+        want = rounds_model(1, 0, num_s, n_s * DV)
+        check(torch.equal(rounds.cpu().long(), want),
+              f"K5's rounds at n={n_s} differ from the CPU model's")
+        k5_rounds[n_s] = want
+        print(f"K5 rounds per code at n={n_s}, C={num_s}: mean "
+              f"{float(want.double().mean()):.3f}, largest {int(want.max())} "
+              f"(equal to the CPU model's)", flush=True)
+    check(int(k5_rounds[N_FULL].max()) < 100,
+          f"K5 took {int(k5_rounds[N_FULL].max())} rounds at n={N_FULL}")
     reject_ms = time_ms(lambda: ensemble.sample_codes(
         1, 0, 32, 1024, DV, DC, "reject", device=dev), reps=2)
+    argsort_ms = time_ms(lambda: torch.rand(
+        CODES_FULL, N_FULL * DV, device=dev).argsort(dim=1))
     measured["sample_regular_codes"].update(
+        rounds_mean_n1e4=float(k5_rounds[N_FULL].double().mean()),
+        rounds_max_n1e4=int(k5_rounds[N_FULL].max()),
+        rounds_mean_n16384=float(k5_rounds[PEEL_N].double().mean()),
+        rounds_max_n16384=int(k5_rounds[PEEL_N].max()),
+        yardstick_argsort_rand_768x30000_ms=argsort_ms,
         max_abs_err=k5_err,
         ms=time_ms(lambda: ensemble.sample_codes(
             1, 0, CODES_FULL, N_FULL, DV, DC, "repair", device=dev)),
@@ -4366,6 +4462,10 @@ def main() -> int:
           f"{measured['sample_regular_codes']['plain_ms']:.1f} ms; raw "
           f"{measured['sample_regular_codes']['raw_ms']:.3f} ms; reject at "
           f"n=1024, C=32: {reject_ms:.3f} ms", flush=True)
+    print(f"yardstick, another function on another stream: torch.rand("
+          f"{CODES_FULL}, {N_FULL * DV}).argsort(dim=1) {argsort_ms:.3f} ms "
+          f"beside K5's {measured['sample_regular_codes']['raw_ms']:.3f} ms "
+          f"(raw)", flush=True)
 
     # -- 9 batched K2/K3 ----------------------------------------------------
     phase("9 batched K2/K3 and kernel D against their plain versions, 1 and "

@@ -21,131 +21,127 @@
 // i = E-1 .. 1; repair pass p swaps the first duplicate with
 // uniform(draw p of stream 2^31, E).
 //
-// Bound on the H100: latency of the sequential shuffle.  Fisher-Yates is
-// E dependent swaps, so one thread performs them; the other threads draw
-// the partners of the next kTile positions in parallel (the partners do
-// not depend on the permutation), so the serial thread does only two
-// loads and two stores per step.  The permutation sits in shared memory
-// when 4 * E bytes fit beside the tile (E <= 56,000: n <= 18,666 at
-// dv = 3) and in a global scratch buffer otherwise (same code, slower).
-// The duplicate scan runs on all threads, one check row each, with a
-// shared atomicMin for the first offender; the repair swap is one thread.
-// Every loop condition is block-uniform (read from shared memory after a
-// barrier), so the barriers inside the loops are safe.  One block per code;
-// at n = 1e4 a block holds 124 KB of shared memory, so one block per SM.
+// Design (sampler.cuh has the details).  1,024 threads a block.  The
+// shuffle runs as rounds of deterministic reservations over all threads
+// (34 rounds at n = 1e4, E = 30,000), on one word a socket in shared
+// memory: the permutation in the low half, the reservation in the high
+// half; the partners sit beside them as 16-bit values up to 37,000
+// sockets (180 KB at n = 1e4: one block an SM), in a global scratch
+// buffer up to 56,000, and everything moves to a global scratch buffer
+// above that.  `repair` flags the check rows with a duplicate once, in
+// parallel, then warp 0 swaps the first offender and rescans only the two
+// rows the swap touched.  The tables come from shared memory: the inverse
+// permutation goes into the words' high halves, each variable's dv entries
+// are sorted there, and the three tables are written once each, coalesced.
+// Those writes are the byte bound (0.0825 ms at 768 codes of n = 1e4 on the
+// H100 at 3.35 TB/s); the rounds' shared-memory atomics set the time.
+// Every loop condition that guards a barrier is block-uniform.
 #include "sampler.cuh"
 
 namespace {
 
 using namespace ldpc::sampler;
 
-// Flat check-socket index of the first socket whose variable repeats an
-// earlier socket of its check row, or E when the permutation is simple.
-__device__ int first_duplicate(const int32_t* perm, int E, int dv, int dc,
-                               int* first) {
-  if (threadIdx.x == 0) *first = E;
-  __syncthreads();
-  const int m = E / dc;
-  // rows ascend per thread, so a thread's first hit is its smallest
-  for (int row = threadIdx.x; row < m; row += blockDim.x) {
-    const int32_t* s = perm + static_cast<long long>(row) * dc;
-    int hit = E;
-    for (int k = 1; k < dc && hit == E; ++k) {
-      const int v = s[k] / dv;
-      for (int l = 0; l < k; ++l) {
-        if (s[l] / dv == v) {
-          hit = row * dc + k;
-          break;
-        }
-      }
-    }
-    if (hit < E) {
-      atomicMin(first, hit);
-      break;
-    }
-  }
-  __syncthreads();
-  const int result = *first;
-  __syncthreads();  // every thread has read it before the next reset
-  return result;
-}
-
-__global__ void sample_regular_codes_kernel(
-    int32_t* __restrict__ chk_to_var, int32_t* __restrict__ var_to_edge,
-    int32_t* __restrict__ var_to_chk, int32_t* scratch, int n, int dv, int dc,
-    int method, int max_tries, uint32_t k0, uint32_t k1, uint32_t chunk) {
-  extern __shared__ int32_t smem[];
-  __shared__ int first;
+template <int kLayout>
+__global__ void __launch_bounds__(kSamplerThreads, 1)
+    sample_regular_codes_kernel(int32_t* __restrict__ chk_to_var,
+                                int32_t* __restrict__ var_to_edge,
+                                int32_t* __restrict__ var_to_chk,
+                                unsigned char* scratch, int32_t* rounds_out,
+                                int n, int dv, int dc, int method,
+                                int max_tries, uint32_t k0, uint32_t k1,
+                                uint32_t chunk) {
+  using L = Layout<kLayout>;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int E = n * dv;
   const uint32_t code = blockIdx.x;
-  const uint2 key = make_uint2(k0, k1);
-  int32_t* partner = smem;
-  int32_t* perm = scratch != nullptr
-                      ? scratch + static_cast<long long>(code) * E
-                      : smem + kTile;
+  const Buffers<kLayout> b = carve<kLayout>(smem, scratch, E, code);
+  const RegularRows rows{dv, dc, E / dc};
+  sample_permutation(b, rows, E, method, max_tries, code, chunk,
+                     make_uint2(k0, k1), rounds_out);
 
-  shuffle(perm, partner, E, code, chunk, 0u, key);
-  if (method != kRaw) {
-    int s = first_duplicate(perm, E, dv, dc, &first);
-    for (int pass = 0; s < E && pass < max_tries; ++pass) {
-      if (method == kReject) {
-        shuffle(perm, partner, E, code, chunk, static_cast<uint32_t>(pass + 1),
-                key);
-      } else {
-        repair_swap(perm, s, E, pass, code, chunk, key);
-      }
-      s = first_duplicate(perm, E, dv, dc, &first);
-    }
-  }
-
-  const long long base = static_cast<long long>(code) * E;
-  int32_t* chk = chk_to_var + base;
-  int32_t* edges = var_to_edge + base;
+  // inverse permutation into the high halves (they are all 0 here)
+  typename L::Half* half = reinterpret_cast<typename L::Half*>(b.words);
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const int32_t p = perm[e];
-    chk[e] = p / dv;
-    edges[p] = e;  // the inverse permutation, unsorted within a variable
+    half[2LL * low(b.words[e], L::kShift) + 1] =
+        static_cast<typename L::Half>(e);
   }
   __syncthreads();
   for (int v = threadIdx.x; v < n; v += blockDim.x) {
-    int32_t* a = edges + static_cast<long long>(v) * dv;
+    typename L::Half* a = half + 2LL * v * dv + 1;
     for (int k = 1; k < dv; ++k) {  // insertion sort of dv entries
-      const int32_t x = a[k];
+      const typename L::Half x = a[2 * k];
       int l = k - 1;
-      while (l >= 0 && a[l] > x) {
-        a[l + 1] = a[l];
+      while (l >= 0 && a[2 * l] > x) {
+        a[2 * l + 2] = a[2 * l];
         --l;
       }
-      a[l + 1] = x;
+      a[2 * l + 2] = x;
     }
-    int32_t* out = var_to_chk + base + static_cast<long long>(v) * dv;
-    for (int k = 0; k < dv; ++k) out[k] = a[k] / dc;
   }
+  __syncthreads();
+  const long long base = static_cast<long long>(code) * E;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const typename L::Word w = b.words[e];
+    const int edge = static_cast<int>(w >> L::kShift);
+    chk_to_var[base + e] = low(w, L::kShift) / dv;
+    var_to_edge[base + e] = edge;
+    var_to_chk[base + e] = edge / dc;
+  }
+}
+
+template <int kLayout>
+int launch_layout(int32_t* chk_to_var, int32_t* var_to_edge,
+                  int32_t* var_to_chk, unsigned char* scratch,
+                  int32_t* rounds, int num_codes, int n, int dv, int dc,
+                  int method, int max_tries, uint32_t k0, uint32_t k1,
+                  uint32_t chunk, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(
+      shared_bytes(kLayout, static_cast<long long>(n) * dv));
+  cudaError_t err = cudaFuncSetAttribute(
+      sample_regular_codes_kernel<kLayout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_codes > 0) {
+    sample_regular_codes_kernel<kLayout>
+        <<<num_codes, kSamplerThreads, smem, stream>>>(
+            chk_to_var, var_to_edge, var_to_chk, scratch, rounds, n, dv, dc,
+            method, max_tries, k0, k1, chunk);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int ldpc_sample_regular_codes(void* chk_to_var, void* var_to_edge,
-                                         void* var_to_chk, void* scratch,
-                                         int num_codes, int n, int dv, int dc,
-                                         int method, int max_tries,
-                                         unsigned int k0, unsigned int k1,
-                                         unsigned int chunk, int use_shared,
-                                         void* stream) {
+// layout: kGlobal (0), kWordsShared (1) or kAllShared (2); scratch holds
+// scratch_bytes(layout, n * dv) bytes a code (the call is refused when
+// scratch_per_code is smaller); rounds: int32[num_codes] or null.
+extern "C" int ldpc_sample_regular_codes(
+    void* chk_to_var, void* var_to_edge, void* var_to_chk, void* scratch,
+    void* rounds, int num_codes, int n, int dv, int dc, int method,
+    int max_tries, unsigned int k0, unsigned int k1, unsigned int chunk,
+    int layout, long long scratch_per_code, void* stream) {
   const long long sockets = static_cast<long long>(n) * dv;
-  const size_t smem =
-      static_cast<size_t>(kTile + (use_shared ? sockets : 0)) * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sample_regular_codes_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_codes > 0) {
-    sample_regular_codes_kernel<<<num_codes, kSamplerThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int32_t*>(chk_to_var), static_cast<int32_t*>(var_to_edge),
-        static_cast<int32_t*>(var_to_chk),
-        use_shared ? nullptr : static_cast<int32_t*>(scratch), n, dv, dc,
-        method, max_tries, k0, k1, chunk);
+  if (layout < kGlobal || layout > kAllShared ||
+      (layout != kGlobal && sockets > 65536) ||
+      scratch_per_code < scratch_bytes(layout, sockets) ||
+      (scratch_bytes(layout, sockets) > 0 && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  auto* a = static_cast<int32_t*>(chk_to_var);
+  auto* b = static_cast<int32_t*>(var_to_edge);
+  auto* c = static_cast<int32_t*>(var_to_chk);
+  auto* s = static_cast<unsigned char*>(scratch);
+  auto* r = static_cast<int32_t*>(rounds);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (layout == kAllShared) {
+    return launch_layout<kAllShared>(a, b, c, s, r, num_codes, n, dv, dc,
+                                     method, max_tries, k0, k1, chunk, st);
+  }
+  if (layout == kWordsShared) {
+    return launch_layout<kWordsShared>(a, b, c, s, r, num_codes, n, dv, dc,
+                                       method, max_tries, k0, k1, chunk, st);
+  }
+  return launch_layout<kGlobal>(a, b, c, s, r, num_codes, n, dv, dc, method,
+                                max_tries, k0, k1, chunk, st);
 }

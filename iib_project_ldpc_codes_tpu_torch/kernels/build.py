@@ -46,10 +46,11 @@ SIGNATURES = {
     "ldpc_check_exactly_one": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ldpc_variable_or_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ldpc_per_trial_counts": (_P, _P, _I, _I, _P),
-    "ldpc_sample_regular_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _U, _U, _U, _I, _P),
-    "ldpc_sample_irregular_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _U, _U, _U, _I, _I, _P),
+    "ldpc_sample_regular_codes": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _U, _U, _U, _I, _LL, _P),
+    "ldpc_sample_irregular_codes": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
+                                    _U, _I, _I, _LL, _P),
     "ldpc_gallager_check": (_P, _P, _I, _I, _I, _P),
     "ldpc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P),

@@ -41,6 +41,12 @@ an earlier socket of its row) with ``mulhi64(draw p, E)``.
 ``var_to_edge`` is then read off the inverse permutation: variable v's
 edges are ``inv[v*dv .. v*dv+dv-1]`` in ascending order, the stable argsort
 of ``code_from_checks`` without a sort.
+
+The kernels run the shuffle's swaps in parallel, as rounds of
+deterministic reservations that give the same permutation
+(:func:`shuffle_rounds` is their CPU model, with the rounds per code), and
+the repair loop as :func:`repair_two_rows` does; :func:`sampler_layout`
+says where a launch keeps its permutation.
 """
 
 from __future__ import annotations
@@ -58,10 +64,18 @@ MAX_REPAIR_PASSES = 1_000
 METHODS = ("raw", "reject", "repair")   # K5's method codes 0, 1, 2
 SAMPLER_KEY_TAG = 0x243F6A88            # XORed into key word 1
 REPAIR_STREAM = 1 << 31
-#: K5 keeps the permutation in shared memory up to this many sockets
-#: (4 bytes each, beside a 4 KB tile of shuffle partners, within the
-#: 227 KB a block may hold) and in a global scratch buffer above it
+#: threads of a sampler block (``csrc/sampler.cuh`` kSamplerThreads)
+SAMPLER_THREADS = 1024
+#: the samplers keep the permutation in shared memory up to this many
+#: sockets (a 4-byte word each: the value and the shuffle's reservation,
+#: beside 8 KB of pending masks, within the 227 KB a block may hold) and in
+#: a global scratch buffer above it
 SHARED_PERM_MAX_SOCKETS = 56_000
+#: ... and the shuffle's partners beside it (2 bytes each) up to this many
+SHARED_PARTNERS_MAX_SOCKETS = 37_000
+#: the kernels' layouts (``csrc/sampler.cuh``): everything in a global
+#: scratch buffer, the words in shared memory, words and partners there
+LAYOUT_GLOBAL, LAYOUT_WORDS_SHARED, LAYOUT_ALL_SHARED = 0, 1, 2
 #: element budget of one block of the plain version's reject search
 #: (codes x attempts x sockets permutation entries)
 _PLAIN_REJECT_BUDGET = 1 << 24
@@ -200,6 +214,54 @@ def _shuffle_plain(key, codes: torch.Tensor, chunk: int,
     return perm
 
 
+def shuffle_rounds(key, codes: torch.Tensor, chunk: int,
+                   attempts: torch.Tensor, num_sockets: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The samplers' shuffle as the kernels run it (``csrc/sampler.cuh``):
+    rounds of deterministic reservations, vectorised over the rows.
+
+    Returns (int64[R, E] permutations, int64[R] rounds per row).  Each
+    round, every pending step i (partner H[i] <= i, drawn as in
+    :func:`_shuffle_plain`) max-writes its priority i into the
+    reservations of positions i and H[i]; a step holding both swaps the
+    two positions, clears both reservations and is done.  The reservations
+    of steps still pending carry over to the next round.  The result is
+    :func:`_shuffle_plain`'s permutation; the rounds are the dependence
+    depth of the steps.
+    """
+    device = codes.device
+    rows = codes.shape[0]
+    perm = torch.arange(num_sockets, dtype=torch.int64,
+                        device=device).repeat(rows, 1)
+    rounds = torch.zeros(rows, dtype=torch.int64, device=device)
+    if num_sockets < 2:
+        return perm, rounds
+    step = torch.arange(1, num_sockets, dtype=torch.int64, device=device)
+    hi, lo = _draws(key, step[None, :], codes[:, None], chunk,
+                    attempts[:, None])
+    partner = _mulhi64(hi, lo, step + 1)                # [R, E-1]
+    own = step.expand(rows, -1)
+    reserved = torch.zeros_like(perm)                   # 0: none
+    pending = torch.ones_like(partner, dtype=torch.bool)
+    while True:
+        active = pending.any(1)
+        if not bool(active.any()):
+            return perm, rounds
+        rounds += active
+        priority = torch.where(pending, own, 0)
+        reserved.scatter_reduce_(1, own, priority, "amax")
+        reserved.scatter_reduce_(1, partner, priority, "amax")
+        win = pending & (reserved[:, 1:] == own) \
+            & (reserved.gather(1, partner) == own)
+        r, c = torch.nonzero(win, as_tuple=True)
+        i, h = c + 1, partner[r, c]
+        at_i, at_h = perm[r, i], perm[r, h]
+        perm[r, i], perm[r, h] = at_h, at_i
+        reserved[r, i] = 0
+        reserved[r, h] = 0
+        pending &= ~win
+
+
 def _first_duplicates(perm: torch.Tensor, dv: int, dc: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per row of int64[R, E]: (has a duplicate, flat check-socket index
@@ -239,6 +301,55 @@ def _repair_with(perm: torch.Tensor, key, codes: torch.Tensor, chunk: int,
         first[rows] = first_sub
         rows = rows[dup]
     return perm
+
+
+def repair_two_rows(perm: torch.Tensor, key, code: int, chunk: int,
+                    row_offs: torch.Tensor, var_of: torch.Tensor,
+                    max_passes: int = MAX_REPAIR_PASSES
+                    ) -> tuple[torch.Tensor, list[int]]:
+    """``repair`` on one int64[E] permutation as the kernels run it
+    (``csrc/sampler.cuh`` ``flag_rows`` and ``repair``): flag every check
+    row that holds a duplicate once; then each pass takes the first flagged
+    row's first offender s, swaps it with ``mulhi64(draw p, E)`` and
+    rescans only the rows of the two swapped sockets.
+
+    ``row_offs``: int64[m+1] first socket of each check row; ``var_of``:
+    int64[E], the variable of each permuted socket (regular: p // dv).
+    Returns (the repaired permutation, the offender s of every pass).
+    """
+    perm = perm.clone()
+    num_sockets = perm.shape[0]
+    offs = row_offs.tolist()
+    row_of = torch.repeat_interleave(
+        torch.arange(len(offs) - 1), torch.diff(row_offs.cpu())).tolist()
+
+    def offender(r):
+        seen = set()
+        for s in range(offs[r], offs[r + 1]):
+            v = int(var_of[perm[s]])
+            if v in seen:
+                return s
+            seen.add(v)
+        return -1
+
+    flagged = {r for r in range(len(offs) - 1) if offender(r) >= 0}
+    offenders = []
+    codes = torch.tensor([code], dtype=torch.int64, device=perm.device)
+    for p in range(max_passes):
+        if not flagged:
+            break
+        s = offender(min(flagged))
+        offenders.append(s)
+        hi, lo = _draws(key, torch.tensor(p, device=perm.device), codes,
+                        chunk, REPAIR_STREAM)
+        j = int(_mulhi64(hi, lo, num_sockets)[0])
+        perm[s], perm[j] = perm[j].clone(), perm[s].clone()
+        for r in {row_of[s], row_of[j]}:
+            if offender(r) >= 0:
+                flagged.add(r)
+            else:
+                flagged.discard(r)
+    return perm, offenders
 
 
 def _repair_plain(perm: torch.Tensor, key, codes: torch.Tensor, chunk: int,
@@ -333,34 +444,82 @@ def _sample_codes_plain(seed: int, chunk: int, num: int, n: int, dv: int,
     return _tables_from_perm(perm, n, dv, dc)
 
 
+def sampler_layout(num_sockets: int) -> tuple[int, int]:
+    """(layout, global scratch bytes a code) of the samplers' kernels for
+    E sockets: ``csrc/sampler.cuh`` ``shared_bytes`` / ``scratch_bytes``."""
+    if num_sockets > SHARED_PERM_MAX_SOCKETS:
+        segments = -(-num_sockets // (64 * SAMPLER_THREADS))
+        return LAYOUT_GLOBAL, (8 * num_sockets
+                               + 8 * SAMPLER_THREADS * segments
+                               + -(-4 * num_sockets // 8) * 8)
+    if num_sockets > SHARED_PARTNERS_MAX_SOCKETS:
+        return LAYOUT_WORDS_SHARED, -(-2 * num_sockets // 8) * 8
+    return LAYOUT_ALL_SHARED, 0
+
+
+def sampler_scratch(num: int, num_sockets: int, device
+                    ) -> tuple[int, int, torch.Tensor | None]:
+    """(layout, bytes a code, the global scratch buffer or None) of a
+    sampler launch of ``num`` codes."""
+    layout, per_code = sampler_layout(num_sockets)
+    scratch = torch.empty((num, per_code // 8), dtype=torch.int64,
+                          device=device) if per_code else None
+    return layout, per_code, scratch
+
+
+def check_rounds(rounds, num: int, device) -> None:
+    """Raise unless ``rounds`` is None or int32[num] on ``device``."""
+    if rounds is not None and (
+            rounds.dtype != torch.int32 or rounds.shape != (num,)
+            or rounds.device.type != torch.device(device).type
+            or not rounds.is_contiguous()):
+        raise ValueError(f"rounds must be a contiguous int32[{num}] on "
+                         f"{device}")
+
+
+def first_shuffle_rounds(seed: int, chunk: int, num: int,
+                         num_sockets: int, device="cpu") -> torch.Tensor:
+    """int64[num]: the rounds each code's first shuffle takes (what the
+    kernels write to ``rounds``), from :func:`shuffle_rounds`."""
+    codes = torch.arange(num, dtype=torch.int64, device=device)
+    return shuffle_rounds(sampler_key(seed), codes, chunk,
+                          torch.zeros_like(codes), num_sockets)[1]
+
+
 def sample_codes(seed: int, chunk: int, num: int, n: int, dv: int, dc: int,
-                 method: str = "repair", device="cpu") -> LDPCCode:
+                 method: str = "repair", device="cpu",
+                 rounds: torch.Tensor | None = None) -> LDPCCode:
     """Sample ``num`` codes of the (dv,dc)-regular ensemble for Monte
     Carlo chunk ``chunk``: a batch :class:`LDPCCode` (tables [num, ...]).
 
     Deterministic in (seed, chunk, code index); the module docstring
     gives the draws.  On a CUDA device K5 samples all codes in one launch;
-    on the CPU the plain version computes the same tables.
+    on the CPU the plain version computes the same tables.  ``rounds``
+    (int32[num] on the device, optional) receives the rounds of each
+    code's first shuffle (on the CPU from :func:`first_shuffle_rounds`).
     """
     device = torch.device(device)
+    check_rounds(rounds, num, device)
     if not use_kernel(device):
-        return _sample_codes_plain(seed, chunk, num, n, dv, dc, method,
+        code = _sample_codes_plain(seed, chunk, num, n, dv, dc, method,
                                    device)
+        if rounds is not None:
+            rounds.copy_(first_shuffle_rounds(seed, chunk, num, n * dv))
+        return code
     _check_sampler_args(chunk, num, n, dv, dc, method)
     m, num_sockets = n * dv // dc, n * dv
     chk = torch.empty((num, m, dc), dtype=torch.int32, device=device)
     var_to_edge = torch.empty((num, n, dv), dtype=torch.int32, device=device)
     var_to_chk = torch.empty((num, n, dv), dtype=torch.int32, device=device)
-    shared = num_sockets <= SHARED_PERM_MAX_SOCKETS
-    scratch = None if shared else torch.empty(
-        (num, num_sockets), dtype=torch.int32, device=device)
+    layout, per_code, scratch = sampler_scratch(num, num_sockets, device)
     k0, k1 = sampler_key(seed)
     launch("ldpc_sample_regular_codes", device, chk.data_ptr(),
            var_to_edge.data_ptr(), var_to_chk.data_ptr(),
-           0 if shared else scratch.data_ptr(), num, n, dv, dc,
+           0 if scratch is None else scratch.data_ptr(),
+           0 if rounds is None else rounds.data_ptr(), num, n, dv, dc,
            METHODS.index(method),
            MAX_REJECT_TRIES if method == "reject" else MAX_REPAIR_PASSES,
-           k0, k1, chunk, int(shared))
+           k0, k1, chunk, layout, per_code)
     sample_codes.launches += 1
     return LDPCCode(chk_to_var=chk, var_to_edge=var_to_edge, n=n, dv=dv,
                     dc=dc, var_to_chk=var_to_chk)

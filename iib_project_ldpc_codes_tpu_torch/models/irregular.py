@@ -385,19 +385,26 @@ def _sample_irregular_codes_plain(seed: int, chunk: int, num: int,
 
 def sample_irregular_codes(seed: int, chunk: int, num: int,
                            spec: IrregularEnsembleSpec,
-                           method: str = "repair",
-                           device="cpu") -> IrregularLDPCCode:
+                           method: str = "repair", device="cpu",
+                           rounds: torch.Tensor | None = None
+                           ) -> IrregularLDPCCode:
     """Sample ``num`` codes of the ensemble for Monte Carlo chunk
     ``chunk``: a batch :class:`IrregularLDPCCode`.
 
     Deterministic in (seed, chunk, code index).  On a CUDA device one
     launch of ``csrc/sample_irregular_codes.cu`` samples all codes; on
-    the CPU the plain version computes the same tables.
+    the CPU the plain version computes the same tables.  ``rounds`` as
+    :func:`..ensemble.sample_codes` takes it.
     """
     device = torch.device(device)
+    ensemble.check_rounds(rounds, num, device)
     if not use_kernel(device):
-        return _sample_irregular_codes_plain(seed, chunk, num, spec, method,
+        code = _sample_irregular_codes_plain(seed, chunk, num, spec, method,
                                              device)
+        if rounds is not None:
+            rounds.copy_(ensemble.first_shuffle_rounds(seed, chunk, num,
+                                                       spec.E))
+        return code
     _check_sampler_args(chunk, num, method)
     spec = spec.to(device)
     n, m, E = spec.n, spec.m, spec.E
@@ -406,18 +413,19 @@ def sample_irregular_codes(seed: int, chunk: int, num: int,
     var_to_chk = torch.empty((num, n + 1, spec.dv_max), dtype=torch.int32,
                              device=device)
     var_to_sock = torch.empty_like(var_to_chk)
-    shared = E <= ensemble.SHARED_PERM_MAX_SOCKETS
-    scratch = None if shared else torch.empty(
-        (num, E), dtype=torch.int32, device=device)
+    layout, per_code, scratch = ensemble.sampler_scratch(num, E, device)
     k0, k1 = ensemble.sampler_key(seed)
     launch("ldpc_sample_irregular_codes", device, chk.data_ptr(),
            var_to_chk.data_ptr(), var_to_sock.data_ptr(),
-           0 if shared else scratch.data_ptr(), spec.socket_var.data_ptr(),
-           spec.chk_offs.data_ptr(), spec.var_offs.data_ptr(), num, n, m,
-           spec.dv_max, spec.dc_max, ensemble.METHODS.index(method),
+           0 if scratch is None else scratch.data_ptr(),
+           0 if rounds is None else rounds.data_ptr(),
+           spec.socket_var.data_ptr(), spec.chk_offs.data_ptr(),
+           spec.chk_of_socket.data_ptr(), spec.pad_map.data_ptr(),
+           spec.var_pad_map.data_ptr(), spec.sock_to_pad.data_ptr(), num, n,
+           m, spec.dv_max, spec.dc_max, ensemble.METHODS.index(method),
            ensemble.MAX_REJECT_TRIES if method == "reject"
            else ensemble.MAX_REPAIR_PASSES,
-           k0, k1, chunk, int(shared), E)
+           k0, k1, chunk, layout, E, per_code)
     sample_irregular_codes.launches += 1
     return IrregularLDPCCode(chk_to_var=chk, var_to_chk=var_to_chk,
                              var_to_sock=var_to_sock, n=n, m=m,

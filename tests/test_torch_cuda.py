@@ -159,6 +159,80 @@ def test_sampler_kernel_global_memory_path(cuda, method, monkeypatch):
                                                   method))
 
 
+# (3,6) sizes on each side of the samplers' layout thresholds: the largest
+# n whose E = 3n takes a layout and the smallest that takes the next one
+_LAYOUT_EDGES = [
+    (ensemble.SHARED_PARTNERS_MAX_SOCKETS // 6 * 2, ensemble.LAYOUT_ALL_SHARED),
+    (ensemble.SHARED_PARTNERS_MAX_SOCKETS // 6 * 2 + 2,
+     ensemble.LAYOUT_WORDS_SHARED),
+    (ensemble.SHARED_PERM_MAX_SOCKETS // 6 * 2, ensemble.LAYOUT_WORDS_SHARED),
+    (ensemble.SHARED_PERM_MAX_SOCKETS // 6 * 2 + 2, ensemble.LAYOUT_GLOBAL)]
+
+
+@pytest.mark.parametrize("n, layout", _LAYOUT_EDGES)
+@pytest.mark.parametrize("method", ["raw", "repair", "reject"])
+def test_sampler_kernel_at_layout_edges(cuda, method, n, layout):
+    assert ensemble.sampler_layout(3 * n)[0] == layout
+    num = 2 if method == "reject" else 3
+    rounds = torch.zeros(num, dtype=torch.int32, device=cuda)
+    got = ensemble.sample_codes(6, 1, num, n, 3, 6, method, device=cuda,
+                                rounds=rounds)
+    _assert_same_codes(got, ensemble._sample_codes_plain(6, 1, num, n, 3, 6,
+                                                         method))
+    assert torch.equal(rounds.cpu().long(),
+                       ensemble.first_shuffle_rounds(6, 1, num, 3 * n))
+
+
+@pytest.mark.parametrize("n, layout", _LAYOUT_EDGES)
+@pytest.mark.parametrize("method", ["raw", "repair", "reject"])
+def test_irregular_sampler_kernel_at_layout_edges(cuda, method, n, layout):
+    spec = irregular.IrregularEnsembleSpec.regular(n, 3, 6)
+    assert ensemble.sampler_layout(spec.E)[0] == layout
+    num = 2 if method == "reject" else 3
+    rounds = torch.zeros(num, dtype=torch.int32, device=cuda)
+    got = irregular.sample_irregular_codes(6, 1, num, spec, method,
+                                           device=cuda, rounds=rounds)
+    _assert_same_irregular(got, irregular._sample_irregular_codes_plain(
+        6, 1, num, spec, method))
+    assert torch.equal(rounds.cpu().long(),
+                       ensemble.first_shuffle_rounds(6, 1, num, spec.E))
+
+
+@pytest.mark.parametrize("method", ["raw", "repair", "reject"])
+def test_sampler_kernel_words_shared_path(cuda, method, monkeypatch):
+    # the partners in a global scratch buffer, the words in shared memory:
+    # force that layout at a small size, for both samplers
+    monkeypatch.setattr(ensemble, "SHARED_PARTNERS_MAX_SOCKETS", 0)
+    assert ensemble.sampler_layout(600)[0] == ensemble.LAYOUT_WORDS_SHARED
+    _assert_same_codes(
+        ensemble.sample_codes(3, 1, 6, 200, 3, 6, method, device=cuda),
+        ensemble.sample_codes(3, 1, 6, 200, 3, 6, method))
+    spec = irregular.IrregularEnsembleSpec.from_lam_rho(200, *MIXED)
+    _assert_same_irregular(
+        irregular.sample_irregular_codes(3, 1, 6, spec, method, device=cuda),
+        irregular.sample_irregular_codes(3, 1, 6, spec, method))
+
+
+@pytest.mark.parametrize("n", [1, 2, 10, 2048, 10_000])
+@pytest.mark.parametrize("shared", [True, False])
+def test_sampler_kernel_rounds_equal_cpu(cuda, n, shared, monkeypatch):
+    # the kernels' rounds per code equal the CPU model's for the same draws
+    if not shared:
+        monkeypatch.setattr(ensemble, "SHARED_PERM_MAX_SOCKETS", 0)
+    dv, dc = (3, 6) if n % 2 == 0 else (2, 1)
+    num = 40
+    rounds = torch.full((num,), -1, dtype=torch.int32, device=cuda)
+    ensemble.sample_codes(11, 4, num, n, dv, dc, "raw", device=cuda,
+                          rounds=rounds)
+    want = ensemble.first_shuffle_rounds(11, 4, num, n * dv)
+    assert torch.equal(rounds.cpu().long(), want)
+    spec = irregular.IrregularEnsembleSpec.regular(n, dv, dc)
+    rounds.fill_(-1)
+    irregular.sample_irregular_codes(11, 4, num, spec, "repair",
+                                     device=cuda, rounds=rounds)
+    assert torch.equal(rounds.cpu().long(), want)
+
+
 @pytest.mark.parametrize("wpc", [1, 3, 24])
 @pytest.mark.parametrize("eps", [0.3, 0.45])
 def test_batched_check_and_variable_kernels_equal_plain(cuda, wpc, eps):
