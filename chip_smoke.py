@@ -16,12 +16,16 @@ modes at the same shape: the irregular (lam, rho) = (x/3 + 2x^3/3, x^5)
 ensemble on the BEC at eps = 0.42, Gallager-A on (3,6) codes on the BSC
 at p = 0.03, and Gallager-A on (lam, rho) = (x^2/2 + x^3/2, x^5) at
 p = 0.04, with the irregular sampler and the Gallager check and variable
-kernels held to their plain versions.  Kernel G, the whole Gallager decode
-of one code per block, is held to its plain version on all three outputs
-(decision, per-code errors per round, rounds) at 768 codes, regular and
-irregular, with and without a plane the errors count against, and on
-small adversarial batches; its decode at 768 codes is timed beside the
-round kernels' and the plain one, and its launches are counted on the
+kernels held to their plain versions (every instantiation: one code at W =
+768 and 768 codes at one word, regular and irregular, with and without a
+codeword plane, and the generic degree on (5,10) and (9,18) codes; timed
+by events and on the device, beside the bound at each shape; the variable
+kernel's launches on one expurgated ensemble chunk). Kernel G, the whole
+Gallager decode of one code per block, is held to its plain version on all
+three outputs (decision, per-code errors per round, rounds) at 768 codes,
+regular and irregular, with and without a plane the errors count against,
+and on small adversarial batches; its decode at 768 codes is timed beside
+the round kernels' and the plain one, and its launches are counted on the
 ensemble paths (where the round kernels must not run), the n = 1024
 brackets and the random ensemble Gallager path (phase 26), the round
 kernels' on the fixed and expurgated paths.
@@ -252,6 +256,38 @@ def time_ms(run, prepare=None, reps: int = 5, warmup: bool = True) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(run, kernel: str, prepare=None, reps: int = 5) -> float:
+    """Mean device time in ms of the kernels whose name holds ``kernel``
+    over ``reps`` calls of ``run()`` under torch.profiler, after a warm-up
+    step of as many, in up to three traces (a trace can lose its device
+    events): the kernel alone, without the wrapper's host work that
+    :func:`time_ms` includes (40-70 us, as long as a short kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    times = []
+    for _ in range(3):      # a trace can lose its device events: retry
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.append(p.events())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    if prepare is not None:
+                        prepare()
+                    run()
+                torch.cuda.synchronize()
+                prof.step()
+        times = [e.time_range.elapsed_us() for e in traced[0]
+                 if e.device_type == DeviceType.CUDA and kernel in e.name] \
+            if traced else []
+        if times:
+            break
+    return sum(times) / len(times) / 1e3 if times else float("nan")
 
 
 @functools.lru_cache(maxsize=None)
@@ -820,81 +856,143 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
         N_FULL, LAM_GAL, RHO6, device=dev)
     gal_irr = irregular.sample_irregular_codes(3, 0, CODES_FULL, gal_spec,
                                                device=dev)
+    # the generic degree path (no template, one word a thread): one (5,10)
+    # and one (9,18) code
+    generic = {f"dv{dv}_one": ensemble.sample_codes(
+        5, 0, 1, N_FULL, dv, 2 * dv, "repair", device=dev).select(0)
+        for dv in (5, 9)}
+    tx14 = bitops.bernoulli_packed(0.5, (N_FULL, WORDS_FULL), seed=8,
+                                   device=dev)
     cases = {"regular_one": (code, flips), "regular_768": (batch768, flips),
              "irregular_one": (gal_irr.select(0), flips_irr),
              "irregular_768": (gal_irr, flips_irr)}
     err_c = err_v = 0
-    pass_ms = {}
-    for label, (c, rx) in cases.items():
+    pass_ms, bounds, widths = {}, {}, {}
+    for label, (c, rx) in {**cases, **{k: (c, flips) for k, c in
+                                        generic.items()}}.items():
         graph = gallager._graph(c)
         t = graph.var_to_sock.shape[-1] - (0 if graph.irregular else 1)
         channel = erasure_bp._pad_phantom_row(rx) if graph.irregular else rx
         msg0 = gallager._initial_messages(graph.chk_to_var, channel)
         num = graph.num_codes
         parity = gallager.gallager_check(msg0, graph.dc)
+        widths[label] = {"check": gallager.gallager_check.vec}
         parity_p = gallager._gallager_check_plain(msg0, graph.dc)
         err = max_abs_err(parity, parity_p)
         check(err == 0, f"Gallager check kernel ({label}) differs from its "
                         f"plain version (max |d| {err})")
         err_c = max(err_c, err)
-        state = {}
-
-        def fresh():
-            state["msg"] = msg0.clone()
-            state["decided"] = rx.clone()
-            state["counts"] = torch.zeros((num, 2), dtype=torch.int32,
-                                          device=dev)
-
         active = torch.ones(num, dtype=torch.int32, device=dev)
-
-        def run(fn):
-            fn(state["msg"], parity, rx, graph.var_to_sock, active,
-               state["decided"], state["counts"], dc=graph.dc,
-               pad_pos=graph.pad_pos, threshold=t, clamp=graph.irregular)
-
-        fresh()
-        run(gallager.gallager_variable)
-        got = (state["msg"], state["decided"], state["counts"])
-        fresh()
-        run(gallager._gallager_variable_plain)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(x, y) for x, y in
-                  zip(got, (state["msg"], state["decided"], state["counts"])))
-        check(err == 0, f"Gallager variable kernel ({label}) differs from "
-                        f"its plain version (max |d| {err})")
-        err_v = max(err_v, err)
-        if label == "regular_768":         # the ensemble main path's shape
-            measured["gallager_check"].update(bound(nbytes(msg0, parity)))
-            measured["gallager_variable"].update(bound(nbytes(
-                msg0, msg0, parity, rx, graph.var_to_sock, active, rx,
-                state["counts"])))
         pass_ms[label] = dict(
             check_ms=time_ms(lambda: gallager.gallager_check(msg0,
                                                              graph.dc)),
+            check_device_ms=device_ms(lambda: gallager.gallager_check(
+                msg0, graph.dc), "gallager_check_kernel"),
             check_plain_ms=time_ms(lambda: gallager._gallager_check_plain(
-                msg0, graph.dc), reps=2),
-            variable_ms=time_ms(lambda: run(gallager.gallager_variable),
-                                prepare=fresh),
-            variable_plain_ms=time_ms(
-                lambda: run(gallager._gallager_variable_plain),
-                prepare=fresh, reps=1))
-        print(f"{label}: passes equal to plain; check "
-              f"{pass_ms[label]['check_ms']:.4f} ms (plain "
-              f"{pass_ms[label]['check_plain_ms']:.3f}), variable "
-              f"{pass_ms[label]['variable_ms']:.4f} ms (plain "
-              f"{pass_ms[label]['variable_plain_ms']:.3f})", flush=True)
+                msg0, graph.dc), reps=2))
+        bounds[label] = {"check": bound(nbytes(msg0, parity))["bound_ms"]}
+        for tx in (None, tx14):
+            key = "tx" if tx is not None else "no_tx"
+            sent = rx if tx is None else rx ^ tx
+            state = {}
+
+            def fresh():
+                state["msg"] = msg0.clone()
+                state["decided"] = sent.clone()
+                state["counts"] = torch.zeros((num, 2), dtype=torch.int32,
+                                              device=dev)
+
+            def run(fn):
+                fn(state["msg"], parity, sent, graph.var_to_sock, active,
+                   state["decided"], state["counts"], dc=graph.dc,
+                   pad_pos=graph.pad_pos, threshold=t, clamp=graph.irregular,
+                   tx=tx)
+
+            fresh()
+            run(gallager.gallager_variable)
+            # the words a thread of the launch the wrapper made
+            widths[label][f"variable_{key}"] = gallager.gallager_variable.vec
+            got = (state["msg"], state["decided"], state["counts"])
+            fresh()
+            run(gallager._gallager_variable_plain)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(x, y) for x, y in zip(
+                got, (state["msg"], state["decided"], state["counts"])))
+            check(err == 0, f"Gallager variable kernel ({label}, {key}) "
+                            f"differs from its plain version (max |d| {err})")
+            err_v = max(err_v, err)
+            pass_ms[label][f"variable_{key}_ms"] = time_ms(
+                lambda: run(gallager.gallager_variable), prepare=fresh)
+            pass_ms[label][f"variable_{key}_device_ms"] = device_ms(
+                lambda: run(gallager.gallager_variable),
+                "gallager_variable_kernel", prepare=fresh)
+            if tx is None:
+                pass_ms[label]["variable_plain_ms"] = time_ms(
+                    lambda: run(gallager._gallager_variable_plain),
+                    prepare=fresh, reps=1)
+            # messages read and written, parity, channel, the table,
+            # flags, decision and counts (and tx), each once
+            bounds[label][f"variable_{key}"] = bound(nbytes(
+                msg0, msg0, parity, rx, graph.var_to_sock, active, rx,
+                state["counts"], *(() if tx is None else (tx,))))["bound_ms"]
+        print(f"{label}: passes equal to plain (tx off and on); words a "
+              f"thread {widths[label]}; ms (device ms) check "
+              f"{pass_ms[label]['check_ms']:.4f} "
+              f"({pass_ms[label]['check_device_ms']:.4f}), plain "
+              f"{pass_ms[label]['check_plain_ms']:.3f}; variable "
+              f"{pass_ms[label]['variable_no_tx_ms']:.4f} "
+              f"({pass_ms[label]['variable_no_tx_device_ms']:.4f}), tx "
+              f"{pass_ms[label]['variable_tx_ms']:.4f} "
+              f"({pass_ms[label]['variable_tx_device_ms']:.4f}), plain "
+              f"{pass_ms[label]['variable_plain_ms']:.3f}; bounds "
+              f"{bounds[label]}", flush=True)
+    check(widths["regular_one"] == {"check": 4, "variable_no_tx": 4,
+                                    "variable_tx": 4}
+          and widths["irregular_one"]["variable_no_tx"] == 4
+          and widths["regular_768"]["variable_no_tx"] == 1
+          and widths["dv5_one"]["variable_no_tx"] == 1
+          and widths["dv9_one"]["variable_no_tx"] == 1,
+          f"round kernels' words a thread {widths}")
+    # the main path is the fixed code's (one code at W = 768); the expurgated
+    # ensemble chunks launch the variable kernel at 768 codes of one word
+    one, many = pass_ms["regular_one"], pass_ms["regular_768"]
     measured["gallager_check"].update(
-        max_abs_err=err_c, ms=pass_ms["regular_768"]["check_ms"],
-        plain_ms=pass_ms["regular_768"]["check_plain_ms"],
+        max_abs_err=err_c, ms=one["check_ms"], plain_ms=one["check_plain_ms"],
+        bound_ms=bounds["regular_one"]["check"], bound_by="bytes",
+        device_ms=one["check_device_ms"],
+        batched_768_device_ms=many["check_device_ms"],
+        irregular_one_ms=pass_ms["irregular_one"]["check_ms"],
+        batched_768_ms=many["check_ms"],
+        batched_768_plain_ms=many["check_plain_ms"],
+        batched_768_bound_ms=bounds["regular_768"]["check"],
         irregular_768_ms=pass_ms["irregular_768"]["check_ms"],
-        irregular_768_plain_ms=pass_ms["irregular_768"]["check_plain_ms"])
+        generic_dc10_ms=pass_ms["dv5_one"]["check_ms"],
+        generic_dc10_device_ms=pass_ms["dv5_one"]["check_device_ms"])
     measured["gallager_variable"].update(
-        max_abs_err=err_v, ms=pass_ms["regular_768"]["variable_ms"],
-        plain_ms=pass_ms["regular_768"]["variable_plain_ms"],
-        fixed_ms=pass_ms["regular_one"]["variable_ms"],
-        fixed_plain_ms=pass_ms["regular_one"]["variable_plain_ms"],
-        irregular_768_ms=pass_ms["irregular_768"]["variable_ms"],
-        irregular_768_plain_ms=pass_ms["irregular_768"]["variable_plain_ms"])
+        max_abs_err=err_v, ms=one["variable_no_tx_ms"],
+        plain_ms=one["variable_plain_ms"],
+        bound_ms=bounds["regular_one"]["variable_no_tx"], bound_by="bytes",
+        device_ms=one["variable_no_tx_device_ms"],
+        tx_ms=one["variable_tx_ms"],
+        tx_device_ms=one["variable_tx_device_ms"],
+        tx_bound_ms=bounds["regular_one"]["variable_tx"],
+        irregular_one_ms=pass_ms["irregular_one"]["variable_no_tx_ms"],
+        irregular_one_tx_ms=pass_ms["irregular_one"]["variable_tx_ms"],
+        irregular_one_device_ms=pass_ms["irregular_one"][
+            "variable_no_tx_device_ms"],
+        batched_768_ms=many["variable_no_tx_ms"],
+        batched_768_device_ms=many["variable_no_tx_device_ms"],
+        batched_768_plain_ms=many["variable_plain_ms"],
+        batched_768_bound_ms=bounds["regular_768"]["variable_no_tx"],
+        batched_768_tx_ms=many["variable_tx_ms"],
+        irregular_768_ms=pass_ms["irregular_768"]["variable_no_tx_ms"],
+        irregular_768_plain_ms=pass_ms["irregular_768"]["variable_plain_ms"],
+        irregular_768_device_ms=pass_ms["irregular_768"][
+            "variable_no_tx_device_ms"],
+        generic_dv5_ms=pass_ms["dv5_one"]["variable_no_tx_ms"],
+        generic_dv5_device_ms=pass_ms["dv5_one"]["variable_no_tx_device_ms"],
+        generic_dv9_device_ms=pass_ms["dv9_one"]["variable_no_tx_device_ms"],
+        words_a_thread=widths)
     decodes = {}
     for label, (c, rx) in cases.items():
         if gallager._graph(c).irregular:
@@ -918,6 +1016,26 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
               f"{int(res_k.error_totals[0])} -> "
               f"{int(res_k.error_totals[-1])}", flush=True)
     measured["gallager_decode"].update(gallager_decode_phase(dev, cases))
+    # the expurgated ensemble Gallager-A chunk (768 codes of one word,
+    # record="per_trial") keeps the round kernels: their launches a chunk
+    cfg_x = SimulationConfig(
+        n=N_FULL, iterations=ITERS, batch=32 * WORDS_FULL,
+        codes_per_chunk=CODES_FULL, seed=1, dv=DV, dc=DC,
+        code_mode="ensemble", channel="BSC", decoder="gallager",
+        channel_param=P_GAL, expurgation=2)
+    chunk_x = mc.make_chunk_fn(cfg_x, None, device=dev)
+    gal = ("gallager_check", "gallager_variable", "gallager_decode")
+    before = {k: kernels[k]["wrapper"].launches for k in gal}
+    int(chunk_x(0).block_errors)
+    torch.cuda.synchronize()
+    used = {k: kernels[k]["wrapper"].launches - before[k] for k in gal}
+    check(used["gallager_variable"] == used["gallager_check"] > 0
+          and used["gallager_decode"] == 0,
+          f"the expurgated Gallager-A chunk launched {used}")
+    measured["gallager_variable"]["launches_expurgated_chunk"] = \
+        used["gallager_variable"]
+    print(f"expurgated ensemble Gallager-A chunk (n={N_FULL}, "
+          f"{CODES_FULL} codes): launches {used}", flush=True)
 
     # -- 15 -------------------------------------------------------------------
     phase("15 run_simulation of the new paths on cuda against cpu")
@@ -1237,6 +1355,7 @@ def posterior_cases(dev, llr, batch) -> dict:
     case's trials a thread by type."""
     import torch
 
+    from iib_project_ldpc_codes_tpu_torch.kernels import alignment
     from iib_project_ldpc_codes_tpu_torch.models import ensemble
     from iib_project_ldpc_codes_tpu_torch.ops import soft_bp
 
@@ -1285,7 +1404,7 @@ def posterior_cases(dev, llr, batch) -> dict:
                       "differs from its plain version")
             vec = soft_bp.soft_posterior_vector(
                 p_k.element_size(), cols // num, g.var_to_sock.shape[-1],
-                [(soft_bp._alignment(t), t.element_size())
+                [(alignment(t), t.element_size())
                  for t in (llr0, msg, p_k)])
             out[label][name] = vec
         print(f"kernel B {label}: equal to plain at both count widths; "
@@ -2999,15 +3118,17 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
 def kernel_resources(smi: str) -> dict:
     """Registers, stack frame and local memory (spills), read with the
     toolkit's cuobjdump from the built library, of every instantiation of
-    kernels C (``soft_check``) and B (``soft_posterior``) and of S2's int8
-    instantiations
+    kernels C (``soft_check``) and B (``soft_posterior``), of the Gallager
+    round kernels (``gallager_check``, ``gallager_variable``) and of S2's
+    int8 instantiations
     (``qc_soft_check_int8``, with their SASS instruction counts); with the
     theoretical occupancy the registers allow at 256 threads a block (a
     warp's registers allocated in units of 256, at most 64 warps an SM).
     Fails on a stack frame or local memory in S2 int8 and on local memory
-    in C; C's stack frames (spill slots) are printed: its int8
-    instantiations up to degree 6 are held to 80 registers for three
-    blocks an SM, measured faster with a few bytes spilled than at 96."""
+    in C and in the round kernels' exact-degree instantiations; C's stack
+    frames (spill slots) are printed: its int8 instantiations up to degree
+    6 are held to 80 registers for three blocks an SM, measured faster
+    with a few bytes spilled than at 96."""
     import re
 
     from iib_project_ldpc_codes_tpu_torch.kernels.build import (find_nvcc,
@@ -3095,6 +3216,34 @@ def kernel_resources(smi: str) -> dict:
     check(len(out["soft_posterior"]) == 66, f"kernel B: "
           f"{len(out['soft_posterior'])} instantiations in the library, "
           "expected 66")
+    # the Gallager round kernels: gallager_check_kernel<V, kDc> (kDc 0 the
+    # generic degree) and gallager_variable_kernel<V, D, kTx> (D 0 the
+    # generic degree at one word; 21 and 24 letters mangled)
+    out["gallager_check"], out["gallager_variable"] = {}, {}
+    for name, text in usage.items():
+        m = re.search(r"(21gallager_check_kernel|24gallager_variable_kernel)"
+                      r"I(\w*?)EEv", name)
+        if not m:
+            continue
+        args = list(map(int, re.findall(r"L[ib](\d+)E", m.group(2))))
+        f = fields(text)
+        if m.group(1).endswith("check_kernel"):
+            vec, deg = args
+            key = f"V{vec}_" + (f"dc{deg}" if deg else "generic")
+            exact = deg > 0
+        else:
+            vec, deg, tx = args
+            key = f"V{vec}_" + (f"dv{deg}" if deg else "generic") + \
+                ("_tx" if tx else "")
+            exact = deg > 0
+        out[m.group(1)[2:-7]][key] = f
+        check(f["local"] == 0 or not exact,
+              f"Gallager round kernel {key}: local memory {text}")
+    check(len(out["gallager_check"]) == 6
+          and len(out["gallager_variable"]) == 14,
+          f"Gallager round kernels: {len(out['gallager_check'])} / "
+          f"{len(out['gallager_variable'])} instantiations in the library, "
+          "expected 6 / 14")
     print(f"kernel resources (S2 int8: U words a thread, up to dc sockets, "
           f"per_socket_and_word the kernel's SASS over dc * U; kernels C "
           f"and B: type, (C) method, V trials a thread, the exact degree or "
@@ -3280,6 +3429,8 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     # instantiation is on the resources line above
     measured["soft_check"]["resources_dc6"] = {
         k: v for k, v in resources["soft_check"].items() if k.endswith("_dc6")}
+    for name in ("gallager_check", "gallager_variable"):
+        measured[name]["resources"] = resources[name]
     for name in names[:2]:
         measured[name].update(
             max_abs_err=err[name], library_ms=None,

@@ -11,7 +11,7 @@ import torch
 
 from .build import launch
 
-__all__ = ["launch", "check_int32", "use_kernel"]
+__all__ = ["launch", "alignment", "check_int32", "use_kernel"]
 
 
 def check_int32(name: str, t, ndim: int) -> torch.Tensor:
@@ -26,6 +26,15 @@ def check_int32(name: str, t, ndim: int) -> torch.Tensor:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return t
+
+
+def alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
 
 
 def use_kernel(*items) -> bool:

@@ -51,9 +51,9 @@ SIGNATURES = {
     "ldpc_sample_irregular_codes": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
                                     _U, _I, _I, _LL, _P),
-    "ldpc_gallager_check": (_P, _P, _I, _I, _I, _P),
+    "ldpc_gallager_check": (_P, _P, _I, _I, _I, _I, _P),
     "ldpc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_gallager_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_erasure_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -15,6 +15,12 @@ kernels:
     messages in place, and count the decision errors and the changed
     message words per code.
 
+Both move 16, 8 or 4 bytes of a row a thread, the widest that a code's
+words and the planes' alignment allow (:func:`gallager_round_vector`);
+the variable kernel has templates over the :data:`EXACT_DEGREES` and a
+generic path at 4 bytes for any other degree up to :data:`MAX_DEGREE`.
+Each wrapper keeps the width of its last launch in ``.vec``.
+
 Messages live in int32[rows * dc, W], one row per flat check-socket
 position (``var_to_edge`` of a regular code, ``var_to_sock`` of an
 irregular one); padded sockets of an irregular code hold 0.  Irregular
@@ -57,7 +63,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from ..kernels import check_int32, launch, use_kernel
+from ..kernels import alignment, check_int32, launch, use_kernel
 from ..models.irregular import IrregularLDPCCode
 from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
 from .erasure_bp import (SMEM_OPTIN_BYTES, _check_packed_batch_bits,
@@ -66,6 +72,25 @@ from .erasure_bp import (SMEM_OPTIN_BYTES, _check_packed_batch_bits,
 
 #: largest variable degree the variable kernel takes (registers per thread)
 MAX_DEGREE = 32
+#: the variable degrees the variable kernel has templates for, at any
+#: width; every other degree runs its generic path at one word a thread
+EXACT_DEGREES = (3, 4)
+
+
+def gallager_round_vector(wpc: int, align: int,
+                          dv: Optional[int] = None) -> int:
+    """The round kernels' words a thread: the widest of 4, 2 and 1 (16, 8
+    or 4 bytes of a row) that divides a code's ``wpc`` words, so that one
+    vector never holds two codes' words, and whose bytes divide ``align``,
+    the largest power of two up to 16 dividing every plane's address.  1
+    for a variable degree ``dv`` outside :data:`EXACT_DEGREES`.  The check
+    pass has no codes: it passes ``wpc`` = its words and no ``dv``."""
+    for vec in (4, 2, 1):
+        if wpc % vec == 0 and align % (4 * vec) == 0 and (
+                vec == 1 or dv is None or dv in EXACT_DEGREES):
+            return vec
+    raise ValueError(f"planes aligned to {align} bytes: the round kernels "
+                     "move whole 4-byte words")
 
 
 def _bitsliced_count_ge(bits: List[torch.Tensor], threshold: int
@@ -208,13 +233,16 @@ def gallager_check(msg: torch.Tensor, dc: int) -> torch.Tensor:
         return _gallager_check_plain(msg, dc)
     rows, words = msg.shape[0] // dc, msg.shape[1]
     parity = torch.empty((rows, words), dtype=torch.int32, device=msg.device)
+    vec = gallager_round_vector(words, alignment(msg, parity))
     launch("ldpc_gallager_check", msg.device, msg.data_ptr(),
-           parity.data_ptr(), rows, dc, words)
+           parity.data_ptr(), rows, dc, words, vec)
     gallager_check.launches += 1
+    gallager_check.vec = vec
     return parity
 
 
 gallager_check.launches = 0
+gallager_check.vec = None
 
 
 # ---------------------------------------------------------------------------
@@ -303,15 +331,19 @@ def gallager_variable(msg: torch.Tensor, parity: torch.Tensor,
     if dv > MAX_DEGREE:
         raise ValueError(f"variable degree {dv} above the kernel's "
                          f"{MAX_DEGREE}")
+    vec = gallager_round_vector(wpc, alignment(
+        msg, parity, channel, decided, *(() if tx is None else (tx,))), dv)
     launch("ldpc_gallager_variable", msg.device, msg.data_ptr(),
            parity.data_ptr(), channel.data_ptr(), var_to_sock.data_ptr(),
            active.data_ptr(), decided.data_ptr(), counts.data_ptr(),
            None if tx is None else tx.data_ptr(), n, var_to_sock.shape[-2],
-           dv, dc, pad_pos, words, wpc, threshold, int(clamp))
+           dv, dc, pad_pos, words, wpc, threshold, int(clamp), vec)
     gallager_variable.launches += 1
+    gallager_variable.vec = vec
 
 
 gallager_variable.launches = 0
+gallager_variable.vec = None
 
 
 # ---------------------------------------------------------------------------

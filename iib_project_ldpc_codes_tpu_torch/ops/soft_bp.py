@@ -55,7 +55,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import launch, use_kernel
+from ..kernels import alignment, launch, use_kernel
 from ..models.irregular import IrregularLDPCCode
 from .bitops import unpack_bits
 from .gallager import _Graph, _gather, _graph, _per_word
@@ -287,7 +287,7 @@ def soft_posterior(llr0: torch.Tensor, msg: torch.Tensor,
     cpc = cols // active.shape[0]
     planes = [t for t in (llr0, msg, pm, post, hard) if t is not None]
     vec = soft_posterior_vector(pm.element_size(), cpc, dv,
-                                [(_alignment(t), t.element_size())
+                                [(alignment(t), t.element_size())
                                  for t in planes])
     launch("ldpc_soft_posterior", pm.device, llr0.data_ptr(), msg.data_ptr(),
            var_to_sock.data_ptr(), active.data_ptr(), pm.data_ptr(),
@@ -412,15 +412,6 @@ def _l2_bytes(index: int) -> int:
     return torch.cuda.get_device_properties(index).L2_cache_size
 
 
-def _alignment(*tensors) -> int:
-    """The largest power of two up to 16 that divides every data pointer."""
-    align = 16
-    for t in tensors:
-        while t.data_ptr() % align:
-            align //= 2
-    return align
-
-
 def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
                active: torch.Tensor, unsat: torch.Tensor, *, method: str,
                alpha: float = 1.0, beta: float = 0.0,
@@ -462,7 +453,7 @@ def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
     cpc = cols // active.shape[0]
     vec, tile = soft_check_geometry(
         pm.element_size(), cols, cpc, dc, pm.shape[0],
-        _l2_bytes(torch.cuda.current_device()), _alignment(pm, msg))
+        _l2_bytes(torch.cuda.current_device()), alignment(pm, msg))
     launch("ldpc_soft_check", pm.device, pm.data_ptr(), msg.data_ptr(),
            chk_to_var.data_ptr(), active.data_ptr(), unsat.data_ptr(), rows,
            rows, dc, pad_var, cols, cpc, vec, tile, _DTYPES[dtype],

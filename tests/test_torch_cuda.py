@@ -417,24 +417,31 @@ def test_irregular_decode_on_gpu_equals_cpu(cuda, wpc, batched):
     assert gpu.iterations == cpu.iterations
 
 
-@pytest.mark.parametrize("rows, dc, words", [(1, 1, 1), (13, 6, 33),
-                                             (301, 5, 96)])
-def test_gallager_check_kernel_equals_plain(cuda, rows, dc, words):
+# (rows, dc, words): 16-, 8- and 4-byte vectors (W = 768, 66, 33), the
+# exact degree 6 and the generic loop (1, 5, 8)
+@pytest.mark.parametrize("rows, dc, words", [
+    (1, 1, 1), (13, 6, 33), (301, 5, 96), (40, 6, 768), (40, 6, 66),
+    (17, 8, 64), (50, 6, 24)])
+@pytest.mark.parametrize("align", [16, 8, 4])
+def test_gallager_check_kernel_equals_plain(cuda, rows, dc, words, align):
     rng = np.random.default_rng(rows)
     msg = torch.from_numpy(rng.integers(-2**31, 2**31, size=(rows * dc, words),
                                         dtype=np.int64).astype(np.int32))
-    got = gallager.gallager_check(msg.to(cuda), dc)
+    got = gallager.gallager_check(_misaligned(msg.to(cuda), align), dc)
     assert torch.equal(got.cpu(), gallager.gallager_check(msg, dc))
 
 
 def _variable_case(family, wpc, num, seed=0):
     """Tables, random messages (padding rows 0), channel and the pass's
-    other arguments for one variable-pass comparison."""
+    other arguments for one variable-pass comparison: (3,6), (4,8), (5,10)
+    and (9,18) codes (the exact degrees 3 and 4, the generic path at one
+    word a thread) and the dv 3/4 irregular pair."""
     rng = np.random.default_rng(seed)
     n = 600
-    if family == "regular":
-        codes = ensemble.sample_codes(seed, 0, num, n, 3, 6, "repair")
-        table, dc, rows = codes.var_to_edge, 6, codes.m
+    if family != "irregular":
+        dv = {"regular": 3, "dv4": 4, "dv5": 5, "dv9": 9}[family]
+        codes = ensemble.sample_codes(seed, 0, num, n, dv, 2 * dv, "repair")
+        table, dc, rows = codes.var_to_edge, 2 * dv, codes.m
     else:
         spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, *MIXED)
         codes = irregular.sample_irregular_codes(seed, 0, num, spec)
@@ -451,34 +458,68 @@ def _variable_case(family, wpc, num, seed=0):
     active = torch.from_numpy((rng.random(num) < 0.7).astype(np.int32))
     active[0] = 1
     decided = bitops.bernoulli_packed(0.5, (n, words), seed=seed + 1)
+    tx = bitops.bernoulli_packed(0.5, (n, words), seed=seed + 2)
     pad_pos = (codes.m) * dc
     return dict(msg=msg, channel=channel, table=table, active=active,
-                decided=decided, dc=dc, pad_pos=pad_pos,
+                decided=decided, tx=tx, dc=dc, pad_pos=pad_pos,
                 clamp=family == "irregular")
 
 
-@pytest.mark.parametrize("family", ["regular", "irregular"])
-@pytest.mark.parametrize("wpc, num", [(33, 1), (1, 40), (24, 5)])
-@pytest.mark.parametrize("threshold", [None, 1])
-def test_gallager_variable_kernel_equals_plain(cuda, family, wpc, num,
-                                               threshold):
-    case = _variable_case(family, wpc, num)
+def _variable_pass_both(cuda, case, threshold, with_tx, align=16):
+    """The variable pass on the card (its planes ``align`` bytes past a
+    16-byte boundary) and on the CPU: (msg, decided, counts) of each."""
     dv = case["table"].shape[-1]
+    num = case["active"].shape[0]
     t = (dv if case["clamp"] else dv - 1) if threshold is None else threshold
     out = []
     for device in (cuda, "cpu"):
-        msg = case["msg"].clone().to(device)
-        decided = case["decided"].clone().to(device)
+        def put(x):
+            return _misaligned(x.to(device), align) if device == cuda \
+                else x.clone()
+        msg, decided = put(case["msg"]), put(case["decided"])
         counts = torch.zeros((num, 2), dtype=torch.int32, device=device)
         parity = gallager.gallager_check(msg, case["dc"])
         gallager.gallager_variable(
-            msg, parity, case["channel"].to(device), case["table"].to(device),
+            msg, put(parity), put(case["channel"]), case["table"].to(device),
             case["active"].to(device), decided, counts, dc=case["dc"],
-            pad_pos=case["pad_pos"], threshold=t, clamp=case["clamp"])
+            pad_pos=case["pad_pos"], threshold=t, clamp=case["clamp"],
+            tx=put(case["tx"]) if with_tx else None)
         out.append((msg.cpu(), decided.cpu(), counts.cpu()))
-    for got, want in zip(*out):
+    return out
+
+
+# (wpc, num): 4-byte vectors on one code (33) and on 40 codes of one word,
+# 8-byte ones (6, 2), 16-byte ones (24; 768 words on one code, the fixed
+# path's width)
+@pytest.mark.parametrize("family", ["regular", "dv4", "dv5", "dv9",
+                                    "irregular"])
+@pytest.mark.parametrize("wpc, num", [(33, 1), (1, 40), (24, 5), (768, 1),
+                                      (6, 7), (2, 20)])
+@pytest.mark.parametrize("threshold", [None, 1])
+@pytest.mark.parametrize("with_tx", [False, True])
+def test_gallager_variable_kernel_equals_plain(cuda, family, wpc, num,
+                                               threshold, with_tx):
+    case = _variable_case(family, wpc, num)
+    gpu, cpu = _variable_pass_both(cuda, case, threshold, with_tx)
+    for got, want in zip(gpu, cpu):
         assert torch.equal(got, want)
-    assert int(out[1][2][:, 1].sum()) > 0
+    assert int(cpu[2][:, 1].sum()) > 0
+    stopped = case["active"] == 0               # frozen: nothing written
+    if stopped.any():
+        assert int(cpu[2][stopped].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("wpc, num", [(24, 5), (768, 1)])
+@pytest.mark.parametrize("align", [8, 4])
+def test_gallager_variable_kernel_on_misaligned_planes(cuda, family, wpc,
+                                                       num, align):
+    # planes 8 or 4 bytes past a 16-byte boundary: the rule narrows the
+    # vectors to 8 or 4 bytes
+    case = _variable_case(family, wpc, num, seed=3)
+    gpu, cpu = _variable_pass_both(cuda, case, None, False, align)
+    for got, want in zip(gpu, cpu):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("record", ["total", "per_trial"])

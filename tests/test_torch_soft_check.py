@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from iib_project_ldpc_codes_tpu.ops.soft_bp import _check_update_minsum
+from iib_project_ldpc_codes_tpu_torch import kernels
 from iib_project_ldpc_codes_tpu_torch.ops import soft_bp
 from test_torch_qc_soft import _EDGE_VALUES, _packed_check
 
@@ -270,6 +271,6 @@ def test_soft_check_of_empty_planes_is_a_no_op(rows, cols, dtype):
 
 def test_alignment_of_views():
     plane = torch.zeros(64, dtype=torch.int8)
-    assert soft_bp._alignment(plane) == 16
-    assert soft_bp._alignment(plane[4:], plane) == 4
-    assert soft_bp._alignment(plane[8:]) == 8
+    assert kernels.alignment(plane) == 16
+    assert kernels.alignment(plane[4:], plane) == 4
+    assert kernels.alignment(plane[8:]) == 8
