@@ -65,13 +65,16 @@ check and variable passes, the Gallager check and variable passes; no
 table per lifted edge is read) against their plain versions in every
 instantiation, on the nb = 12 (3,6) base lifted to n = 10,008 (W = 768)
 and to ``bench.py``'s huge-n shape n = 1,000,008 (W = 48) and on the
-irregular pairs above on an nb = 24 base; ``expand()`` validated; whole
+irregular pairs above on an nb = 24 base, each Q4 launch's words a
+thread and degree passes checked, Q3's and Q4's device times
+(torch.profiler) beside their event times; ``expand()`` validated; whole
 decodes against the plain path and against the generic kernels on
 ``expand()``; GPU runs against CPU runs and circulant-index runs against
 ``expand()`` runs, counter for counter; the QC paths through the engine
 with launch counts equal to the rounds run and a threshold bracket at
 n = 100,008; and circulant index timed against gather (the generic kernels
-on ``expand()``) at n = 10^4, 10^5 and 10^6.  For these four kernels
+on ``expand()``) at n = 10^4, 10^5 and 10^6, with the n = 10^6
+Gallager-A decode's device time by kernel.  For these four kernels
 ``launches`` counts the (3,6) QC BEC path (the BEC pair) and the (3,6) QC
 Gallager-A path (the Gallager pair).
 
@@ -2642,6 +2645,13 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
              ("irregular BEC", irr_bec, WORDS_FULL, EPS_FULL, P_GAL, False),
              ("irregular BSC", irr_gal, WORDS_FULL, EPS_FULL, P_GAL_IRR,
               False)]
+    # Q4's launches by case: (words a thread, its degree passes) from
+    # ops/qc_gallager.py qc_variable_layout (the BEC pair's blocks have
+    # degree 2 and 4, the Gallager pair's 3 and 4)
+    q4_launched, q4_want = {}, {
+        "n1e4": (4, ("dv3",)), "n1e6": (4, ("dv3",)),
+        "irregular BEC": (4, ("dv4", "generic")),
+        "irregular BSC": (4, ("dv3", "dv4"))}
     for label, c, words, eps, p, timed in cases:
         adj = qc_bp._adjacency(c, dev)
         clamp = isinstance(c, qc.IrregularQCLDPCCode)
@@ -2699,6 +2709,9 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                     before = msg.clone() if t == 1 else None
                     var_fn(adj, msg, parity, rx, decided, counts, threshold=t,
                            clamp=clamp, tx=tx if with_tx else None)
+                    if key == "kernel":
+                        q4_launched.setdefault(label, set()).add((
+                            var_fn.vec, var_fn.paths))
                 out[key] = (first, parity, msg, decided, counts)
                 if key == "kernel" and not with_tx:
                     gstate.update(rx=rx, before=before, parity=parity)
@@ -2711,8 +2724,13 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                 f"Q4 ({label}, tx={with_tx})"))
             check(int(out["kernel"][4][0, 1]) > 0,
                   f"Q4 ({label}): no message word changed in two rounds")
+        check(q4_launched[label] == {q4_want[label]},
+              f"Q4 ({label}) launched {q4_launched[label]}, expected "
+              f"{q4_want[label]} (words a thread, degree passes)")
         print(f"Q1-Q4 equal to plain on {label}: n={c.n}, Z={c.Z}, W={words}, "
-              f"E_b={adj.num_rows}, dvb {dvb}", flush=True)
+              f"E_b={adj.num_rows}, dvb {dvb}; Q4 launched {words} words at "
+              f"{q4_launched[label]} (words a thread, degree passes)",
+              flush=True)
         if not timed:
             continue
         # single launches at this shape, each beside its plain version and
@@ -2756,6 +2774,8 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
             names[2]: dict(
                 ms=time_ms(lambda: qc_gallager.qc_gallager_check(
                     adj, gstate["before"])),
+                device_ms=device_ms(lambda: qc_gallager.qc_gallager_check(
+                    adj, gstate["before"]), "qc_gallager_check"),
                 plain_ms=time_ms(
                     lambda: qc_gallager._qc_gallager_check_plain(
                         adj, gstate["before"]), reps=reps_plain),
@@ -2764,6 +2784,16 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
             names[3]: dict(
                 ms=time_ms(lambda: q4(qc_gallager.qc_gallager_variable),
                            prepare=gfresh),
+                # the kernel alone (events add the wrapper's host work)
+                device_ms=device_ms(
+                    lambda: q4(qc_gallager.qc_gallager_variable),
+                    "qc_gallager_variable", prepare=gfresh),
+                tx_device_ms=device_ms(
+                    lambda: q4(qc_gallager.qc_gallager_variable, tx),
+                    "qc_gallager_variable", prepare=gfresh),
+                init_device_ms=device_ms(
+                    lambda: q4_init(qc_gallager.qc_gallager_variable),
+                    "qc_gallager_init"),
                 plain_ms=time_ms(
                     lambda: q4(qc_gallager._qc_gallager_variable_plain),
                     prepare=gfresh, reps=reps_plain),
@@ -3113,21 +3143,38 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
           flush=True)
     print(device_time_breakdown(lambda: int(chunk6(5).block_errors),
                                 chunk6_ms, kernels), flush=True)
+    # the QC Gallager-A decode at n = 1,000,008 (gallager_index above): its
+    # device time by kernel; Q4's first messages are a kernel of another
+    # name, so the trace is held to Q3's launch count
+    c6 = reg["n1e6"]
+    flips6 = bitops.bernoulli_packed(P_GAL, (c6.n, QC_W6), seed=12,
+                                     device=dev)
+    gal6_ms = timing["n1e6"]["decode_ms"]["gallager_index"]
+    print(f"QC Gallager-A decode at n={c6.n}, W={QC_W6}: "
+          f"{sum(gal6_ms) / len(gal6_ms):.3f} ms "
+          f"({timing['n1e6']['rounds']['gallager']} rounds); card {smi}",
+          flush=True)
+    print(device_time_breakdown(
+        lambda: qc_gallager.qc_gallager_decode_packed(c6, flips6,
+                                                      ITERS).iterations,
+        sum(gal6_ms) / len(gal6_ms),
+        {k: kernels[k] for k in ("qc_gallager_check",)}), flush=True)
 
 
 def kernel_resources(smi: str) -> dict:
     """Registers, stack frame and local memory (spills), read with the
     toolkit's cuobjdump from the built library, of every instantiation of
     kernels C (``soft_check``) and B (``soft_posterior``), of the Gallager
-    round kernels (``gallager_check``, ``gallager_variable``) and of S2's
+    round kernels (``gallager_check``, ``gallager_variable``), of Q4
+    (``qc_gallager_variable``, its first messages too) and of S2's
     int8 instantiations
     (``qc_soft_check_int8``, with their SASS instruction counts); with the
     theoretical occupancy the registers allow at 256 threads a block (a
     warp's registers allocated in units of 256, at most 64 warps an SM).
     Fails on a stack frame or local memory in S2 int8 and on local memory
-    in C and in the round kernels' exact-degree instantiations; C's stack
-    frames (spill slots) are printed: its int8 instantiations up to degree
-    6 are held to 80 registers for three blocks an SM, measured faster
+    in C, in the round kernels' exact-degree instantiations and in Q4; C's
+    stack frames (spill slots) are printed: its int8 instantiations up to
+    degree 6 are held to 80 registers for three blocks an SM, measured faster
     with a few bytes spilled than at 96."""
     import re
 
@@ -3244,6 +3291,24 @@ def kernel_resources(smi: str) -> dict:
           f"Gallager round kernels: {len(out['gallager_check'])} / "
           f"{len(out['gallager_variable'])} instantiations in the library, "
           "expected 6 / 14")
+    # Q4: qc_gallager_variable_kernel<N, kTx>, its exact-degree and generic
+    # passes inlined, and qc_gallager_init_kernel<N> (27 and 23 letters
+    # mangled); no local memory in any
+    out["qc_gallager_variable"] = {}
+    for name, text in usage.items():
+        m = re.search(r"(27qc_gallager_variable_kernel|"
+                      r"23qc_gallager_init_kernel)I(\w*?)EEv", name)
+        if not m:
+            continue
+        args = list(map(int, re.findall(r"L[ib](\d+)E", m.group(2))))
+        key = f"init_N{args[0]}" if m.group(1).endswith("init_kernel") \
+            else f"N{args[0]}" + ("_tx" if args[1] else "")
+        f = fields(text)
+        out["qc_gallager_variable"][key] = f
+        check(f["local"] == 0, f"Q4 {key}: local memory {text}")
+    check(len(out["qc_gallager_variable"]) == 6,
+          f"Q4: {len(out['qc_gallager_variable'])} instantiations in the "
+          "library, expected 6")
     print(f"kernel resources (S2 int8: U words a thread, up to dc sockets, "
           f"per_socket_and_word the kernel's SASS over dc * U; kernels C "
           f"and B: type, (C) method, V trials a thread, the exact degree or "

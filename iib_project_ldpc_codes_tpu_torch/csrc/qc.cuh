@@ -1,7 +1,8 @@
 // Shared by the quasi-cyclic (circulant-index) kernels: qc_check_exactly_one.cu,
-// qc_variable_or.cu, qc_gallager_check.cu, qc_gallager_variable.cu.
+// qc_variable_or.cu, qc_gallager_check.cu, and qc_gallager_variable.cu
+// (vector_ok and kMaxPlanes only: Q4 has a layout of its own).
 //
-// Every pass works on [Z, W] planes of packed words, one plane per base
+// Every pass here works on [Z, W] planes of packed words, one plane per base
 // node: blockIdx.y is the base check or the variable block, so its base
 // table entries are uniform across the block (broadcast loads), and the
 // x dimension runs a grid-stride loop over the plane's Z * (W / N) items of

@@ -71,7 +71,7 @@ SIGNATURES = {
     "ldpc_qc_variable_or": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ldpc_qc_gallager_check": (_P, _P, _P, _I, _I, _I, _P),
     "ldpc_qc_gallager_variable": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_qc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, _P),
     "ldpc_qc_soft_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

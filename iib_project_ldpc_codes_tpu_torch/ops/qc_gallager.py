@@ -18,7 +18,11 @@ rows.  One flooding round is two hand-written kernels:
     (degree // 2 + 1), write the new messages in place at check row
     (z - s) mod Z, and count the decision errors and the changed message
     words.  With ``init=True`` the same source writes the first messages,
-    the channel word at every socket, by the same index computation.
+    the channel word at every socket, by the same index computation.  Its
+    launch (:func:`qc_variable_layout`): 16 or 4 bytes of a row a thread,
+    4 / 1 rows a thread, and per variable block an exact-degree pass
+    (:data:`QC_EXACT_DEGREES`) or the generic one; the wrapper keeps the
+    last launch's in ``.vec`` and ``.paths``.
 
 The flip rule goes by the code's TYPE, as in JAX: the raw threshold for a
 :class:`..models.qc.QCLDPCCode`, the per-degree clamp t_d = min(t, max(d-1,
@@ -33,11 +37,11 @@ the same, laid out differently.  No per-round ``schedule``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 
-from ..kernels import check_int32, launch, use_kernel
+from ..kernels import alignment, check_int32, launch, use_kernel
 from ..models.qc import IrregularQCLDPCCode
 from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
 from .gallager import (MAX_DEGREE, GallagerResult, _bitsliced_count_ge,
@@ -84,6 +88,29 @@ qc_gallager_check.launches = 0
 # ---------------------------------------------------------------------------
 # Q4: the variable pass, and the first messages
 # ---------------------------------------------------------------------------
+
+#: the variable-block degrees Q4 has exact passes for; a block of any other
+#: degree (up to MAX_DEGREE) runs its generic pass, in the same launch
+QC_EXACT_DEGREES = (3, 4)
+#: words of each socket's rows a thread of Q4 keeps in flight
+#: (``kWordsInFlight`` of ``csrc/qc_gallager_variable.cu``)
+QC_WORDS_IN_FLIGHT = 4
+
+
+def qc_variable_layout(degrees: Iterable[int], words: int, align: int
+                       ) -> Tuple[int, int, Tuple[str, ...]]:
+    """Q4's launch, ``(vec, rows, paths)``: ``vec`` the words of a row a
+    thread moves, 4 (16 bytes) when ``words`` is a multiple of 4 and
+    ``align`` (the largest power of two up to 16 dividing every plane's
+    address) is 16, else 1; ``rows`` the rows a thread takes,
+    ``QC_WORDS_IN_FLIGHT // vec``; ``paths`` the passes that variable
+    blocks of these ``degrees`` take, sorted: ``"dv3"``, ``"dv4"`` (the
+    exact degrees) and ``"generic"``."""
+    vec = 4 if words % 4 == 0 and align % 16 == 0 else 1
+    paths = {f"dv{d}" if d in QC_EXACT_DEGREES else "generic"
+             for d in degrees}
+    return vec, QC_WORDS_IN_FLIGHT // vec, tuple(sorted(paths))
+
 
 def _qc_gallager_variable_plain(adj: QCAdjacency, msg, parity, channel,
                                 decided, counts, *, threshold: int = 0,
@@ -171,15 +198,21 @@ def qc_gallager_variable(adj: QCAdjacency, msg: torch.Tensor,
     def ptr(t):
         return None if init or t is None else t.data_ptr()
 
+    planes = [t for t in tensors if t is not counts]
+    vec, rows, paths = qc_variable_layout(
+        (len(s) for s in adj.var_side), words, alignment(*planes))
     launch("ldpc_qc_gallager_variable", msg.device, msg.data_ptr(),
            ptr(parity), channel.data_ptr(), adj.var_chk.data_ptr(),
            adj.var_row.data_ptr(), adj.var_shift.data_ptr(), ptr(decided),
            ptr(counts), ptr(tx), adj.nb, dvb, adj.Z, words, threshold,
-           int(clamp), int(init))
+           int(clamp), int(init), vec, rows)
     qc_gallager_variable.launches += 1
+    qc_gallager_variable.vec = vec
+    qc_gallager_variable.paths = ("init",) if init else paths
 
 
 qc_gallager_variable.launches = 0
+qc_gallager_variable.vec = qc_gallager_variable.paths = None
 
 
 # ---------------------------------------------------------------------------

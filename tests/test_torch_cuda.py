@@ -1386,15 +1386,34 @@ def test_random_transmit_runs_gpu_equal_cpu(cuda, fields):
 # Quasi-cyclic codes: the circulant-index kernels (Q1-Q4)
 # ---------------------------------------------------------------------------
 
+# tests/test_torch_qc.py's hand-built irregular bases (blocks of degree 1
+# and 2): (base, shifts, nb)
+QC_HAND = {
+    "degree_one": ([[0, 1, 2], [0, 1, 3]], [[0, 1, 2], [3, 0, 1]], 4),
+    "uniform_clamped": ([[0, 1, 2, 3], [0, 2, 4, 5], [1, 3, 4, 5]],
+                        [[0, 1, 2, 3], [1, 2, 3, 0], [2, 3, 0, 1]], 6)}
+
+
 def _qc_code(family, Z):
-    """The nb = 12 (3,6) base, the irregular nb = 24 base, or ("dc10") an
-    nb = 20 base of check degree 10, lifted by Z."""
+    """The nb = 12 (3,6) base, the irregular nb = 24 base (variable degrees
+    2 and 4), ("dc10") an nb = 20 base of check degree 10, ("irregular_gal")
+    the nb = 24 Gallager base (degrees 3 and 4), ("dv5") an nb = 12 (5,10)
+    base, or a hand-built base (shifts mod Z), lifted by Z."""
     g = torch.Generator().manual_seed(Z)
     if family == "regular":
         return qc.sample_qc_code(g, nb=12, dv=3, dc=6, Z=Z)
     if family == "dc10":
         return qc.sample_qc_code_irregular(g, nb=20, lam=[0, 0, 1.0],
                                            rho=[0] * 9 + [1.0], Z=Z)
+    if family == "irregular_gal":
+        return qc.sample_qc_code_irregular(g, nb=24, lam=[0, 0, 0.5, 0.5],
+                                           rho=RHO, Z=Z)
+    if family == "dv5":
+        return qc.sample_qc_code(g, nb=12, dv=5, dc=10, Z=Z)
+    if family in QC_HAND:
+        base, shifts, nb = QC_HAND[family]
+        return qc.irregular_qc_code_from_numpy(
+            np.asarray(base), np.asarray(shifts) % Z, Z, nb, len(base))
     return qc.sample_qc_code_irregular(g, nb=24, lam=LAM, rho=RHO, Z=Z)
 
 
@@ -1429,14 +1448,25 @@ def test_qc_bec_round_kernels_equal_plain(cuda, family, Z, words, values):
     assert int(out[0][-1][0]) == 0          # only errors[slot] is written
 
 
-@pytest.mark.parametrize("family", ["regular", "irregular"])
-@pytest.mark.parametrize("Z, words", QC_SHAPES)
+# Q4's degree passes by family: degree 3 and 4 exact, every other degree
+# (1, 2, 5) the generic pass
+QC_GALLAGER_PATHS = {"regular": ("dv3",), "irregular": ("dv4", "generic"),
+                     "irregular_gal": ("dv3", "dv4"), "dv5": ("generic",),
+                     "degree_one": ("generic",),
+                     "uniform_clamped": ("generic",)}
+
+
+@pytest.mark.parametrize("family", sorted(QC_GALLAGER_PATHS))
+@pytest.mark.parametrize("Z, words", QC_SHAPES + [(17, 4), (333, 36)])
 @pytest.mark.parametrize("threshold, with_tx", [(None, False), (1, True),
                                                 (0, False)])
 def test_qc_gallager_round_kernels_equal_plain(cuda, family, Z, words,
                                                threshold, with_tx):
+    # every Q4 instantiation: 16 bytes a thread (W a multiple of 4) and one
+    # word (N = 1, four rows a thread; Z * W not a multiple of 4 at odd
+    # shapes), with and without tx, each of its degree passes
     code = _qc_code(family, Z)
-    clamp = family == "irregular"
+    clamp = isinstance(code, qc.IrregularQCLDPCCode)
     flips = bitops.bernoulli_packed(0.05, (code.n, words), seed=Z)
     tx = bitops.bernoulli_packed(0.5, (code.n, words), seed=Z + 1) \
         if with_tx else None
@@ -1461,8 +1491,12 @@ def test_qc_gallager_round_kernels_equal_plain(cuda, family, Z, words,
                 clamp=clamp, tx=None if tx is None else tx.to(device))
         out.append((first.cpu(), parity.cpu(), msg.cpu(), decided.cpu(),
                     counts.cpu()))
+        if device == cuda:
+            launched = (qc_gallager.qc_gallager_variable.vec,
+                        qc_gallager.qc_gallager_variable.paths)
     for got, want in zip(*out):
         assert torch.equal(got, want)
+    assert launched == (4 if words % 4 == 0 else 1, QC_GALLAGER_PATHS[family])
 
 
 @pytest.mark.parametrize("family", ["regular", "irregular"])
