@@ -1497,7 +1497,7 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
              "irregular_768": irr_batch}
     err_b, err_c, err_c_exact = 0, 0.0, 0.0
     pass_ms = {}
-    l2_bytes = soft_bp._l2_bytes(torch.cuda.current_device())
+    l2_bytes = soft_bp.l2_bytes(torch.cuda.current_device())
     for label, c in cases.items():
         graph = soft_bp._graph(c)
         num = graph.num_codes
@@ -2645,6 +2645,13 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
              ("irregular BEC", irr_bec, WORDS_FULL, EPS_FULL, P_GAL, False),
              ("irregular BSC", irr_gal, WORDS_FULL, EPS_FULL, P_GAL_IRR,
               False)]
+    # Q1's and Q2's launches by case on the decodes' planes: (words a
+    # thread, words of a column tile) from ops/qc_bp.py qc_bec_layout: 16
+    # bytes a thread; tiles of 16 bytes a row where `known` is larger than
+    # the L2 (n = 1,000,008: 192 MB), else row-major (30.7 MB)
+    q12_launched, q12_want = {}, {
+        "n1e4": (4, WORDS_FULL), "n1e6": (4, qc_bp.QC_TILE_WORDS),
+        "irregular BEC": (4, WORDS_FULL), "irregular BSC": (4, WORDS_FULL)}
     # Q4's launches by case: (words a thread, its degree passes) from
     # ops/qc_gallager.py qc_variable_layout (the BEC pair's blocks have
     # degree 2 and 4, the Gallager pair's 3 and 4)
@@ -2660,29 +2667,58 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
         tx = bitops.info_planes(c.n, words, seed=2, device=dev)
         known0 = ~erased
         val0 = tx & known0
-        ex = qc_bp.qc_check_exactly_one(adj, known0)
-        ex_v, adopt = qc_bp.qc_check_exactly_one(adj, known0, val0)
+        # Q1 / Q2 on the planes in the decodes' column tiles (as the decodes
+        # launch them, held after from_tiles) and row-major
+        tile = qc_bp._decode_tile(erased)
+        known_t = qc_bp.to_tiles(known0, tile)
+        val_t = qc_bp.to_tiles(val0, tile)
+        ex_r = qc_bp.qc_check_exactly_one(adj, known0)
+        ex_v, adopt_r = qc_bp.qc_check_exactly_one(adj, known0, val0)
+        ex = qc_bp.qc_check_exactly_one(adj, known_t, tile=tile)
+        q12_launched[label] = {(qc_bp.qc_check_exactly_one.vec,
+                                qc_bp.qc_check_exactly_one.tile)}
+        ex_tv, adopt = qc_bp.qc_check_exactly_one(adj, known_t, val_t,
+                                                  tile=tile)
         ex_p, adopt_p = qc_bp._qc_check_exactly_one_plain(adj, known0, val0)
         err[names[0]] = max(err[names[0]], same(
-            (ex, ex_v, adopt), (ex_p, ex_p, adopt_p), f"Q1 ({label})"))
+            (ex_r, ex_v, adopt_r) + tuple(qc_bp.from_tiles(t, tile)
+                                          for t in (ex, ex_tv, adopt)),
+            (ex_p, ex_p, adopt_p) * 2, f"Q1 ({label})"))
+        del ex_r, ex_v, adopt_r, ex_tv
         state = {}
 
-        def fresh():
-            state["known"], state["val"] = known0.clone(), val0.clone()
+        def fresh(layout=tile):
+            state["known"] = qc_bp.to_tiles(known0.clone(), layout)
+            state["val"] = qc_bp.to_tiles(val0.clone(), layout)
             state["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
 
-        def q2(fn, values):
-            fn(adj, ex, state["known"], state["errors"], 1,
-               **(dict(adopt=adopt, val=state["val"]) if values else {}))
+        # Q1's planes in each layout, made outside the timing
+        q1_out = {layout: (qc_bp.to_tiles(ex_p, layout),
+                           qc_bp.to_tiles(adopt_p, layout))
+                  for layout in (tile, words, None)}
+
+        def q2(fn, values, layout=tile):
+            ex_l, adopt_l = q1_out[layout]
+            fn(adj, ex_l, state["known"], state["errors"], 1,
+               **(dict(adopt=adopt_l, val=state["val"]) if values else {}),
+               **({} if layout is None else dict(tile=layout)))
 
         for values in (False, True):
-            fresh()
-            q2(qc_bp.qc_variable_or, values)
-            got = (state["known"], state["val"], state["errors"])
-            fresh()
-            q2(qc_bp._qc_variable_or_plain, values)
+            got = []
+            for layout in (tile, words):
+                fresh(layout)
+                q2(qc_bp.qc_variable_or, values, layout)
+                if layout == tile:
+                    q12_launched[label].add((qc_bp.qc_variable_or.vec,
+                                             qc_bp.qc_variable_or.tile))
+                got.append((qc_bp.from_tiles(state["known"], layout),
+                            qc_bp.from_tiles(state["val"], layout),
+                            state["errors"]))
+            fresh(None)
+            q2(qc_bp._qc_variable_or_plain, values, None)
+            want = (state["known"], state["val"], state["errors"])
             err[names[1]] = max(err[names[1]], same(
-                got, (state["known"], state["val"], state["errors"]),
+                got[0] + got[1], want * 2,
                 f"Q2 ({label}, values={values})"))
         # Gallager: the first messages, then the second round (the first
         # round's messages are the channel words; the second moves)
@@ -2727,8 +2763,12 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
         check(q4_launched[label] == {q4_want[label]},
               f"Q4 ({label}) launched {q4_launched[label]}, expected "
               f"{q4_want[label]} (words a thread, degree passes)")
+        check(q12_launched[label] == {q12_want[label]},
+              f"Q1/Q2 ({label}) launched {q12_launched[label]}, expected "
+              f"{q12_want[label]} (words a thread, words of a column tile)")
         print(f"Q1-Q4 equal to plain on {label}: n={c.n}, Z={c.Z}, W={words}, "
-              f"E_b={adj.num_rows}, dvb {dvb}; Q4 launched {words} words at "
+              f"E_b={adj.num_rows}, dvb {dvb}; Q1/Q2 launched "
+              f"{q12_launched[label]} (words a thread, tile words), Q4 "
               f"{q4_launched[label]} (words a thread, degree passes)",
               flush=True)
         if not timed:
@@ -2755,20 +2795,32 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
         gfresh()
         single[label] = {
             names[0]: dict(
-                ms=time_ms(lambda: qc_bp.qc_check_exactly_one(adj, known0)),
+                ms=time_ms(lambda: qc_bp.qc_check_exactly_one(
+                    adj, known_t, tile=tile)),
+                # the kernel alone (events add the wrapper's host work)
+                device_ms=device_ms(lambda: qc_bp.qc_check_exactly_one(
+                    adj, known_t, tile=tile), "qc_check_exactly_one"),
                 plain_ms=time_ms(lambda: qc_bp._qc_check_exactly_one_plain(
                     adj, known0), reps=reps_plain),
                 values_ms=time_ms(lambda: qc_bp.qc_check_exactly_one(
-                    adj, known0, val0)),
+                    adj, known_t, val_t, tile=tile)),
+                values_device_ms=device_ms(lambda: qc_bp.qc_check_exactly_one(
+                    adj, known_t, val_t, tile=tile), "qc_check_exactly_one"),
                 **bound(nbytes(known0, ex, *tables))),
             names[1]: dict(
                 ms=time_ms(lambda: q2(qc_bp.qc_variable_or, False),
                            prepare=fresh),
+                device_ms=device_ms(lambda: q2(qc_bp.qc_variable_or, False),
+                                    "qc_variable_or", prepare=fresh),
                 plain_ms=time_ms(lambda: q2(qc_bp._qc_variable_or_plain,
-                                            False), prepare=fresh,
+                                            False, None),
+                                 prepare=lambda: fresh(None),
                                  reps=reps_plain),
                 values_ms=time_ms(lambda: q2(qc_bp.qc_variable_or, True),
                                   prepare=fresh),
+                values_device_ms=device_ms(
+                    lambda: q2(qc_bp.qc_variable_or, True), "qc_variable_or",
+                    prepare=fresh),
                 **bound(nbytes(ex, known0, known0, state["errors"],
                                *var_tables))),
             names[2]: dict(
@@ -2812,7 +2864,7 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
                                adj.var_chk, adj.var_row, adj.var_shift)))}
         print(f"single launches at {label} (ms): "
               f"{json.dumps(single[label])}", flush=True)
-        del gstate, out, state
+        del gstate, out, state, q1_out
     for name in names:
         at4, at6 = single["n1e4"][name], single["n1e6"][name]
         measured[name].update(
@@ -3143,10 +3195,25 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
           flush=True)
     print(device_time_breakdown(lambda: int(chunk6(5).block_errors),
                                 chunk6_ms, kernels), flush=True)
+    # the QC BEC decode at n = 1,000,008 (bec_index above): its device time
+    # by kernel, held to Q1's and Q2's launch counts
+    c6 = reg["n1e6"]
+    erased6 = bitops.bernoulli_packed(EPS_FULL, (c6.n, QC_W6), seed=11,
+                                      device=dev)
+    bec6_ms = timing["n1e6"]["decode_ms"]["bec_index"]
+    print(f"QC BEC decode at n={c6.n}, W={QC_W6}: "
+          f"{sum(bec6_ms) / len(bec6_ms):.3f} ms "
+          f"({timing['n1e6']['rounds']['bec']} rounds); card {smi}",
+          flush=True)
+    print(device_time_breakdown(
+        lambda: qc_bp.qc_bp_decode_packed_allzero(c6, erased6,
+                                                  ITERS).iterations,
+        sum(bec6_ms) / len(bec6_ms),
+        {k: kernels[k] for k in names[:2]}), flush=True)
+    del erased6
     # the QC Gallager-A decode at n = 1,000,008 (gallager_index above): its
     # device time by kernel; Q4's first messages are a kernel of another
     # name, so the trace is held to Q3's launch count
-    c6 = reg["n1e6"]
     flips6 = bitops.bernoulli_packed(P_GAL, (c6.n, QC_W6), seed=12,
                                      device=dev)
     gal6_ms = timing["n1e6"]["decode_ms"]["gallager_index"]
@@ -3165,14 +3232,16 @@ def kernel_resources(smi: str) -> dict:
     """Registers, stack frame and local memory (spills), read with the
     toolkit's cuobjdump from the built library, of every instantiation of
     kernels C (``soft_check``) and B (``soft_posterior``), of the Gallager
-    round kernels (``gallager_check``, ``gallager_variable``), of Q4
+    round kernels (``gallager_check``, ``gallager_variable``), of Q1 and Q2
+    (``qc_check_exactly_one``, ``qc_variable_or``), of Q4
     (``qc_gallager_variable``, its first messages too) and of S2's
     int8 instantiations
     (``qc_soft_check_int8``, with their SASS instruction counts); with the
     theoretical occupancy the registers allow at 256 threads a block (a
     warp's registers allocated in units of 256, at most 64 warps an SM).
     Fails on a stack frame or local memory in S2 int8 and on local memory
-    in C, in the round kernels' exact-degree instantiations and in Q4; C's
+    in C, in the round kernels' exact-degree instantiations and in Q1, Q2
+    and Q4; C's
     stack frames (spill slots) are printed: its int8 instantiations up to
     degree 6 are held to 80 registers for three blocks an SM, measured faster
     with a few bytes spilled than at 96."""
@@ -3309,6 +3378,23 @@ def kernel_resources(smi: str) -> dict:
     check(len(out["qc_gallager_variable"]) == 6,
           f"Q4: {len(out['qc_gallager_variable'])} instantiations in the "
           "library, expected 6")
+    # Q1 and Q2: qc_check_exactly_one_kernel<kVal, N> and
+    # qc_variable_or_kernel<kVal, N> (27 and 21 letters mangled); no local
+    # memory in any
+    for kernel in ("qc_check_exactly_one", "qc_variable_or"):
+        out[kernel] = {}
+        for name, text in usage.items():
+            m = re.search(rf"{len(kernel) + 7}{kernel}_kernelI(\w*?)EEv",
+                          name)
+            if not m:
+                continue
+            values, vec = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
+            key = f"N{vec}" + ("_values" if values else "")
+            f = fields(text)
+            out[kernel][key] = f
+            check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
+        check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
+              "instantiations in the library, expected 4")
     print(f"kernel resources (S2 int8: U words a thread, up to dc sockets, "
           f"per_socket_and_word the kernel's SASS over dc * U; kernels C "
           f"and B: type, (C) method, V trials a thread, the exact degree or "

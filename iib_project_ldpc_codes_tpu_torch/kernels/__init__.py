@@ -7,11 +7,13 @@ exception).  No wrapper catches a kernel error and falls back.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .build import launch
 
-__all__ = ["launch", "alignment", "check_int32", "use_kernel"]
+__all__ = ["launch", "alignment", "check_int32", "l2_bytes", "use_kernel"]
 
 
 def check_int32(name: str, t, ndim: int) -> torch.Tensor:
@@ -35,6 +37,12 @@ def alignment(*tensors) -> int:
         while t.data_ptr() % align:
             align //= 2
     return align
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(index: int) -> int:
+    """The L2 cache of CUDA device ``index``, in bytes."""
+    return torch.cuda.get_device_properties(index).L2_cache_size
 
 
 def use_kernel(*items) -> bool:

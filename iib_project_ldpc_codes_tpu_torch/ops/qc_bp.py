@@ -17,6 +17,16 @@ between them:
     the OR over the block's sockets, the erasure count, and with value
     planes ``val |= adopt & ~known``.
 
+Both take their planes in a tile-major layout (:func:`to_tiles`): a
+column tile is ``tile`` adjacent words of every row, stored as one
+contiguous [rows, tile] block, and the tile is the slowest coordinate of
+the kernels' grid, so the plane a pass reads once per socket (Q1
+``known``, Q2 the exactly-one plane) is read from L2 after its first
+read.  Row-major planes are the layout of one tile of W words.  A decode
+whose planes do not fit the card's L2 converts them once at each end
+(:func:`qc_bec_layout` picks the tile); each wrapper keeps its last
+launch's words a thread and tile in ``.vec`` and ``.tile``.
+
 Beside each, its plain version in JAX's form (``torch.roll``, prefix and
 suffix ANDs), which runs on CPU tensors.  State and semantics are those of
 the generic decoder on ``code.expand()`` (planes int32[n, W] in the
@@ -28,12 +38,13 @@ own (``ops/erasure_bp.py``), given these passes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels import check_int32, launch, use_kernel
+from ..kernels import alignment, check_int32, l2_bytes, launch, use_kernel
 from ..models.qc import base_edges
 from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
 from .erasure_bp import PackedBPResult, _decode_allzero, _decode_values
@@ -146,6 +157,73 @@ def _check_planes(adj: QCAdjacency, rows: int, **planes) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The layout and the launch rule of Q1 and Q2
+# ---------------------------------------------------------------------------
+
+#: words of a column tile where the decodes tile their planes: 16 bytes a
+#: row
+QC_TILE_WORDS = 4
+#: the cache a CPU decode sizes its layout for: the H100's L2, so the CPU
+#: takes the layout the card would
+QC_CPU_CACHE_BYTES = 50 * 2 ** 20
+
+
+def qc_bec_layout(rows: int, words: int, align: int, cache_bytes: int
+                  ) -> Tuple[int, int]:
+    """The decodes' layout and Q1's and Q2's launch, ``(vec, tile)``:
+    ``tile`` the words of a column tile, :data:`QC_TILE_WORDS` when the
+    ``known`` plane (``rows`` x ``words`` words) is larger than
+    ``cache_bytes`` (the card's L2) and the tile divides ``words`` with
+    more than one tile, else ``words`` (row-major planes, one tile: a plane
+    set that fits L2 gains nothing from tiles); ``vec`` the words a thread
+    moves, 4 (16 bytes) when the tile is a multiple of 4 and ``align``
+    (the largest power of two up to 16 dividing every plane's address) is
+    16, else 1."""
+    tiled = rows * words * 4 > cache_bytes and \
+        words % QC_TILE_WORDS == 0 and words > QC_TILE_WORDS
+    tile = QC_TILE_WORDS if tiled else words
+    return _vector(tile, align), tile
+
+
+def _vector(tile: int, align: int) -> int:
+    """Words a thread of Q1 / Q2 moves: 4 when the tile is a multiple of 4
+    and the planes are 16-byte aligned, else 1."""
+    return 4 if tile % 4 == 0 and align % 16 == 0 else 1
+
+
+def to_tiles(planes: torch.Tensor, tile: Optional[int]) -> torch.Tensor:
+    """``planes`` int32[R, W] in the tile-major layout of ``tile``-word
+    column tiles: the same shape, its memory [W // tile, R, tile] (tile t
+    of row r at ``(t * R + r) * tile``).  ``tile`` None or W: ``planes``
+    itself."""
+    rows, words = planes.shape
+    if tile is None or tile == words:
+        return planes
+    return planes.view(rows, words // tile, tile).transpose(0, 1) \
+        .contiguous().view(rows, words)
+
+
+def from_tiles(planes: torch.Tensor, tile: Optional[int]) -> torch.Tensor:
+    """The row-major planes of :func:`to_tiles`'s layout."""
+    rows, words = planes.shape
+    if tile is None or tile == words:
+        return planes
+    return planes.view(words // tile, rows, tile).transpose(0, 1) \
+        .contiguous().view(rows, words)
+
+
+def _launch_layout(words: int, tile: Optional[int], planes
+                   ) -> Tuple[int, int]:
+    """``(vec, tile)`` of a launch on ``planes`` laid out in tiles of
+    ``tile`` words (None: row-major)."""
+    tile = words if tile is None else tile
+    if tile <= 0 or words % tile:
+        raise ValueError(f"a tile of {tile} words does not divide W = "
+                         f"{words}")
+    return _vector(tile, alignment(*planes)), tile
+
+
+# ---------------------------------------------------------------------------
 # Q1: the check pass
 # ---------------------------------------------------------------------------
 
@@ -182,30 +260,41 @@ def _qc_check_exactly_one_plain(adj: QCAdjacency, known: torch.Tensor,
 
 
 def qc_check_exactly_one(adj: QCAdjacency, known: torch.Tensor,
-                         val: Optional[torch.Tensor] = None):
+                         val: Optional[torch.Tensor] = None, *,
+                         tile: Optional[int] = None):
     """int32[m, W]: per lifted check (c, z) at row c*Z + z and trial,
     whether exactly one of its real participants is still unknown
     (``known`` int32[n, W]).  With the value planes ``val`` int32[n, W]
     it returns ``(exactly_one, adopt)``, the second plane that bit AND the
     XOR of the known participants' values (the contract of
-    :func:`..erasure_bp.check_exactly_one_xor`)."""
+    :func:`..erasure_bp.check_exactly_one_xor`).  Every plane, in and out,
+    is in the layout ``tile`` (:func:`to_tiles`; None: row-major)."""
     planes = dict(known=known) if val is None else dict(known=known, val=val)
     words = _check_planes(adj, adj.n, **planes)
     if not use_kernel(adj.base_chk, *planes.values()):
-        return _qc_check_exactly_one_plain(adj, known, val)
+        out = _qc_check_exactly_one_plain(
+            adj, from_tiles(known, tile),
+            None if val is None else from_tiles(val, tile))
+        return to_tiles(out, tile) if val is None else \
+            tuple(to_tiles(t, tile) for t in out)
     exactly_one = torch.empty((adj.m, words), dtype=torch.int32,
                               device=known.device)
     adopt = None if val is None else torch.empty_like(exactly_one)
+    out = [exactly_one] + ([] if adopt is None else [adopt])
+    vec, tile = _launch_layout(words, tile, [*planes.values(), *out])
     launch("ldpc_qc_check_exactly_one", known.device, known.data_ptr(),
-           None if val is None else val.data_ptr(), adj.base_chk.data_ptr(),
-           adj.shifts.data_ptr(), exactly_one.data_ptr(),
+           None if val is None else val.data_ptr(),
+           adj.chk_block.data_ptr(), adj.chk_shift.data_ptr(),
+           exactly_one.data_ptr(),
            None if val is None else adopt.data_ptr(), adj.mb,
-           adj.base_chk.shape[1], adj.nb, adj.Z, words)
+           adj.chk_block.shape[1], adj.nb, adj.Z, words, vec, tile)
     qc_check_exactly_one.launches += 1
+    qc_check_exactly_one.vec, qc_check_exactly_one.tile = vec, tile
     return exactly_one if val is None else (exactly_one, adopt)
 
 
 qc_check_exactly_one.launches = 0
+qc_check_exactly_one.vec = qc_check_exactly_one.tile = None
 
 
 # ---------------------------------------------------------------------------
@@ -236,13 +325,15 @@ def _qc_variable_or_plain(adj: QCAdjacency, exactly_one: torch.Tensor,
 def qc_variable_or(adj: QCAdjacency, exactly_one: torch.Tensor,
                    known: torch.Tensor, errors: torch.Tensor, slot: int,
                    adopt: Optional[torch.Tensor] = None,
-                   val: Optional[torch.Tensor] = None) -> None:
+                   val: Optional[torch.Tensor] = None, *,
+                   tile: Optional[int] = None) -> None:
     """In place, for lifted variable (b, z) over block b's sockets (check
     c, shift s): ``known |= OR exactly_one[c*Z + (z - s) mod Z]``, and
     ``errors[slot]`` = erasures left (``errors[slot]`` must be 0 on
     entry).  With ``adopt`` and ``val`` (both or neither) first ``val |=
     OR adopt[...] & ~known``, the contract of :func:`..erasure_bp
-    .variable_or_adopt`."""
+    .variable_or_adopt`.  Every plane is in the layout ``tile``
+    (:func:`to_tiles`; None: row-major)."""
     if (adopt is None) != (val is None):
         raise ValueError("adopt and val go together")
     _check_planes(adj, adj.n, known=known, **({} if val is None
@@ -254,22 +345,33 @@ def qc_variable_or(adj: QCAdjacency, exactly_one: torch.Tensor,
     check_int32("errors", errors, 1)
     if not 0 <= slot < errors.shape[0]:
         raise ValueError(f"slot {slot} outside errors[{errors.shape[0]}]")
-    tensors = [t for t in (exactly_one, known, errors, adopt, val)
-               if t is not None]
-    if not use_kernel(adj.base_chk, *tensors):
-        _qc_variable_or_plain(adj, exactly_one, known, errors, slot, adopt,
-                              val)
+    planes = [t for t in (exactly_one, known, adopt, val) if t is not None]
+    if not use_kernel(adj.base_chk, errors, *planes):
+        if tile is None or tile == words:
+            _qc_variable_or_plain(adj, exactly_one, known, errors, slot,
+                                  adopt, val)
+            return
+        rows = [None if t is None else from_tiles(t, tile)
+                for t in (exactly_one, known, adopt, val)]
+        _qc_variable_or_plain(adj, rows[0], rows[1], errors, slot, rows[2],
+                              rows[3])
+        for t, r in ((known, rows[1]), (val, rows[3])):
+            if t is not None:
+                t.copy_(to_tiles(r, tile))
         return
+    vec, tile = _launch_layout(words, tile, planes)
     launch("ldpc_qc_variable_or", known.device, known.data_ptr(),
            None if val is None else val.data_ptr(), exactly_one.data_ptr(),
            None if adopt is None else adopt.data_ptr(),
            adj.var_chk.data_ptr(), adj.var_shift.data_ptr(),
-           errors[slot:].data_ptr(), adj.nb, adj.var_chk.shape[1], adj.Z,
-           words)
+           errors[slot:].data_ptr(), adj.nb, adj.mb, adj.var_chk.shape[1],
+           adj.Z, words, vec, tile)
     qc_variable_or.launches += 1
+    qc_variable_or.vec, qc_variable_or.tile = vec, tile
 
 
 qc_variable_or.launches = 0
+qc_variable_or.vec = qc_variable_or.tile = None
 
 
 # ---------------------------------------------------------------------------
@@ -292,9 +394,25 @@ def _view(code, planes: torch.Tensor) -> _QCView:
     return _QCView(chk_to_var=adj, var_to_chk=adj, n=code.n)
 
 
-def _variable_values(adj, exactly_one, adopt, known, val, errors, slot):
-    qc_variable_or(adj, exactly_one, known, errors, slot, adopt=adopt,
-                   val=val)
+def _decode_tile(erased: torch.Tensor) -> int:
+    """The tile of a decode's planes (:func:`qc_bec_layout`, for the L2 of
+    the planes' card; the decode's own planes are freshly allocated, so
+    16-byte aligned)."""
+    cache = l2_bytes(erased.device.index if erased.device.index is not None
+                     else torch.cuda.current_device()) \
+        if erased.is_cuda else QC_CPU_CACHE_BYTES
+    return qc_bec_layout(erased.shape[0], erased.shape[1], 16, cache)[1]
+
+
+def _value_passes(tile: Optional[int]):
+    """(check, variable, counts) of the value-plane loop in layout
+    ``tile``."""
+    def variable(adj, exactly_one, adopt, known, val, errors, slot):
+        qc_variable_or(adj, exactly_one, known, errors, slot, adopt=adopt,
+                       val=val, tile=tile)
+
+    return (functools.partial(qc_check_exactly_one, tile=tile), variable,
+            per_trial_counts)
 
 
 def _variable_values_plain(adj, exactly_one, adopt, known, val, errors,
@@ -302,7 +420,6 @@ def _variable_values_plain(adj, exactly_one, adopt, known, val, errors,
     _qc_variable_or_plain(adj, exactly_one, known, errors, slot, adopt, val)
 
 
-_VALUE_KERNELS = (qc_check_exactly_one, _variable_values, per_trial_counts)
 _VALUE_PLAIN = (_qc_check_exactly_one_plain, _variable_values_plain,
                 _per_trial_counts_plain)
 
@@ -313,18 +430,26 @@ def qc_bp_decode_packed_allzero(code, erased: torch.Tensor,
 
     ``erased`` is int32[n, W] in the expanded layout (v = b*Z + z); the
     result equals ``bp_decode_packed_allzero(code.expand(), erased,
-    max_iters)`` bit for bit.  On CUDA tensors every round is Q1 and Q2
-    (K4 for the initial count); on CPU tensors their plain versions.
+    max_iters)`` bit for bit.  The rounds run on the planes in the layout
+    of :func:`qc_bec_layout`, converted at each end (the initial count
+    sums over trials, so it reads the tiles as they are).  On CUDA tensors
+    every round is Q1 and Q2 (K4 for the initial count); on CPU tensors
+    their plain versions.
     """
-    return _decode_allzero(_view(code, erased), erased, max_iters,
-                           qc_check_exactly_one, qc_variable_or,
-                           per_trial_counts)
+    tile = _decode_tile(erased)
+    res = _decode_allzero(_view(code, erased), to_tiles(erased, tile),
+                          max_iters,
+                          functools.partial(qc_check_exactly_one, tile=tile),
+                          functools.partial(qc_variable_or, tile=tile),
+                          per_trial_counts)
+    return dataclasses.replace(res, known=from_tiles(res.known, tile))
 
 
 def qc_bp_decode_packed_allzero_plain(code, erased: torch.Tensor,
                                       max_iters: int) -> PackedBPResult:
     """:func:`qc_bp_decode_packed_allzero` through the plain version of
-    every pass, on any device: the reference the kernels are held to."""
+    every pass, on any device, on row-major planes: the reference the
+    kernels are held to."""
     return _decode_allzero(_view(code, erased), erased, max_iters,
                            _qc_check_exactly_one_plain,
                            _qc_variable_or_plain, _per_trial_counts_plain)
@@ -334,9 +459,15 @@ def qc_bp_decode_packed(code, erased: torch.Tensor, tx_bits: torch.Tensor,
                         max_iters: int) -> PackedBPResult:
     """Nonzero-transmit variant (cf. :func:`..erasure_bp
     .bp_decode_packed`): ``tx_bits`` int32[n, W] holds a codeword per
-    trial, the result's ``val`` the decoded bits where ``known``."""
-    return _decode_values(_view(code, erased), erased, tx_bits, max_iters,
-                          _VALUE_KERNELS, False)[0]
+    trial, the result's ``val`` the decoded bits where ``known``; its
+    rounds in the layout of :func:`qc_bec_layout`, as the all-zero
+    decode's."""
+    tile = _decode_tile(erased)
+    res = _decode_values(_view(code, erased), to_tiles(erased, tile),
+                         to_tiles(tx_bits, tile), max_iters,
+                         _value_passes(tile), False)[0]
+    return dataclasses.replace(res, known=from_tiles(res.known, tile),
+                               val=from_tiles(res.val, tile))
 
 
 def qc_bp_decode_packed_plain(code, erased: torch.Tensor,

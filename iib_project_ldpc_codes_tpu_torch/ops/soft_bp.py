@@ -50,12 +50,11 @@ codeword, while ``posterior`` and ``satisfied`` stay in decision space
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
 
-from ..kernels import alignment, launch, use_kernel
+from ..kernels import alignment, l2_bytes, launch, use_kernel
 from ..models.irregular import IrregularLDPCCode
 from .bitops import unpack_bits
 from .gallager import _Graph, _gather, _graph, _per_word
@@ -407,11 +406,6 @@ def soft_posterior_vector(elem_size: int, cpc: int, dv: int,
                      "moves at least 4 bytes of a code's trials")
 
 
-@functools.lru_cache(maxsize=None)
-def _l2_bytes(index: int) -> int:
-    return torch.cuda.get_device_properties(index).L2_cache_size
-
-
 def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
                active: torch.Tensor, unsat: torch.Tensor, *, method: str,
                alpha: float = 1.0, beta: float = 0.0,
@@ -453,7 +447,7 @@ def soft_check(pm: torch.Tensor, msg: torch.Tensor, chk_to_var: torch.Tensor,
     cpc = cols // active.shape[0]
     vec, tile = soft_check_geometry(
         pm.element_size(), cols, cpc, dc, pm.shape[0],
-        _l2_bytes(torch.cuda.current_device()), alignment(pm, msg))
+        l2_bytes(torch.cuda.current_device()), alignment(pm, msg))
     launch("ldpc_soft_check", pm.device, pm.data_ptr(), msg.data_ptr(),
            chk_to_var.data_ptr(), active.data_ptr(), unsat.data_ptr(), rows,
            rows, dc, pad_var, cols, cpc, vec, tile, _DTYPES[dtype],

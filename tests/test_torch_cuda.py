@@ -1083,7 +1083,7 @@ def test_soft_check_kernel_on_ragged_column_tiles(cuda, method, dtype, num):
     bytes, or six codes of 128 bytes of trials over tiles of five whole
     codes."""
     elem = torch.empty(0, dtype=dtype).element_size()
-    l2 = soft_bp._l2_bytes(torch.cuda.current_device())
+    l2 = soft_bp.l2_bytes(torch.cuda.current_device())
     budget = l2 * soft_bp._CHECK_L2_SHARE
     n_rows = int(budget / (512 * 1.5) if num == 1 else budget / (128 * 5.5))
     dc = 6
@@ -1420,32 +1420,67 @@ def _qc_code(family, Z):
 QC_SHAPES = [(1, 1), (17, 1), (16, 3), (333, 33), (1000, 70)]   # (Z, W)
 
 
-@pytest.mark.parametrize("family", ["regular", "irregular"])
-@pytest.mark.parametrize("Z, words", QC_SHAPES)
+# Q1 / Q2 shapes beside QC_SHAPES: several column tiles, a last tile
+# narrower than the others (W = 36, 70), many rows (Z = 4096)
+QC_BEC_SHAPES = QC_SHAPES + [(17, 4), (333, 36), (4096, 48), (1000, 70),
+                             (64, 768)]
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular", "degree_one",
+                                    "uniform_clamped", "dc10"])
+@pytest.mark.parametrize("Z, words", QC_BEC_SHAPES)
 @pytest.mark.parametrize("values", [False, True])
-def test_qc_bec_round_kernels_equal_plain(cuda, family, Z, words, values):
+@pytest.mark.parametrize("align", [16, 8])
+@pytest.mark.parametrize("tiled", [True, False])
+def test_qc_bec_round_kernels_equal_plain(cuda, family, Z, words, values,
+                                          align, tiled):
+    # three rounds from erasures at eps = 0.42 on 60% of the variables (the
+    # rest known in every trial, so whole items take Q2's skip), on the
+    # card in column tiles (qc_bec_layout of a plane set over the cache) or
+    # row-major,
+    # on the CPU row-major; planes 8 bytes past a 16-byte boundary take
+    # the one-word path
     code = _qc_code(family, Z)
     erased = bitops.bernoulli_packed(0.42, (code.n, words), seed=Z)
+    rows = torch.from_numpy(np.random.default_rng(Z).random(code.n) < 0.4)
+    erased[rows] = 0
     known0 = ~erased
     val0 = bitops.bernoulli_packed(0.5, (code.n, words), seed=Z + 1) & known0
+    vec, tile = qc_bp.qc_bec_layout(code.n, words, align, 0)
+    if not tiled:
+        tile, vec = words, 4 if words % 4 == 0 and align == 16 else 1
     out = []
     for device in (cuda, "cpu"):
         adj = qc_bp._adjacency(code, device)
         known, val = known0.clone().to(device), val0.clone().to(device)
-        errors = torch.zeros(2, dtype=torch.int32, device=device)
-        if values:
-            ex, adopt = qc_bp.qc_check_exactly_one(adj, known, val)
-            qc_bp.qc_variable_or(adj, ex, known, errors, 1, adopt=adopt,
-                                 val=val)
-            out.append((ex.cpu(), adopt.cpu(), known.cpu(), val.cpu(),
-                        errors.cpu()))
-        else:
-            ex = qc_bp.qc_check_exactly_one(adj, known)
-            qc_bp.qc_variable_or(adj, ex, known, errors, 1)
-            out.append((ex.cpu(), known.cpu(), errors.cpu()))
+        layout = tile if device == cuda else None
+        if device == cuda:
+            known = _misaligned(qc_bp.to_tiles(known, tile), align)
+            val = _misaligned(qc_bp.to_tiles(val, tile), align)
+        got = []
+        for _ in range(3):
+            errors = torch.zeros(2, dtype=torch.int32, device=device)
+            if values:
+                ex, adopt = qc_bp.qc_check_exactly_one(adj, known, val,
+                                                       tile=layout)
+                qc_bp.qc_variable_or(adj, ex, known, errors, 1, adopt=adopt,
+                                     val=val, tile=layout)
+                planes = [ex, adopt, known, val]
+            else:
+                ex = qc_bp.qc_check_exactly_one(adj, known, tile=layout)
+                qc_bp.qc_variable_or(adj, ex, known, errors, 1, tile=layout)
+                planes = [ex, known]
+            # copies: the CPU run's planes change in place next round
+            got += [qc_bp.from_tiles(t, layout).to("cpu", copy=True)
+                    for t in planes] + [errors.to("cpu", copy=True)]
+            assert int(errors[0]) == 0      # only errors[slot] is written
+        out.append(got)
+        if device == cuda:
+            launched = {(f.vec, f.tile) for f in (qc_bp.qc_check_exactly_one,
+                                                  qc_bp.qc_variable_or)}
     for got, want in zip(*out):
         assert torch.equal(got, want)
-    assert int(out[0][-1][0]) == 0          # only errors[slot] is written
+    assert launched == {(vec, tile)}
 
 
 # Q4's degree passes by family: degree 3 and 4 exact, every other degree
