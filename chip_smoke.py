@@ -3233,15 +3233,16 @@ def kernel_resources(smi: str) -> dict:
     toolkit's cuobjdump from the built library, of every instantiation of
     kernels C (``soft_check``) and B (``soft_posterior``), of the Gallager
     round kernels (``gallager_check``, ``gallager_variable``), of Q1 and Q2
-    (``qc_check_exactly_one``, ``qc_variable_or``), of Q4
+    (``qc_check_exactly_one``, ``qc_variable_or``), of K2 and X1
+    (``check_exactly_one``, ``edge_candidates``), of Q4
     (``qc_gallager_variable``, its first messages too) and of S2's
     int8 instantiations
     (``qc_soft_check_int8``, with their SASS instruction counts); with the
     theoretical occupancy the registers allow at 256 threads a block (a
     warp's registers allocated in units of 256, at most 64 warps an SM).
     Fails on a stack frame or local memory in S2 int8 and on local memory
-    in C, in the round kernels' exact-degree instantiations and in Q1, Q2
-    and Q4; C's
+    in C, in the round kernels' exact-degree instantiations and in Q1, Q2,
+    K2, X1 and Q4; C's
     stack frames (spill slots) are printed: its int8 instantiations up to
     degree 6 are held to 80 registers for three blocks an SM, measured faster
     with a few bytes spilled than at 96."""
@@ -3390,6 +3391,24 @@ def kernel_resources(smi: str) -> dict:
                 continue
             values, vec = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
             key = f"N{vec}" + ("_values" if values else "")
+            f = fields(text)
+            out[kernel][key] = f
+            check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
+        check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
+              "instantiations in the library, expected 4")
+    # K2 and X1: check_exactly_one_kernel<N, kDc> and
+    # edge_candidates_kernel<N, kDv> (24 and 22 letters mangled; degree 0
+    # the socket loop); no local memory in any
+    for kernel, deg in (("check_exactly_one", "dc"),
+                        ("edge_candidates", "dv")):
+        out[kernel] = {}
+        for name, text in usage.items():
+            m = re.search(rf"{len(kernel) + 7}{kernel}_kernelI(\w*?)EEv",
+                          name)
+            if not m:
+                continue
+            vec, exact = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
+            key = f"N{vec}_" + (f"{deg}{exact}" if exact else "loop")
             f = fields(text)
             out[kernel][key] = f
             check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
@@ -3580,7 +3599,8 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     # instantiation is on the resources line above
     measured["soft_check"]["resources_dc6"] = {
         k: v for k, v in resources["soft_check"].items() if k.endswith("_dc6")}
-    for name in ("gallager_check", "gallager_variable"):
+    for name in ("gallager_check", "gallager_variable", "check_exactly_one",
+                 "edge_candidates"):
         measured[name]["resources"] = resources[name]
     for name in names[:2]:
         measured[name].update(
@@ -3998,8 +4018,9 @@ def _edge_batch_cfg(n: int):
 def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
     """Phases 38-41: edge-sharded erasure BP at n = 10^6 (BASELINE.json
     config 5) and batch sharding over a process group (module docstring).
-    X1 and X2 are held to their plain versions exactly (bitwise
-    arithmetic), whole decodes to the K2/K3 decode bit for bit."""
+    K2 on every shard, X1 and X2 are held to their plain versions exactly
+    (bitwise arithmetic), their launched width checked; whole decodes to
+    the K2/K3 decode bit for bit."""
     import torch
     import torch.multiprocessing as mp
 
@@ -4026,8 +4047,8 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
             "code_number": 1, "max_block_errors": 10**9, **kw})
 
     # -- 38 -------------------------------------------------------------------
-    phase(f"38 X1 and X2 against their plain versions at n={N_EDGE}, "
-          f"W={W_EDGE}, every shard of D in {EDGE_SIZES}")
+    phase(f"38 K2 on each shard, X1 and X2 against their plain versions at "
+          f"n={N_EDGE}, W={W_EDGE}, every shard of D in {EDGE_SIZES}")
     t0 = time.perf_counter()
     code_host = code_for_config(edge_cfg())
     sample_s = time.perf_counter() - t0
@@ -4036,6 +4057,11 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
           f"{sample_s:.2f} s", flush=True)
     erased = bitops.bernoulli_packed(EPS_FULL, (N_EDGE, W_EDGE), seed=38,
                                      device=dev)
+    # the decode's planes at this shape take 16 bytes a thread (a fall to 4
+    # bytes fails below)
+    vec = erasure_bp.check_exactly_one_vector(W_EDGE, 16)
+    check(vec == 4, f"check_exactly_one_vector at W={W_EDGE}: {vec}, "
+          "expected 4")
     # a state two rounds in, as the decode meets it
     known = erasure_bp.bp_decode_packed_allzero(code, erased, 2).known
     ex_full = erasure_bp.check_exactly_one(code.chk_to_var, known)
@@ -4043,8 +4069,10 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
     k3_errors = torch.zeros(2, dtype=torch.int32, device=dev)
     erasure_bp.variable_or_update(code.var_to_chk, ex_full, k3_known,
                                   k3_errors, 1)
+    k2, err0 = measured["check_exactly_one"], 0
     err1 = err2 = 0
     ms1, ms2, bound1, bound2 = {}, {}, {}, {}
+    dev1, ms0, dev0, bound0 = {}, {}, {}, {}
     open_words = int((known != -1).sum())     # words X2 reads candidates of
     for size in EDGE_SIZES:
         m_local = code.m // size
@@ -4053,17 +4081,40 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
             off = r * m_local
             chk_local = code.chk_to_var[off:off + m_local]
             ex = erasure_bp.check_exactly_one(chk_local, known)
+            check(erasure_bp.check_exactly_one.vec == vec,
+                  "K2 on the shard launched "
+                  f"{erasure_bp.check_exactly_one.vec} words a thread")
+            err0 = max(err0, max_abs_err(ex, erasure_bp
+                                         ._check_exactly_one_plain(
+                                             chk_local, known)))
+            check(err0 == 0, f"K2 (D={size}, shard {r}) differs from its "
+                             f"plain version (max |d| {err0})")
             check(torch.equal(ex, ex_full[off:off + m_local]),
                   f"K2 on rows {off}.. differs from the whole summary")
             got = es.edge_candidates(code.var_to_chk, ex, off)
+            check(es.edge_candidates.vec == vec,
+                  f"X1 launched {es.edge_candidates.vec} words a thread")
             want = es._edge_candidates_plain(code.var_to_chk, ex, off)
             err1 = max(err1, max_abs_err(got, want))
             check(err1 == 0, f"X1 (D={size}, shard {r}) differs from its "
                              f"plain version (max |d| {err1})")
             cands.append(got)
             if r == 0:
-                ms1[size] = time_ms(lambda: es.edge_candidates(
-                    code.var_to_chk, ex, off))
+                def run_k2(c=chk_local):
+                    return erasure_bp.check_exactly_one(c, known)
+
+                def run_x1(e=ex, o=off):
+                    return es.edge_candidates(code.var_to_chk, e, o)
+
+                ms0[size] = time_ms(run_k2)
+                dev0[size] = device_ms(run_k2, "check_exactly_one_kernel")
+                # the shard's table, the rows of known its checks touch,
+                # the summary written
+                touched = int(torch.unique(chk_local).numel())
+                bound0[size] = bound(nbytes(chk_local, ex)
+                                     + touched * W_EDGE * 4)
+                ms1[size] = time_ms(run_x1)
+                dev1[size] = device_ms(run_x1, "edge_candidates_kernel")
                 bound1[size] = bound(nbytes(code.var_to_chk, ex, got))
                 if size == 1:
                     x1["plain_ms"] = time_ms(
@@ -4099,13 +4150,21 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
                 gathered, fresh["known"], fresh["errors"], 1),
                 prepare=prepare, reps=2)
         del gathered
-        print(f"D={size}: X1 {ms1[size]:.4f} ms (bound "
-              f"{bound1[size]['bound_ms']:.4f}), X2 {ms2[size]:.4f} ms "
-              f"(bound {bound2[size]['bound_ms']:.4f}); equal to plain and "
-              "to the K2/K3 round", flush=True)
+        print(f"D={size}: K2 on shard 0 {ms0[size]:.4f} ms, device "
+              f"{dev0[size]:.4f} (bound {bound0[size]['bound_ms']:.4f}); X1 "
+              f"{ms1[size]:.4f} ms, device {dev1[size]:.4f} (bound "
+              f"{bound1[size]['bound_ms']:.4f}); X2 {ms2[size]:.4f} ms "
+              f"(bound {bound2[size]['bound_ms']:.4f}); {vec} words a thread; "
+              "equal to plain and to the K2/K3 round", flush=True)
+    k2.update(edge_max_abs_err=err0, edge_ms_by_ranks=ms0,
+              edge_device_ms_by_ranks=dev0,
+              edge_bound_ms_by_ranks={k: v["bound_ms"]
+                                      for k, v in bound0.items()},
+              edge_vec=vec)
     x1.update(max_abs_err=err1, ms=ms1[1], **bound1[1], library_ms=None,
-              ms_by_ranks=ms1,
-              bound_ms_by_ranks={k: v["bound_ms"] for k, v in bound1.items()})
+              device_ms=dev1[1], ms_by_ranks=ms1, device_ms_by_ranks=dev1,
+              bound_ms_by_ranks={k: v["bound_ms"] for k, v in bound1.items()},
+              vec=vec)
     x2.update(max_abs_err=err2, ms=ms2[1], **bound2[1], library_ms=None,
               ms_by_ranks=ms2,
               bound_ms_by_ranks={k: v["bound_ms"] for k, v in bound2.items()})
@@ -4132,6 +4191,9 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
           and counts["variable_or_update"] == 0
           and counts["per_trial_counts"] == 1,
           f"edge decode launches {counts} for {rounds} rounds")
+    check(erasure_bp.check_exactly_one.vec == es.edge_candidates.vec == vec,
+          f"the edge decode launched K2 {erasure_bp.check_exactly_one.vec}, "
+          f"X1 {es.edge_candidates.vec} words a thread, expected {vec}")
     print(f"n={N_EDGE}, W={W_EDGE}: equal to the K2/K3 decode, {rounds} "
           f"rounds, final erasures {int(got.error_totals[-1])}; launches K2 "
           f"{counts['check_exactly_one']}, X1 {counts['edge_candidates']}, "
@@ -4218,6 +4280,10 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
         decode_ms.setdefault(way, []).append(time_ms(runs[way], reps=3))
     k_bits = (N_EDGE - code.m) * 32 * W_EDGE
     rates = {k: k_bits / (sum(v) / len(v) / 1e3) for k, v in decode_ms.items()}
+    # the edge decode's device time by kernel (K2, X1, X2, K4)
+    print(device_time_breakdown(lambda: runs["edge"]().iterations,
+                                sum(decode_ms["edge"]) / 2, kernels),
+          flush=True)
     chunk = mc.make_edge_sharded_chunk_fn(edge_cfg(edge_sharded=True), code,
                                           device=dev)
     int(chunk(9).block_errors)                   # warm-up
@@ -4503,10 +4569,17 @@ def main() -> int:
     ex_p = erasure_bp._check_exactly_one_plain(code.chk_to_var, known0)
     err = max_abs_err(ex_k, ex_p)
     check(err == 0, f"K2 differs from its plain version (max |d| {err})")
+    check(erasure_bp.check_exactly_one.vec == 4,
+          "K2 at the fixed path launched "
+          f"{erasure_bp.check_exactly_one.vec} words a thread, expected 4")
+    # device_ms: the kernel alone (torch.profiler), without the wrapper's
+    # host work that the events around one launch (ms) include
     measured["check_exactly_one"].update(
         max_abs_err=err,
         ms=time_ms(lambda: erasure_bp.check_exactly_one(code.chk_to_var,
                                                         known0)),
+        device_ms=device_ms(lambda: erasure_bp.check_exactly_one(
+            code.chk_to_var, known0), "check_exactly_one_kernel"),
         plain_ms=time_ms(lambda: erasure_bp._check_exactly_one_plain(
             code.chk_to_var, known0)),
         **bound(nbytes(code.chk_to_var, known0, ex_k)))
@@ -4531,6 +4604,9 @@ def main() -> int:
         ms=time_ms(lambda: erasure_bp.variable_or_update(
             code.var_to_chk, ex_k, state["known"], state["errors"], 1),
             prepare=fresh),
+        device_ms=device_ms(lambda: erasure_bp.variable_or_update(
+            code.var_to_chk, ex_k, state["known"], state["errors"], 1),
+            "variable_or_update_kernel", prepare=fresh),
         plain_ms=time_ms(lambda: erasure_bp._variable_or_update_plain(
             code.var_to_chk, ex_k, state["known"], state["errors"], 1),
             prepare=fresh),

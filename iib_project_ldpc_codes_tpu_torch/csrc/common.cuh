@@ -23,6 +23,42 @@ inline unsigned int grid_for(long long total) {
   return static_cast<unsigned int>(blocks);
 }
 
+// A 1-D grid over a row-major [rows, W] plane in items of N adjacent words
+// of one row, one item a thread, in the plane's order: a warp's 32 items
+// are contiguous bytes, and a row's N words share its table entries.  Every
+// index fits 32 bits: a launch holds rows * W below 2^30 (row_grid_fits).
+struct RowGrid {
+  int rows;
+  int groups;   // W / N: items a row
+};
+
+inline bool row_grid_fits(int rows, int words, int vec) {
+  return rows >= 0 && vec > 0 && words % vec == 0 &&
+         static_cast<long long>(rows) * words < (1LL << 30);
+}
+
+// The grid of `rows` rows of `words` words at N = `vec`; `blocks` its size.
+inline RowGrid row_grid(int rows, int words, int vec, unsigned int* blocks) {
+  const RowGrid g{rows, words / vec};
+  *blocks = static_cast<unsigned int>(
+      (static_cast<long long>(rows) * g.groups + kThreads - 1) / kThreads);
+  return g;
+}
+
+struct RowItem {
+  int row;
+  int w;       // the item's first word in its row
+  bool live;   // row < rows
+};
+
+// This thread's item of N words.
+template <int N>
+__device__ __forceinline__ RowItem row_item(const RowGrid& g) {
+  const int i = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
+  const int row = i / g.groups;
+  return RowItem{row, (i - row * g.groups) * N, row < g.rows};
+}
+
 // Philox4x32-10 (Salmon et al., SC'11; the Random123 reference rounds):
 // counter (c0, c1, c2, c3), key (k0, k1).  Known answer: counter 0, key 0
 // gives (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8).

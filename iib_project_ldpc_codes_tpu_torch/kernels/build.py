@@ -43,7 +43,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ldpc_bernoulli_packed": (_P, _LL, _U, _U, _U, _U, ctypes.c_ulonglong,
                               _P),
-    "ldpc_check_exactly_one": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ldpc_check_exactly_one": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_variable_or_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ldpc_per_trial_counts": (_P, _P, _I, _I, _P),
     "ldpc_sample_regular_codes": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -79,7 +79,7 @@ SIGNATURES = {
                            _I, _F, _F, _P),
     "ldpc_peel_sequential": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _U, _U, _P),
-    "ldpc_edge_candidates": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ldpc_edge_candidates": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_or_reduce_update": (_P, _P, _P, _I, _LL, _P),
 }
 

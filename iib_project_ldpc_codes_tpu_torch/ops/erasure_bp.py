@@ -63,7 +63,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from ..kernels import check_int32, launch, use_kernel
+from ..kernels import alignment, check_int32, launch, use_kernel
 from ..models.code import LDPCCode
 from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
 from .channels import ERASURE
@@ -247,27 +247,40 @@ def _check_exactly_one_plain(chk_to_var: torch.Tensor,
     return _code_major_to_plane(exactly_one, num)
 
 
+def check_exactly_one_vector(wpc: int, align: int) -> int:
+    """Words a thread of K2 (and of X1, ``wpc`` = W) moves: 4 (16 bytes)
+    when a code's ``wpc`` words are a multiple of 4 (a thread's words
+    belong to one code) and ``align`` (the largest power of two up to 16
+    dividing every plane's address) is 16, else 1."""
+    return 4 if wpc % 4 == 0 and align % 16 == 0 else 1
+
+
 def check_exactly_one(chk_to_var: torch.Tensor,
                       known: torch.Tensor) -> torch.Tensor:
     """int32[m, W]: per check and trial, whether exactly one of the dc
     participants is still unknown (``known`` int32[n, W]).  ``chk_to_var``
     is one code's int32[m, dc] table or a batch's int32[C, m, dc], word w
     then belonging to code ``w // (W // C)``.  The table's entries must
-    lie in [0, n), as :func:`..models.code.code_from_checks` ensures."""
+    lie in [0, n), as :func:`..models.code.code_from_checks` ensures.  The
+    wrapper keeps its last launch's words a thread in ``.vec``."""
     check_int32("known", known, 2)
-    wpc = _words_per_code("chk_to_var", chk_to_var, known.shape[1])
+    words = known.shape[1]
+    wpc = _words_per_code("chk_to_var", chk_to_var, words)
     if not use_kernel(chk_to_var, known):
         return _check_exactly_one_plain(chk_to_var, known)
     m, dc = chk_to_var.shape[-2:]
-    words = known.shape[1]
     out = torch.empty((m, words), dtype=torch.int32, device=known.device)
+    vec = check_exactly_one_vector(wpc, alignment(known, out))
     launch("ldpc_check_exactly_one", known.device, known.data_ptr(),
-           chk_to_var.data_ptr(), out.data_ptr(), m, dc, words, wpc)
+           chk_to_var.data_ptr(), out.data_ptr(), known.shape[0], m, dc,
+           words, wpc, vec)
     check_exactly_one.launches += 1
+    check_exactly_one.vec = vec
     return out
 
 
 check_exactly_one.launches = 0
+check_exactly_one.vec = None
 
 
 def _or_by_variable(var_to_chk: torch.Tensor,

@@ -31,12 +31,13 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import check_int32, launch, use_kernel
+from ..kernels import alignment, check_int32, launch, use_kernel
 from ..models.code import LDPCCode
 from ..ops.bitops import per_trial_counts, popcount
 from ..ops.erasure_bp import (PackedBPResult, _check_packed_batch_bits,
                               _pad_phantom_row, _run_to_fixed_point,
-                              _strip_phantom, check_exactly_one)
+                              _strip_phantom, check_exactly_one,
+                              check_exactly_one_vector)
 from .mesh import all_gather_stack, shard_rows, world
 
 
@@ -66,7 +67,9 @@ def edge_candidates(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
     ``c = var_to_chk[v, p]`` with ``chk_offset <= c < chk_offset +
     m_local`` of ``exactly_one[c - chk_offset]`` (``exactly_one``
     int32[m_local, W], the shard's summary); checks outside the shard
-    give 0."""
+    give 0.  The wrapper keeps its last launch's words a thread (K2's
+    rule, :func:`..ops.erasure_bp.check_exactly_one_vector`) in
+    ``.vec``."""
     check_int32("var_to_chk", var_to_chk, 2)
     check_int32("exactly_one", exactly_one, 2)
     if not use_kernel(var_to_chk, exactly_one):
@@ -74,14 +77,17 @@ def edge_candidates(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
     (n, dv), (m_local, words) = var_to_chk.shape, exactly_one.shape
     cand = torch.empty((n, words), dtype=torch.int32,
                        device=exactly_one.device)
+    vec = check_exactly_one_vector(words, alignment(exactly_one, cand))
     launch("ldpc_edge_candidates", cand.device, cand.data_ptr(),
            var_to_chk.data_ptr(), exactly_one.data_ptr(), n, dv, m_local,
-           words, chk_offset)
+           words, chk_offset, vec)
     edge_candidates.launches += 1
+    edge_candidates.vec = vec
     return cand
 
 
 edge_candidates.launches = 0
+edge_candidates.vec = None
 
 
 # ---------------------------------------------------------------------------

@@ -1862,24 +1862,61 @@ def test_parallel_peel_on_gpu_equals_plain(cuda, eps):
 # Edge sharding: X1 (edge_candidates), X2 (or_reduce_update)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n, words", [(12, 1), (600, 7), (3000, 33)])
+def _edge_state(code, words, seed, state):
+    """A known plane int32[n, W] on the CPU: random words ("random"), or a
+    decode's after 4 rounds at eps = 0.4 ("later": most words of a
+    variable all known or all but a few bits)."""
+    n = code.var_to_chk.shape[0]
+    if state == "random":
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(-2**31, 2**31, (n, words),
+                                             dtype=np.int64).astype(np.int32))
+    erased = bitops.bernoulli_packed(0.4, (n, words), seed=seed,
+                                     device="cpu")
+    return erasure_bp.bp_decode_packed_allzero(code, erased, 4).known
+
+
+@pytest.mark.parametrize("n, words", [(12, 1), (600, 7), (3000, 33),
+                                      (1000, 4), (3334, 36), (20000, 48),
+                                      (1000, 70), (3334, 32), (600, 768)])
 @pytest.mark.parametrize("size", [1, 2, 3])
-def test_edge_round_kernels_equal_plain(cuda, n, words, size):
+@pytest.mark.parametrize("layout", ["aligned", "misaligned"])
+@pytest.mark.parametrize("state", ["random", "later"])
+def test_edge_round_kernels_equal_plain(cuda, n, words, size, layout,
+                                        state):
+    """K2 on every shard's check rows and X1 on its summary against their
+    plain versions and the wrappers' CPU run, on planes as the decode
+    allocates them and 8 bytes past a 16-byte boundary (the 4-byte path);
+    then X2 on the shards' candidates.  The launched width is asserted."""
     from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
 
     code = _code(n, seed=size)
-    rng = np.random.default_rng(size)
-    known = torch.from_numpy(rng.integers(-2**31, 2**31, (n, words),
-                                          dtype=np.int64).astype(np.int32))
+    known = _edge_state(code, words, size, state)
+    vec = erasure_bp.check_exactly_one_vector(
+        words, 16 if layout == "aligned" else 8)
+
+    def on_card(t):
+        t = t.to(cuda)
+        return _misaligned(t, 8) if layout == "misaligned" else t
+
+    known_dev, v2c = on_card(known), code.var_to_chk.to(cuda)
     m_local = -(-code.m // size)
     cands = []
     for r in range(size):
         off = r * m_local
-        ex = erasure_bp._check_exactly_one_plain(
-            code.chk_to_var[off:off + m_local], known)
-        got = es.edge_candidates(code.var_to_chk.to(cuda), ex.to(cuda), off)
-        want = es._edge_candidates_plain(code.var_to_chk, ex, off)
+        chk_local = code.chk_to_var[off:off + m_local]
+        want_ex = erasure_bp._check_exactly_one_plain(chk_local, known)
+        ex = erasure_bp.check_exactly_one(chk_local.to(cuda), known_dev)
+        assert erasure_bp.check_exactly_one.vec == vec
+        assert torch.equal(ex.cpu(), want_ex)
+        got = es.edge_candidates(v2c, on_card(want_ex), off)
+        assert es.edge_candidates.vec == vec
+        want = es._edge_candidates_plain(code.var_to_chk, want_ex, off)
         assert torch.equal(got.cpu(), want)
+        on_cpu = es.edge_candidates(
+            code.var_to_chk, erasure_bp.check_exactly_one(chk_local, known),
+            off)
+        assert torch.equal(got.cpu(), on_cpu)
         cands.append(want)
     gathered = torch.stack(cands)
     state = known.to(cuda)
@@ -1891,12 +1928,55 @@ def test_edge_round_kernels_equal_plain(cuda, n, words, size):
     assert torch.equal(errors.cpu(), want_errors)
 
 
-@pytest.mark.parametrize("family", ["regular", "irregular"])
-@pytest.mark.parametrize("eps", [0.35, 0.45])
-def test_edge_sharded_decode_on_gpu_equals_packed_and_cpu(cuda, family, eps):
+@pytest.mark.parametrize("dv, dc", [(2, 4), (4, 8), (5, 10)])
+@pytest.mark.parametrize("size", [1, 2])
+def test_edge_round_kernels_other_degrees(cuda, dv, dc, size):
+    """K2 and X1 at degrees other than the (3,6) code's (the socket loops,
+    not the unrolled instantiations) against their plain versions."""
     from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
 
-    n, words = 1200, 5
+    n, words = 2000, 32
+    code = sample_code(torch.Generator().manual_seed(dc), n, dv, dc)
+    known = _edge_state(code, words, dv, "later")
+    m_local = code.m // size
+    for r in range(size):
+        off = r * m_local
+        chk_local = code.chk_to_var[off:off + m_local]
+        want_ex = erasure_bp._check_exactly_one_plain(chk_local, known)
+        ex = erasure_bp.check_exactly_one(chk_local.to(cuda), known.to(cuda))
+        assert torch.equal(ex.cpu(), want_ex)
+        got = es.edge_candidates(code.var_to_chk.to(cuda), ex, off)
+        want = es._edge_candidates_plain(code.var_to_chk, want_ex, off)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("wpc, num", [(1, 64), (3, 16), (24, 8)])
+@pytest.mark.parametrize("align", [16, 8])
+def test_check_exactly_one_batched_equals_plain(cuda, wpc, num, align):
+    """K2 on a batch of codes (word w of code w // wpc) against its plain
+    version: 16 bytes a thread only where a code's words are a multiple of
+    4 and the planes 16-byte aligned."""
+    codes = ensemble.sample_codes(4, 0, num, 600, 3, 6)
+    words = wpc * num
+    known = _edge_state(codes.select(0), words, wpc, "random")
+    want = erasure_bp._check_exactly_one_plain(codes.chk_to_var, known)
+    got = erasure_bp.check_exactly_one(codes.chk_to_var.to(cuda),
+                                       _misaligned(known.to(cuda), align))
+    assert torch.equal(got.cpu(), want)
+    assert erasure_bp.check_exactly_one.vec == \
+        (4 if wpc % 4 == 0 and align == 16 else 1)
+
+
+@pytest.mark.parametrize("family", ["regular", "irregular"])
+@pytest.mark.parametrize("eps", [0.35, 0.45])
+@pytest.mark.parametrize("words", [5, 32])
+def test_edge_sharded_decode_on_gpu_equals_packed_and_cpu(cuda, family, eps,
+                                                          words):
+    """The edge decode on the card (4 bytes a thread at W = 5, 16 at W =
+    32) against the unsharded K2/K3 decode and the CPU's edge decode."""
+    from iib_project_ldpc_codes_tpu_torch.parallel import edge_sharded as es
+
+    n = 1200
     if family == "regular":
         code = _code(n, seed=7)
         edge, packed = es.edge_sharded_bp_decode, \
@@ -1916,6 +1996,8 @@ def test_edge_sharded_decode_on_gpu_equals_packed_and_cpu(cuda, family, eps):
     assert (es.edge_candidates.launches, es.or_reduce_update.launches,
             erasure_bp.check_exactly_one.launches) == tuple(
         b + rounds for b in before)
+    assert es.edge_candidates.vec == erasure_bp.check_exactly_one.vec == \
+        (4 if words % 4 == 0 else 1)
     for want in (packed(code.to(cuda), erased.to(cuda), 60),
                  edge(code, erased, 60)):
         assert torch.equal(got.known.cpu(), want.known.cpu())
