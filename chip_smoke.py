@@ -126,21 +126,26 @@ this run's tensors) over 3.35 TB/s and its operations over the peak rate
 of their type (``bound_by`` names the larger), and ``library_ms``, the
 time of one PyTorch call computing the same function where one exists.
 
-Kernel D, the whole all-zero erasure-BP decode of one code per block,
-runs the ensemble BEC chunks in place of K2/K3 (ops/erasure_bp.py::
-takes_erasure_decode_kernel): phase 9 holds it to its plain version bit
-for bit (known, per-code errors per round, rounds) at 768 codes, regular
-and irregular, at eps = 0 and 1, at 0 and 1 rounds and on a batch whose
-last code to move reaches zero beside a stuck one; phases 11 and 16
-assert that the ensemble BEC paths launch D and never K2/K3; phase 12
-times D beside the K2/K3 decode it replaced and profiles the ensemble
-chunk.
+Kernel D, the whole all-zero erasure-BP decode of a block of one code's
+words per CUDA block, runs the ensemble BEC chunks (a block a code) and
+the fixed-code decodes whose word fits a block (a block a word) in place
+of K2/K3 (ops/erasure_bp.py::erasure_decode_block_words): phase 4 holds
+the headline decode by D to the K2/K3 decode and the plain one, phase 9
+holds D to its plain version bit for bit (known, per-block errors per
+round, rounds) at 768 codes, regular and irregular, at eps = 0 and 1, at 0
+and 1 rounds and on a batch whose last code to move reaches zero beside a
+stuck one; phases 6, 11 and 16 assert that the BEC paths at n = 10^4
+launch D (once a decode) and never K2/K3; phase 7 times the headline
+decode by D beside the K2/K3 decode and the plain one; phase 12 times D
+beside the K2/K3 decode it replaced and profiles the ensemble chunk.
 
-K2 and K3 are reported at the fixed-code shape of phase 4 (one code, 768
-words), where the fixed path counts their launches; their times at the
-batched shape of 768 codes (one word a code) stand beside as
-``ms_codes768``.  ``launches`` counts the main path each kernel serves
-(the fixed path for K2/K3, the ensemble path for K1, K4, K5 and D); for
+K2 and K3 are held and timed at the fixed-code shape of phase 4 (one
+code, 768 words; K3's device time again at n = 10^6, W = 48, in phase 39),
+their times at the batched shape of 768 codes (one word a code) stand
+beside as ``ms_codes768``, and their ``launches`` count the fixed-code
+run at n = 10^6 of phase 40 (whose word does not fit D's block).
+``launches`` counts the main path each kernel serves (the ensemble path
+for K1, K4, K5 and D); for
 the kernels of the later paths, ``launches`` counts the ensemble path each
 serves first (the irregular BEC path for the irregular sampler, the (3,6)
 Gallager path for kernel G, the AWGN sum-product path for kernels A, B
@@ -170,9 +175,9 @@ import time
 N_FULL, WORDS_FULL, EPS_FULL, ITERS = 10_000, 768, 0.42, 50
 DV, DC = 3, 6
 CODES_FULL = 768          # ensemble main path: one code per 32 trials
-FIXED_PATH = ("bernoulli_packed", "check_exactly_one", "variable_or_update",
-              "per_trial_counts")
-# the ensemble chunks decode their batch of codes with kernel D, never K2/K3
+# the fixed-code and the ensemble chunks at n = 10^4 decode with kernel D
+# (a block a word, a block a code), never K2/K3
+FIXED_PATH = ("bernoulli_packed", "erasure_decode", "per_trial_counts")
 ENSEMBLE_PATH = ("bernoulli_packed", "erasure_decode", "per_trial_counts",
                  "sample_regular_codes")
 ROUND_PAIR = ("check_exactly_one", "variable_or_update")
@@ -738,7 +743,7 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
 
     # -- 13 -------------------------------------------------------------------
     phase("13 irregular sampler against its plain version; irregular "
-          "decode (K2/K3 on one code, kernel D on 768)")
+          "decode (kernel D on one code and on 768)")
     spec = irregular.IrregularEnsembleSpec.from_lam_rho(N_FULL, LAM_BEC, RHO6,
                                                         device=dev)
     spec_small = irregular.IrregularEnsembleSpec.from_lam_rho(
@@ -1104,14 +1109,15 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
                   "gallager_36": "sample_regular_codes",
                   "gallager_irregular": "sample_irregular_codes"}
     # the decodes by shape (ops/gallager.py::takes_decode_kernel, ops/
-    # erasure_bp.py::takes_erasure_decode_kernel): kernels G and D on the
-    # ensemble chunks (one word a code), the round kernels on the fixed code
-    # at 768 words; the other route is not launched
+    # erasure_bp.py::erasure_decode_block_words): kernels G and D on the
+    # ensemble chunks (one word a code), kernel D on the fixed BEC code (a
+    # block a word) and the Gallager round kernels on the fixed code at 768
+    # words; the other route is not launched
     rounds_pair = ("gallager_check", "gallager_variable")
     route = {("gallager", "ensemble"): (("gallager_decode",), rounds_pair),
              ("gallager", "fixed"): (rounds_pair, ("gallager_decode",)),
              ("bec", "ensemble"): (("erasure_decode",), ROUND_PAIR),
-             ("bec", "fixed"): (ROUND_PAIR, ("erasure_decode",))}
+             ("bec", "fixed"): (("erasure_decode",), ROUND_PAIR)}
     by_path = {name: {} for name in kernels}
     results = {}
     with tempfile.TemporaryDirectory(dir=scratch_root) as tmp:
@@ -1220,18 +1226,20 @@ def new_paths(dev, smi, measured, kernels, scratch_root, erased, code,
     bec_cases = {"bec_irregular_one": irr_one,
                  "bec_irregular_768": irr_batch}
     for label, c in bec_cases.items():
-        # "kernel": kernel D at 768 codes, K2/K3 on one code; "rounds": the
-        # K2/K3 decode of the 768 codes that D replaced
+        # "kernel": kernel D (a block a code at 768 codes, a block a word on
+        # one code); "rounds": the K2/K3 decode that D replaced
         turns = (("plain", lambda: irregular_plain(c, erased, ITERS)),
                  ("kernel", lambda: erasure_bp
                   .bp_decode_packed_allzero_irregular(c, erased, ITERS)),
+                 ("rounds", lambda: round_kernel_bec_decode(
+                     erasure_bp._phantom_view(c),
+                     erasure_bp._pad_phantom_row(erased), ITERS)),
+                 ("rounds", lambda: round_kernel_bec_decode(
+                     erasure_bp._phantom_view(c),
+                     erasure_bp._pad_phantom_row(erased), ITERS)),
                  ("kernel", lambda: erasure_bp
                   .bp_decode_packed_allzero_irregular(c, erased, ITERS)),
                  ("plain", lambda: irregular_plain(c, erased, ITERS)))
-        if label.endswith("_768"):
-            turns = turns[:2] + (("rounds", lambda: round_kernel_bec_decode(
-                erasure_bp._phantom_view(c),
-                erasure_bp._pad_phantom_row(erased), ITERS)),) * 2 + turns[2:]
         for name, fn in turns:
             decode_ms.setdefault(f"{label}_{name}", []).append(
                 time_ms(fn, reps=1 if name == "plain" else 3))
@@ -2995,8 +3003,9 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
             ("random transmit", dict(channel_param=EPS_FULL,
                                      transmit="random"),
              "check_exactly_one_xor"),
+            # the expanded code's word fits kernel D's block: a block a word
             ("expurgated", dict(channel_param=0.45, expurgation=2),
-             "check_exactly_one"),
+             "erasure_decode"),
             # float soft stays on expand() (int8 min-sum goes by index:
             # phases 34-35)
             ("float32 min-sum", dict(channel="BSC", decoder="minsum",
@@ -3233,8 +3242,9 @@ def kernel_resources(smi: str) -> dict:
     toolkit's cuobjdump from the built library, of every instantiation of
     kernels C (``soft_check``) and B (``soft_posterior``), of the Gallager
     round kernels (``gallager_check``, ``gallager_variable``), of Q1 and Q2
-    (``qc_check_exactly_one``, ``qc_variable_or``), of K2 and X1
-    (``check_exactly_one``, ``edge_candidates``), of Q4
+    (``qc_check_exactly_one``, ``qc_variable_or``), of K2, K3 and X1
+    (``check_exactly_one``, ``variable_or_update``, ``edge_candidates``), of
+    Q4
     (``qc_gallager_variable``, its first messages too) and of S2's
     int8 instantiations
     (``qc_soft_check_int8``, with their SASS instruction counts); with the
@@ -3242,7 +3252,7 @@ def kernel_resources(smi: str) -> dict:
     warp's registers allocated in units of 256, at most 64 warps an SM).
     Fails on a stack frame or local memory in S2 int8 and on local memory
     in C, in the round kernels' exact-degree instantiations and in Q1, Q2,
-    K2, X1 and Q4; C's
+    K2, K3, X1 and Q4; C's
     stack frames (spill slots) are printed: its int8 instantiations up to
     degree 6 are held to 80 registers for three blocks an SM, measured faster
     with a few bytes spilled than at 96."""
@@ -3396,10 +3406,12 @@ def kernel_resources(smi: str) -> dict:
             check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
         check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
               "instantiations in the library, expected 4")
-    # K2 and X1: check_exactly_one_kernel<N, kDc> and
-    # edge_candidates_kernel<N, kDv> (24 and 22 letters mangled; degree 0
-    # the socket loop); no local memory in any
+    # K2, K3 and X1: check_exactly_one_kernel<N, kDc>,
+    # variable_or_update_kernel<N, kDv> and edge_candidates_kernel<N, kDv>
+    # (24, 25 and 22 letters mangled; degree 0 the socket loop); no local
+    # memory in any
     for kernel, deg in (("check_exactly_one", "dc"),
+                        ("variable_or_update", "dv"),
                         ("edge_candidates", "dv")):
         out[kernel] = {}
         for name, text in usage.items():
@@ -3600,7 +3612,7 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     measured["soft_check"]["resources_dc6"] = {
         k: v for k, v in resources["soft_check"].items() if k.endswith("_dc6")}
     for name in ("gallager_check", "gallager_variable", "check_exactly_one",
-                 "edge_candidates"):
+                 "variable_or_update", "edge_candidates"):
         measured[name]["resources"] = resources[name]
     for name in names[:2]:
         measured[name].update(
@@ -3838,7 +3850,8 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
         used = launches_now()
         check(peel_runs[mode].num_trials == 2 * 32 * WORDS_FULL
               and peel_runs[mode].error_rate_per_iteration == []
-              and used["check_exactly_one"] > 0 and used[names[2]] == 0
+              and used["erasure_decode"] == 2
+              and used["check_exactly_one"] == 0 and used[names[2]] == 0
               and used["bernoulli_packed"] == 2
               and used["sample_regular_codes"] == (2 if mode == "ensemble"
                                                    else 0),
@@ -4170,17 +4183,72 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
               bound_ms_by_ranks={k: v["bound_ms"] for k, v in bound2.items()})
     print(f"X1 plain {x1['plain_ms']:.3f} ms, X2 plain {x2['plain_ms']:.3f} "
           f"ms at D=1; card {smi}", flush=True)
-    del known, ex_full, k3_known
 
     # -- 39 -------------------------------------------------------------------
-    phase(f"39 the whole edge-sharded decode at n={N_EDGE} against the K2/K3 "
+    phase(f"39 K3 and the K2/K3 decode at n={N_EDGE} against their plain "
+          f"versions; the whole edge-sharded decode against the K2/K3 "
           f"decode; cuda against cpu at n={N_EDGE_CPU}")
+    # K3 on the state two rounds in, 16 bytes a thread and, on a plane 4
+    # bytes past a 16-byte boundary, 4 bytes; its device time beside its
+    # bound
+    # (its table, the summary and known read once, known written once)
+    k3 = measured["variable_or_update"]
+    check(erasure_bp.variable_or_update.vec == vec,
+          f"K3 at n={N_EDGE} launched {erasure_bp.variable_or_update.vec} "
+          "words a thread")
+    p_known, p_errors = known.clone(), torch.zeros(2, dtype=torch.int32,
+                                                   device=dev)
+    erasure_bp._variable_or_update_plain(code.var_to_chk, ex_full, p_known,
+                                         p_errors, 1)
+    shifted = torch.empty(known.numel() + 1, dtype=torch.int32,
+                          device=dev)[1:].view(known.shape).copy_(known)
+    s_errors = torch.zeros(2, dtype=torch.int32, device=dev)
+    erasure_bp.variable_or_update(code.var_to_chk, ex_full, shifted,
+                                  s_errors, 1)
+    check(erasure_bp.variable_or_update.vec == 1,
+          "K3 on a misaligned plane launched "
+          f"{erasure_bp.variable_or_update.vec} words a thread")
+    err3 = max(max_abs_err(k3_known, p_known), max_abs_err(k3_errors,
+                                                            p_errors),
+               max_abs_err(shifted, p_known), max_abs_err(s_errors,
+                                                           p_errors))
+    check(err3 == 0, f"K3 at n={N_EDGE} differs from its plain version "
+                     f"(max |d| {err3})")
+    del shifted, p_known
+    fresh3 = {}
+
+    def prepare3():
+        fresh3["known"] = known.clone()
+        fresh3["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def run_k3():
+        erasure_bp.variable_or_update(code.var_to_chk, ex_full,
+                                      fresh3["known"], fresh3["errors"], 1)
+
+    k3.update(max_abs_err=max(k3["max_abs_err"], err3),
+              device_ms_n1e6=device_ms(run_k3, "variable_or_update_kernel",
+                                       prepare=prepare3),
+              ms_n1e6=time_ms(run_k3, prepare=prepare3),
+              bound_ms_n1e6=bound(nbytes(code.var_to_chk, ex_full)
+                                  + 2 * nbytes(known) + 4)["bound_ms"],
+              vec_n1e6=vec)
+    print(f"K3 at n={N_EDGE}, W={W_EDGE}, two rounds in: equal to plain at "
+          f"{vec} and 1 words a thread; device {k3['device_ms_n1e6']:.4f} "
+          f"ms, events {k3['ms_n1e6']:.4f} ms, bound "
+          f"{k3['bound_ms_n1e6']:.4f} ms", flush=True)
+    del known, ex_full, k3_known, fresh3
     for k in kernels.values():
         k["wrapper"].launches = 0
     got = es.edge_sharded_bp_decode(code, erased, ITERS)
     torch.cuda.synchronize()
     counts = launches_now()
     want = erasure_bp.bp_decode_packed_allzero(code, erased, ITERS)
+    plain = erasure_bp.bp_decode_packed_allzero_plain(code, erased, ITERS)
+    check(torch.equal(want.known, plain.known)
+          and torch.equal(want.error_totals, plain.error_totals)
+          and want.iterations == plain.iterations,
+          "the K2/K3 decode differs from the plain decode")
+    del plain
     check(torch.equal(got.known, want.known)
           and torch.equal(got.error_totals, want.error_totals)
           and got.iterations == want.iterations,
@@ -4249,7 +4317,20 @@ def edge_paths(dev, smi, measured, kernels, scratch_root) -> None:
           f"edge path launches {path_counts} for {path_rounds} rounds")
     edge_run = mc.run_simulation(edge_cfg(edge_sharded=True), code,
                                  device="cuda")
+    # the unsharded fixed-code run at n = 10^6: a word does not fit kernel
+    # D's block, so K2 and K3 run every round (their launches on a path)
+    for k in kernels.values():
+        k["wrapper"].launches = 0
     plain_run = mc.run_simulation(edge_cfg(), code, device="cuda")
+    torch.cuda.synchronize()
+    fixed_counts = launches_now()
+    check(fixed_counts["check_exactly_one"]
+          == fixed_counts["variable_or_update"] == path_rounds > 0
+          and fixed_counts["erasure_decode"] == 0,
+          f"the n={N_EDGE} fixed run launched {fixed_counts} for "
+          f"{path_rounds} rounds")
+    for name in ROUND_PAIR:
+        measured[name]["launches"] = fixed_counts[name]
     for field in fields:
         check(getattr(via_cli, field) == getattr(edge_run, field)
               == getattr(plain_run, field),
@@ -4558,7 +4639,8 @@ def main() -> int:
           f"(sigma {sigma:.2e})", flush=True)
 
     # -- 4 K2/K3/K4 ---------------------------------------------------------
-    phase("4 K2/K3/K4 decode at the headline shape")
+    phase("4 K2/K3/K4 single passes, the K2/K3 decode and kernel D's at the "
+          "headline shape")
     cfg_full = SimulationConfig(channel_param=EPS_FULL, n=N_FULL, dv=DV,
                                 dc=DC, code_mode="fixed", code_number=1,
                                 iterations=ITERS)
@@ -4599,6 +4681,9 @@ def main() -> int:
     err = max(max_abs_err(kn_k, state["known"]),
               max_abs_err(er_k, state["errors"]))
     check(err == 0, f"K3 differs from its plain version (max |d| {err})")
+    check(erasure_bp.variable_or_update.vec == 4,
+          "K3 at the fixed path launched "
+          f"{erasure_bp.variable_or_update.vec} words a thread, expected 4")
     measured["variable_or_update"].update(
         max_abs_err=err,
         ms=time_ms(lambda: erasure_bp.variable_or_update(
@@ -4621,20 +4706,34 @@ def main() -> int:
         ms=time_ms(lambda: bitops.per_trial_counts(erased)),
         plain_ms=time_ms(lambda: bitops._per_trial_counts_plain(erased)),
         **bound(nbytes(erased, c_k)))
-    # whole decodes
+    # whole decodes: kernel D (one block a word, the route of one code
+    # whose word fits a block), the K2/K3 host loop and the plain one
+    check(erasure_bp.erasure_decode_block_words(code, WORDS_FULL) == 1,
+          "the headline decode does not take kernel D a block a word")
+    launched = {k: kernels[k]["wrapper"].launches
+                for k in ("erasure_decode",) + ROUND_PAIR}
     res_k = erasure_bp.bp_decode_packed_allzero(code, erased, ITERS)
+    torch.cuda.synchronize()
+    launched = {k: kernels[k]["wrapper"].launches - v
+                for k, v in launched.items()}
+    check(launched == {"erasure_decode": 1, "check_exactly_one": 0,
+                       "variable_or_update": 0},
+          f"the headline decode launched {launched}")
+    res_r = round_kernel_bec_decode(code, erased, ITERS)
     res_p = erasure_bp.bp_decode_packed_allzero_plain(code, erased, ITERS)
     torch.cuda.synchronize()
-    check(torch.equal(res_k.known, res_p.known), "decode: known differs")
-    check(torch.equal(res_k.error_totals, res_p.error_totals),
-          "decode: error_totals differ")
-    check(res_k.iterations == res_p.iterations, "decode: iterations differ")
+    for name, res in (("kernel D", res_k), ("K2/K3", res_r)):
+        check(torch.equal(res.known, res_p.known)
+              and torch.equal(res.error_totals, res_p.error_totals)
+              and res.iterations == res_p.iterations,
+              f"decode by {name} differs from the plain decode")
     check(torch.equal(res_k.bit_errors,
                       bitops._per_trial_counts_plain(~res_p.known)),
           "decode: per-trial counts differ")
-    print(f"decode equal: iterations {res_k.iterations}, errors[0] "
-          f"{int(res_k.error_totals[0])} -> {int(res_k.error_totals[-1])}, "
-          f"FER {float(res_k.failed.float().mean()):.4f}", flush=True)
+    print(f"decode by kernel D == K2/K3 == plain: iterations "
+          f"{res_k.iterations}, errors[0] {int(res_k.error_totals[0])} -> "
+          f"{int(res_k.error_totals[-1])}, FER "
+          f"{float(res_k.failed.float().mean()):.4f}", flush=True)
 
     # -- 5 GPU against CPU --------------------------------------------------
     phase("5 run_simulation on cuda against cpu")
@@ -4680,6 +4779,14 @@ def main() -> int:
             measured[name]["launches_fixed"] = launches
             check(launches > 0,
                   f"kernel {name} was not launched on the main path")
+        # kernel D once a decode (one a chunk), the round loop never
+        decodes = measured["erasure_decode"]["launches_fixed"]
+        check(decodes == 4, f"kernel D launched {decodes} times for 4 "
+                            "chunks on the main path")
+        for name in ROUND_PAIR:
+            launched = kernels[name]["wrapper"].launches
+            check(launched == 0, f"kernel {name} was launched {launched} "
+                                 "times on the main path")
         rates = main_res.error_rate_per_iteration
         check(main_res.num_trials == 4 * 32 * WORDS_FULL,
               f"main path ran {main_res.num_trials} trials")
@@ -4714,9 +4821,13 @@ def main() -> int:
     phase("7 decode-only info bits/s at the headline shape")
     k_bits = N_FULL * (DC - DV) // DC * 32 * WORDS_FULL
     rate = {}
+    # "kernel" is the route: kernel D a block a word; "rounds" the K2/K3
+    # host loop it replaced; "plain" the plain passes' host loop
     for name, fn in (
             ("plain", erasure_bp.bp_decode_packed_allzero_plain),
             ("kernel", erasure_bp.bp_decode_packed_allzero),
+            ("rounds", round_kernel_bec_decode),
+            ("rounds", round_kernel_bec_decode),
             ("kernel", erasure_bp.bp_decode_packed_allzero),
             ("plain", erasure_bp.bp_decode_packed_allzero_plain)):
         ms = time_ms(lambda: fn(code, erased, ITERS), reps=3)
@@ -4959,8 +5070,6 @@ def main() -> int:
             launched = kernels[name]["wrapper"].launches
             check(launched == 0, f"kernel {name} was launched {launched} "
                                  "times on the ensemble path")
-            # K2/K3's main path is the fixed one since kernel D
-            measured[name]["launches"] = measured[name]["launches_fixed"]
         rates = ens_res.error_rate_per_iteration
         check(ens_res.num_trials == 4 * 32 * WORDS_FULL,
               f"ensemble path ran {ens_res.num_trials} trials")

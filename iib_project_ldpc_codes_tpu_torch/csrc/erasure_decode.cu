@@ -1,22 +1,34 @@
-// Kernel D: the whole all-zero erasure-BP decode of one code per block.
+// Kernel D: the whole all-zero erasure-BP decode, one block per block of
+// words of one code.
 //
 // Replaces iib_project_ldpc_codes_tpu/ops/erasure_bp.py
-// bp_decode_packed_allzero (:292-306) as the JAX engine runs it under vmap,
+// bp_decode_packed_allzero (:292-306), as the JAX engine runs it under vmap,
 // one while_loop per code (parallel/montecarlo.py:268-285
-// _fresh_codes_chunk): the rounds of _packed_iteration_allzero (:279-288,
-// the check summary of :186-228 and the variable OR of :231-236) with the
-// stop rule of _run_to_fixed_point (:66-110).  On the port's batched host
-// loop this was K2 and K3 per round and one host read of the summed count
-// per round.
+// _fresh_codes_chunk), and as it runs on one fixed code: the rounds of
+// _packed_iteration_allzero (:279-288, the check summary of :186-228 and
+// the variable OR of :231-236) with the stop rule of _run_to_fixed_point
+// (:66-110).  On the port's host loop this was K2 and K3 per round and one
+// host read of the summed count per round.
 //
-// Codes never exchange data and a code's stop depends only on its own
-// count, so one block runs every round of its code with no grid-wide sync
-// and no host read.  Dynamic shared memory holds the code's known plane
-// uint32[rows][wpc], its exactly-one plane uint32[checks][wpc], four
-// counters, its chk_to_var table socket-major ([dc][checks], so a warp's
-// index loads are consecutive and free of bank conflicts) and a byte per
-// check and word (the sockets a summary teaches): 185,016 bytes for a
-// (3,6) code of n = 10^4 at one word (32 trials) per code.  A round is
+// Every word column of a plane is an independent decode of 32 trials, so a
+// block of `wpb` words of one code (wpb divides the code's `wpc`) never
+// exchanges data with another, and its stop depends only on its own count:
+// one block runs every round of its words with no grid-wide sync and no
+// host read.  Block b holds words b * wpb onward, of code b * wpb / wpc.  A
+// batch of codes (the ensemble chunks) runs one block a code (wpb = wpc);
+// one code runs one block a word (wpb = 1, a table of one code, so every
+// block reads the same table, from L2).  On the BEC a block's unchanged
+// count is an absorbing fixed point, so a block frozen at its own stop
+// holds the plane and the count that the host loop would go on computing
+// for it: the per-round sums of the blocks' counts are the host loop's, and
+// the wrapper applies the host loop's stop rule to them once.
+//
+// Dynamic shared memory holds the block's known plane uint32[rows][wpb],
+// its exactly-one plane uint32[checks][wpb], four counters, its code's
+// chk_to_var table socket-major ([dc][checks], so a warp's index loads are
+// consecutive and free of bank conflicts) and a byte per check and word
+// (the sockets a summary teaches): 185,016 bytes for a (3,6) code of n =
+// 10^4 at one word (32 trials) a block.  A round is
 //   1. the check pass: K2's two running masks (a zero seen once, a zero
 //      seen twice) over the dc known words of each check, out of shared
 //      memory, into the exactly-one plane;
@@ -35,14 +47,14 @@
 // On the H100 this scatter was faster than a gather over var_to_chk (K3
 // per variable) and than 16-bit tables (PERF.md, row 7).
 //
-// The stop rule per code is _run_to_fixed_point's: start only if the
+// The stop rule per block is _run_to_fixed_point's: start only if the
 // channel erased a bit, go on while it < max_iters, the count changed and
-// the count > 0.  Outputs: the final known plane, round_errors[code][r]
+// the count > 0.  Outputs: the final known plane, round_errors[block][r]
 // (r = 0 the channel's erasures, then the count after each round run, the
-// tail after the stop holding the final count) and rounds[code].
+// tail after the stop holding the final count) and rounds[block].
 //
-// Memory: the erased and known planes are code-major [C][rows][wpc] (the
-// wrapper transposes), so the one load and the one store of a decode
+// Memory: the erased and known planes are block-major [blocks][rows][wpb]
+// (the wrapper transposes), so the one load and the one store of a decode
 // coalesce.  A decode's least time on the H100 is set by shared memory
 // (each socket's known word read and each check's summary written every
 // round, each variable's word written) against ~154 MB of device memory
@@ -70,19 +82,20 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
                       int32_t* __restrict__ known_out,
                       int32_t* __restrict__ round_errors,
                       int32_t* __restrict__ rounds, int rows, int checks,
-                      int dc, int wpc, int max_iters) {
+                      int dc, int wpc, int wpb, int max_iters) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const int words = rows * wpc;
-  uint32_t* known = smem;                                // [rows][wpc]
-  uint32_t* ex = known + words;                          // [checks][wpc]
-  int* counts = reinterpret_cast<int*>(ex + checks * wpc);  // [4]
+  const int words = rows * wpb;
+  uint32_t* known = smem;                                // [rows][wpb]
+  uint32_t* ex = known + words;                          // [checks][wpb]
+  int* counts = reinterpret_cast<int*>(ex + checks * wpb);  // [4]
   int32_t* c2v = counts + 4;                             // [dc][checks]
   uint8_t* teach_of = reinterpret_cast<uint8_t*>(c2v + checks * dc);
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const long long code = blockIdx.x;
-  const int32_t* er = erased + code * words;
+  const long long block = blockIdx.x;
+  const long long code = block * wpb / wpc;
+  const int32_t* er = erased + block * words;
   const int32_t* c2v_g = chk_to_var + code * checks * dc;
-  int32_t* errors_out = round_errors + code * (max_iters + 1);
+  int32_t* errors_out = round_errors + block * (max_iters + 1);
 
   // set-up: the known plane, the table socket-major, the channel's count
   if (tid < 4) counts[tid] = 0;
@@ -116,11 +129,11 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
 #pragma unroll
         for (int j = 0; j < kMaxDc; ++j)
           var[j] = j < dc ? c2v[j * checks + c] : 0;
-        for (int w = 0; w < wpc; ++w) {
+        for (int w = 0; w < wpb; ++w) {
           uint32_t unknown[kMaxDc > 0 ? kMaxDc : 1];
 #pragma unroll
           for (int j = 0; j < kMaxDc; ++j)
-            unknown[j] = j < dc ? ~known[var[j] * wpc + w] : 0u;
+            unknown[j] = j < dc ? ~known[var[j] * wpb + w] : 0u;
           uint32_t once = 0u, twice = 0u;
 #pragma unroll
           for (int j = 0; j < kMaxDc; ++j) {
@@ -132,18 +145,18 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
 #pragma unroll
           for (int j = 0; j < kMaxDc; ++j)
             teach |= static_cast<uint32_t>((unknown[j] & e) != 0u) << j;
-          teach_of[c * wpc + w] = static_cast<uint8_t>(teach);
-          if (e != 0u) ex[c * wpc + w] = e;
+          teach_of[c * wpb + w] = static_cast<uint8_t>(teach);
+          if (e != 0u) ex[c * wpb + w] = e;
         }
       } else {
-        for (int w = 0; w < wpc; ++w) {
+        for (int w = 0; w < wpb; ++w) {
           uint32_t once = 0u, twice = 0u;
           for (int j = 0; j < dc; ++j) {
-            const uint32_t unknown = ~known[c2v[j * checks + c] * wpc + w];
+            const uint32_t unknown = ~known[c2v[j * checks + c] * wpb + w];
             twice |= once & unknown;
             once |= unknown;
           }
-          ex[c * wpc + w] = once & ~twice;
+          ex[c * wpb + w] = once & ~twice;
         }
       }
     }
@@ -151,22 +164,22 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
     // 3. variable half: the scatter counts the bits it makes known
     int tally = 0;
     for (int c = tid; c < checks; c += nthreads) {
-      for (int w = 0; w < wpc; ++w) {
+      for (int w = 0; w < wpb; ++w) {
         if (kMaxDc > 0) {
-          uint32_t teach = teach_of[c * wpc + w];
+          uint32_t teach = teach_of[c * wpb + w];
           if (teach == 0u) continue;
-          const uint32_t e = ex[c * wpc + w];
+          const uint32_t e = ex[c * wpb + w];
           do {
             const int j = __ffs(teach) - 1;
             teach &= teach - 1u;
             tally += __popc(
-                e & ~atomicOr(known + c2v[j * checks + c] * wpc + w, e));
+                e & ~atomicOr(known + c2v[j * checks + c] * wpb + w, e));
           } while (teach != 0u);
         } else {
-          const uint32_t e = ex[c * wpc + w];
+          const uint32_t e = ex[c * wpb + w];
           if (e == 0u) continue;
           for (int j = 0; j < dc; ++j) {
-            uint32_t* k = known + c2v[j * checks + c] * wpc + w;
+            uint32_t* k = known + c2v[j * checks + c] * wpb + w;
             // a racing atomic can only have set more bits: skipping an
             // OR that adds nothing keeps the count exact
             if ((*reinterpret_cast<volatile uint32_t*>(k) & e) != e)
@@ -190,44 +203,48 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
     current = next;
   }
   for (int r = it + 1 + tid; r <= max_iters; r += nthreads) errors_out[r] = current;
-  if (tid == 0) rounds[code] = it;
-  int32_t* out = known_out + code * words;
+  if (tid == 0) rounds[block] = it;
+  int32_t* out = known_out + block * words;
   for (int i = tid; i < words; i += nthreads) out[i] = static_cast<int32_t>(known[i]);
 }
 
 template <int kMaxDc>
-int launch_decode(int num_codes, size_t smem_bytes, cudaStream_t stream,
+int launch_decode(int num_blocks, size_t smem_bytes, cudaStream_t stream,
                   const int32_t* erased, const int32_t* chk_to_var,
                   int32_t* known, int32_t* round_errors, int32_t* rounds,
-                  int rows, int checks, int dc, int wpc, int max_iters) {
+                  int rows, int checks, int dc, int wpc, int wpb,
+                  int max_iters) {
   auto kernel = erasure_decode_kernel<kMaxDc>;
   const cudaError_t opt = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
   if (opt != cudaSuccess) return static_cast<int>(opt);
-  kernel<<<num_codes, kDecodeThreads, smem_bytes, stream>>>(
+  kernel<<<num_blocks, kDecodeThreads, smem_bytes, stream>>>(
       erased, chk_to_var, known, round_errors, rounds, rows, checks, dc, wpc,
-      max_iters);
+      wpb, max_iters);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// smem_bytes = (rows + checks) * wpc * 4 + 16 + checks * dc * 4 + checks *
-// wpc (the socket masks); the wrapper computes it and checks it against the
-// opt-in limit, and a refused opt-in or launch returns its CUDA error.
+// num_blocks blocks of wpb words each (wpb divides wpc, a code's words;
+// block b decodes words b * wpb onward of code b * wpb / wpc); smem_bytes =
+// (rows + checks) * wpb * 4 + 16 + checks * dc * 4 + checks * wpb (the
+// socket masks); the wrapper computes it and checks it against the opt-in
+// limit, and a refused opt-in or launch returns its CUDA error.
 extern "C" int ldpc_erasure_decode(const void* erased, const void* chk_to_var,
                                    void* known, void* round_errors,
-                                   void* rounds, int num_codes, int rows,
-                                   int checks, int dc, int wpc, int max_iters,
-                                   void* stream) {
-  if (dc < 1 || wpc < 1 || rows < 1 || checks < 1 || max_iters < 0)
+                                   void* rounds, int num_blocks, int rows,
+                                   int checks, int dc, int wpc, int wpb,
+                                   int max_iters, void* stream) {
+  if (dc < 1 || wpb < 1 || wpc < wpb || wpc % wpb || rows < 1 ||
+      checks < 1 || max_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (num_codes <= 0) return static_cast<int>(cudaGetLastError());
+  if (num_blocks <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem_bytes =
-      (static_cast<size_t>(rows) + checks) * wpc * sizeof(uint32_t) +
+      (static_cast<size_t>(rows) + checks) * wpb * sizeof(uint32_t) +
       4 * sizeof(int) + static_cast<size_t>(checks) * dc * sizeof(int32_t) +
-      static_cast<size_t>(checks) * wpc;
+      static_cast<size_t>(checks) * wpb;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* er = static_cast<const int32_t*>(erased);
   const auto* c2v = static_cast<const int32_t*>(chk_to_var);
@@ -235,9 +252,9 @@ extern "C" int ldpc_erasure_decode(const void* erased, const void* chk_to_var,
   auto* re = static_cast<int32_t*>(round_errors);
   auto* ro = static_cast<int32_t*>(rounds);
   if (dc <= kUnrolledDc)
-    return launch_decode<kUnrolledDc>(num_codes, smem_bytes, s, er, c2v, kn,
-                                      re, ro, rows, checks, dc, wpc,
+    return launch_decode<kUnrolledDc>(num_blocks, smem_bytes, s, er, c2v, kn,
+                                      re, ro, rows, checks, dc, wpc, wpb,
                                       max_iters);
-  return launch_decode<0>(num_codes, smem_bytes, s, er, c2v, kn, re, ro, rows,
-                          checks, dc, wpc, max_iters);
+  return launch_decode<0>(num_blocks, smem_bytes, s, er, c2v, kn, re, ro,
+                          rows, checks, dc, wpc, wpb, max_iters);
 }

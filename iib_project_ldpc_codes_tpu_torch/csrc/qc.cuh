@@ -2,8 +2,9 @@
 // qc_check_exactly_one.cu, qc_variable_or.cu, qc_gallager_check.cu,
 // qc_gallager_variable.cu (vector_ok and kMaxPlanes only: Q4 has a layout
 // of its own) and the QC soft passes (row_plus, row_minus, Words); the
-// edge-sharded round's gathers, check_exactly_one.cu and edge_candidates.cu,
-// take Words, load, store_stream and vector_ok only.
+// generic BEC round's gathers, check_exactly_one.cu, variable_or_update.cu
+// and edge_candidates.cu, take Words, load, store, store_stream and
+// vector_ok only.
 //
 // Every pass here works on [Z, W] planes of packed words, one plane per base
 // node.  Q3 runs grid_for_planes: blockIdx.y is the base check, so its base

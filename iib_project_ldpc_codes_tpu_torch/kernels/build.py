@@ -44,7 +44,8 @@ SIGNATURES = {
     "ldpc_bernoulli_packed": (_P, _LL, _U, _U, _U, _U, ctypes.c_ulonglong,
                               _P),
     "ldpc_check_exactly_one": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ldpc_variable_or_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ldpc_variable_or_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P),
     "ldpc_per_trial_counts": (_P, _P, _I, _I, _P),
     "ldpc_sample_regular_codes": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _U, _U, _U, _I, _LL, _P),
@@ -57,7 +58,7 @@ SIGNATURES = {
     "ldpc_gallager_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_erasure_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P),
+                            _I, _P),
     "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P, _P),
     "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -26,14 +26,18 @@ when every code's count is unchanged, and on the BEC an unchanged count is
 an absorbing fixed point.  ``error_totals`` is then the sum of the JAX
 package's per-code (vmapped) arrays, tails included.
 
-Kernel D, :func:`erasure_decode` (``csrc/erasure_decode.cu``), runs that
-per-code decode whole, every round of a code in one block with its known
-plane and check table in shared memory, and returns the per-code counts;
-their sum is ``error_totals`` and the host loop's rule applied to the sum
-gives ``iterations`` (the "one more" round included), read once a decode.
-:func:`takes_erasure_decode_kernel` picks it by shape alone: a batch of
-codes (not one code, not a quasi-cyclic code) each of which fits one
-block, as the ensemble chunks at one word a code do; the rest run K2/K3.
+The same argument holds for any split of the words into blocks of one
+code's words: each word column is an independent decode of 32 trials.
+Kernel D, :func:`erasure_decode` (``csrc/erasure_decode.cu``), runs the
+decode of each block whole, every round of a block in one CUDA block with
+its known plane and its code's check table in shared memory, and returns
+the per-block counts; their sum is ``error_totals`` and the host loop's
+rule applied to the sum gives ``iterations`` (the "one more" round
+included), read once a decode.  :func:`erasure_decode_block_words` picks
+it by shape alone: a batch of codes one block a code (the ensemble chunks
+at one word a code), one code one block a word (the fixed-code decode,
+(3,6) up to n = 12,562), where a block fits the shared memory; the rest,
+and quasi-cyclic codes, run K2/K3 (or Q1/Q2).
 
 Irregular codes (:class:`..models.irregular.IrregularLDPCCode`, one or a
 batch) decode through the same K2/K3 on a phantom view of their padded
@@ -248,10 +252,10 @@ def _check_exactly_one_plain(chk_to_var: torch.Tensor,
 
 
 def check_exactly_one_vector(wpc: int, align: int) -> int:
-    """Words a thread of K2 (and of X1, ``wpc`` = W) moves: 4 (16 bytes)
-    when a code's ``wpc`` words are a multiple of 4 (a thread's words
-    belong to one code) and ``align`` (the largest power of two up to 16
-    dividing every plane's address) is 16, else 1."""
+    """Words a thread of K2 and K3 (and of X1, ``wpc`` = W) moves: 4 (16
+    bytes) when a code's ``wpc`` words are a multiple of 4 (a thread's
+    words belong to one code) and ``align`` (the largest power of two up
+    to 16 dividing every plane's address) is 16, else 1."""
     return 4 if wpc % 4 == 0 and align % 16 == 0 else 1
 
 
@@ -309,7 +313,9 @@ def variable_or_update(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
     """``known |= OR_j exactly_one[var_to_chk[:, j]]`` in place, and
     ``errors[slot]`` = erasures left in ``known`` (``errors[slot]`` must
     be 0 on entry).  ``var_to_chk`` is int32[n, dv] or a batch's
-    int32[C, n, dv], as in :func:`check_exactly_one`."""
+    int32[C, n, dv], as in :func:`check_exactly_one`.  The wrapper keeps
+    its last launch's words a thread (:func:`check_exactly_one_vector`)
+    in ``.vec``."""
     check_int32("known", known, 2)
     check_int32("exactly_one", exactly_one, 2)
     check_int32("errors", errors, 1)
@@ -325,17 +331,21 @@ def variable_or_update(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
                                   slot)
         return
     n, dv = var_to_chk.shape[-2:]
+    vec = check_exactly_one_vector(wpc, alignment(known, exactly_one))
     launch("ldpc_variable_or_update", known.device, known.data_ptr(),
            exactly_one.data_ptr(), var_to_chk.data_ptr(),
-           errors[slot:].data_ptr(), n, dv, known.shape[1], wpc)
+           errors[slot:].data_ptr(), n, exactly_one.shape[0], dv,
+           known.shape[1], wpc, vec)
     variable_or_update.launches += 1
+    variable_or_update.vec = vec
 
 
 variable_or_update.launches = 0
+variable_or_update.vec = None
 
 
 # ---------------------------------------------------------------------------
-# Kernel D: the whole all-zero decode, one block per code
+# Kernel D: the whole all-zero decode, one block per block of a code's words
 # ---------------------------------------------------------------------------
 
 #: dynamic shared memory one block may opt into on the kernels' only
@@ -344,54 +354,73 @@ SMEM_OPTIN_BYTES = 232_448
 
 
 def _erasure_decode_smem_bytes(rows: int, checks: int, dc: int,
-                               wpc: int) -> int:
-    """Kernel D's shared memory for one code: its known and exactly-one
-    planes of ``wpc`` words, four counters, its chk_to_var table (int32)
-    and the scatter's socket masks (a byte per check and word)."""
-    return (rows + checks) * wpc * 4 + 16 + checks * dc * 4 + checks * wpc
+                               wpb: int) -> int:
+    """Kernel D's shared memory for a block of ``wpb`` words: its known
+    and exactly-one planes, four counters, its code's chk_to_var table
+    (int32) and the scatter's socket masks (a byte per check and word)."""
+    return (rows + checks) * wpb * 4 + 16 + checks * dc * 4 + checks * wpb
+
+
+def erasure_decode_block_words(code, words: int) -> int:
+    """The rule that picks kernel D (:func:`erasure_decode`) for the packed
+    all-zero decode of ``words`` words on ``code``, by shape alone: the
+    words of a block, or 0 where the host loop over K2/K3 runs.  D takes
+    the generic tables (an :class:`LDPCCode` or an irregular code's phantom
+    view; quasi-cyclic codes keep their circulant-index rounds): a batch of
+    codes (a leading [C] axis, the words split evenly) one block a code,
+    one code one block a word; a block's shared memory must fit one
+    block's."""
+    if not isinstance(code, (LDPCCode, _PhantomView)) or words < 1:
+        return 0
+    if code.chk_to_var.dim() == 3:
+        num = code.chk_to_var.shape[0]
+        if words % num:
+            return 0
+        wpb = words // num
+    else:
+        wpb = 1
+    checks, dc = code.chk_to_var.shape[-2:]
+    fits = _erasure_decode_smem_bytes(code.n, checks, dc, wpb) \
+        <= SMEM_OPTIN_BYTES
+    return wpb if fits else 0
 
 
 def takes_erasure_decode_kernel(code, words: int) -> bool:
-    """The rule that picks kernel D (:func:`erasure_decode`) for the packed
-    all-zero decode of ``words`` words on ``code``, by shape alone: the
-    generic tables (an :class:`LDPCCode` or an irregular code's phantom
-    view; quasi-cyclic codes keep their circulant-index rounds) with a
-    leading [C] axis (one code keeps K2/K3), split evenly over the codes,
-    and one code's shared memory within one block's."""
-    if not isinstance(code, (LDPCCode, _PhantomView)) or \
-            code.chk_to_var.dim() != 3:
-        return False
-    num, checks, dc = code.chk_to_var.shape
-    return words % num == 0 and _erasure_decode_smem_bytes(
-        code.n, checks, dc, words // num) <= SMEM_OPTIN_BYTES
+    """True when :func:`erasure_decode_block_words` sends the decode to
+    kernel D."""
+    return erasure_decode_block_words(code, words) > 0
 
 
 def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
-                          var_to_chk: torch.Tensor, max_iters: int):
+                          var_to_chk: torch.Tensor, max_iters: int,
+                          wpb: Optional[int] = None):
     """Plain version of kernel D, on any device: the batched plain passes
-    with a count and a stop per code (a stopped code's words are frozen),
-    no loop over codes."""
-    num = chk_to_var.shape[0]
-    wpc = erased.shape[1] // num
+    with a count and a stop per block of ``wpb`` words (default: a code's
+    words; a stopped block's words are frozen), no loop over blocks."""
+    if wpb is None:
+        wpb = erased.shape[1] // chk_to_var.shape[0]
+    blocks = erased.shape[1] // wpb
+    if chk_to_var.shape[0] == 1:           # one code: the passes' 2-D form
+        chk_to_var, var_to_chk = chk_to_var[0], var_to_chk[0]
 
-    def per_code(known):
+    def per_block(known):
         return popcount(~known).sum(0, dtype=torch.int64) \
-            .reshape(num, wpc).sum(1)
+            .reshape(blocks, wpb).sum(1)
 
     known = ~erased
-    current = per_code(known)
-    round_errors = torch.empty((num, max_iters + 1), dtype=torch.int64,
+    current = per_block(known)
+    round_errors = torch.empty((blocks, max_iters + 1), dtype=torch.int64,
                                device=erased.device)
     round_errors[:, 0] = current
-    rounds = torch.zeros(num, dtype=torch.int32, device=erased.device)
+    rounds = torch.zeros(blocks, dtype=torch.int32, device=erased.device)
     active = current > 0
     it = 0
     while it < max_iters and bool(active.any()):
         grown = known | _or_by_variable(
             var_to_chk, _check_exactly_one_plain(chk_to_var, known))
-        known = torch.where(active.repeat_interleave(wpc)[None, :], grown,
+        known = torch.where(active.repeat_interleave(wpb)[None, :], grown,
                             known)
-        new = per_code(known)
+        new = per_block(known)
         rounds += active.to(torch.int32)
         round_errors[:, it + 1] = new
         active &= (new != current) & (new > 0)
@@ -402,20 +431,23 @@ def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
 
 
 def erasure_decode(erased: torch.Tensor, chk_to_var: torch.Tensor,
-                   var_to_chk: torch.Tensor, max_iters: int):
-    """Kernel D: the whole all-zero decode of each code of a batch, one
-    block per code.  ``erased`` int32[n, W] (code g's words ``g * wpc``
-    onward), the tables ``chk_to_var`` int32[C, m, dc] and ``var_to_chk``
-    int32[C, n, dv] of one graph (an irregular code's phantom view).
+                   var_to_chk: torch.Tensor, max_iters: int,
+                   wpb: Optional[int] = None):
+    """Kernel D: the whole all-zero decode of each block of ``wpb`` words
+    (default: a code's words), one CUDA block each.  ``erased`` int32[n,
+    W] (code g's words ``g * wpc`` onward), the tables ``chk_to_var``
+    int32[C, m, dc] and ``var_to_chk`` int32[C, n, dv] of one graph (an
+    irregular code's phantom view; C = 1 for one code); ``wpb`` divides
+    ``wpc`` = W / C, and block b decodes words ``b * wpb`` onward.
 
     Returns ``(known, round_errors, rounds)``: the final known plane
-    int32[n, W], the erasures int32[C, max_iters+1] after each round (row
-    0 the channel's; after a code's stop its final count) and the rounds
-    int32[C] each code ran, by the stop rule of :func:`_run_to_fixed_point`
-    per code.  The kernel scatters each check's summary into its sockets
-    and reads no ``var_to_chk`` (the plain version does): both tables must
-    describe the same graph.  Raises when a code does not fit one block's
-    shared memory."""
+    int32[n, W], the erasures int32[W / wpb, max_iters+1] after each round
+    (row 0 the channel's; after a block's stop its final count) and the
+    rounds int32[W / wpb] each block ran, by the stop rule of
+    :func:`_run_to_fixed_point` per block.  The kernel scatters each
+    check's summary into its sockets and reads no ``var_to_chk`` (the
+    plain version does): both tables must describe the same graph.  Raises
+    when a block does not fit one block's shared memory."""
     check_int32("erased", erased, 2)
     check_int32("chk_to_var", chk_to_var, 3)
     check_int32("var_to_chk", var_to_chk, 3)
@@ -425,26 +457,31 @@ def erasure_decode(erased: torch.Tensor, chk_to_var: torch.Tensor,
     if var_to_chk.shape[:2] != (num, rows):
         raise ValueError("chk_to_var, var_to_chk and erased do not fit "
                          "together")
+    wpb = wpc if wpb is None else wpb
+    if wpb < 1 or wpc % wpb:
+        raise ValueError(f"blocks of {wpb} words do not split a code's "
+                         f"{wpc} words")
     _check_packed_batch_bits(rows, words)
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
     if not use_kernel(erased, chk_to_var, var_to_chk):
         return _erasure_decode_plain(erased, chk_to_var, var_to_chk,
-                                     max_iters)
-    need = _erasure_decode_smem_bytes(rows, checks, dc, wpc)
+                                     max_iters, wpb)
+    need = _erasure_decode_smem_bytes(rows, checks, dc, wpb)
     if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"a code needs {need} bytes of shared memory, above "
-                         f"one block's {SMEM_OPTIN_BYTES}")
-    planes = _plane_to_code_major(erased, num)
+        raise ValueError(f"a block needs {need} bytes of shared memory, "
+                         f"above one block's {SMEM_OPTIN_BYTES}")
+    blocks = words // wpb
+    planes = _plane_to_code_major(erased, blocks)
     known = torch.empty_like(planes)
-    round_errors = torch.empty((num, max_iters + 1), dtype=torch.int32,
+    round_errors = torch.empty((blocks, max_iters + 1), dtype=torch.int32,
                                device=erased.device)
-    rounds = torch.empty(num, dtype=torch.int32, device=erased.device)
+    rounds = torch.empty(blocks, dtype=torch.int32, device=erased.device)
     launch("ldpc_erasure_decode", erased.device, planes.data_ptr(),
            chk_to_var.data_ptr(), known.data_ptr(), round_errors.data_ptr(),
-           rounds.data_ptr(), num, rows, checks, dc, wpc, max_iters)
+           rounds.data_ptr(), blocks, rows, checks, dc, wpc, wpb, max_iters)
     erasure_decode.launches += 1
-    return _code_major_to_plane(known, num), round_errors, rounds
+    return _code_major_to_plane(known, blocks), round_errors, rounds
 
 
 erasure_decode.launches = 0
@@ -455,21 +492,24 @@ def _decode_allzero(code: LDPCCode, erased: torch.Tensor, max_iters: int,
                     whole: Optional[Callable] = None) -> PackedBPResult:
     """The packed all-zero decode, parametrised by its three passes and
     the whole decode ``whole`` (:func:`erasure_decode`), which runs the
-    shapes :func:`takes_erasure_decode_kernel` accepts: the batch's error
-    totals are then the sum of its per-code counts and ``iterations``
-    follows from them by the host loop's rule (module docstring), read
-    once.  The rest, and every decode without ``whole``, run the host loop
-    over the passes."""
+    shapes :func:`erasure_decode_block_words` gives a block split: the
+    error totals are then the sum of its per-block counts and
+    ``iterations`` follows from them by the host loop's rule (module
+    docstring), read once.  The rest, and every decode without ``whole``,
+    run the host loop over the passes."""
     check_int32("erased", erased, 2)
     if erased.shape[0] != code.n:
         raise ValueError(f"erased has {erased.shape[0]} rows, code n={code.n}")
     _check_packed_batch_bits(code.n, erased.shape[1])
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
-    if whole is not None and takes_erasure_decode_kernel(code,
-                                                         erased.shape[1]):
-        known, round_errors, _ = whole(
-            erased, code.chk_to_var, code.var_to_chk, max_iters)
+    wpb = erasure_decode_block_words(code, erased.shape[1]) \
+        if whole is not None else 0
+    if wpb:
+        chk, var = code.chk_to_var, code.var_to_chk
+        if chk.dim() == 2:                  # one code: a batch of one
+            chk, var = chk[None], var[None]
+        known, round_errors, _ = whole(erased, chk, var, max_iters, wpb)
         sums = round_errors.sum(0, dtype=torch.int64).tolist()
         totals, it = _run_to_fixed_point(lambda t: sums[t + 1], sums[0],
                                          max_iters)
@@ -502,12 +542,12 @@ def bp_decode_packed_allzero(code: LDPCCode, erased: torch.Tensor,
     batch of C codes (word w on code ``w // (W // C)``).
 
     ``erased`` is int32[n, W] (1 = erased), e.g. from
-    :func:`..channels.bec_packed_channel`.  On CUDA tensors a batch whose
-    codes each fit one block (:func:`takes_erasure_decode_kernel`) runs
-    kernel D, the whole decode in one launch; one code, and a batch that
-    does not fit, run the host loop over hand-written passes (K4 for the
-    initial count, K2 and K3 per round).  On CPU tensors their plain
-    versions run, by the same rule.
+    :func:`..channels.bec_packed_channel`.  On CUDA tensors the shapes
+    :func:`erasure_decode_block_words` splits into blocks (a batch whose
+    codes each fit one block, one code whose word fits one) run kernel D,
+    the whole decode in one launch; the rest run the host loop over
+    hand-written passes (K4 for the initial count, K2 and K3 per round).
+    On CPU tensors their plain versions run, by the same rule.
     """
     return _decode_allzero(code, erased, max_iters, check_exactly_one,
                            variable_or_update, per_trial_counts,

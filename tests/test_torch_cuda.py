@@ -354,6 +354,128 @@ def test_ensemble_bec_runs_take_kernel_d(cuda, family, expurgation):
         assert getattr(gpu, field) == getattr(cpu, field), field
 
 
+def _one_word_limit():
+    """The largest (3,6) n whose one word fits kernel D's block."""
+    return max(n for n in range(2, 40_000, 2)
+               if erasure_bp._erasure_decode_smem_bytes(n, n // 2, 6, 1)
+               <= erasure_bp.SMEM_OPTIN_BYTES)
+
+
+def _fixed_case(case, cuda):
+    """(the decode's code, erased planes) on the card for a one-code case:
+    the headline shape, the one-word limit and one word above it, an
+    irregular code, and a plane 8 bytes past a 16-byte boundary."""
+    if case == "irregular":
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+            10_000, [0, 1 / 3, 0, 2 / 3], [0, 0, 0, 0, 0, 1.0])
+        c = irregular.sample_irregular_codes(5, 0, 1, spec,
+                                             "repair").select(0).to(cuda)
+        return c, bitops.bernoulli_packed(0.42, (10_000, 96), seed=6,
+                                          device=cuda)
+    n, words = {"headline": (10_000, 768), "limit": (_one_word_limit(), 40),
+                "above": (_one_word_limit() + 2, 8),
+                "misaligned": (600, 33)}[case]
+    c = _code(n, seed=n).to(cuda)
+    erased = bitops.bernoulli_packed(0.42, (n, words), seed=7, device=cuda)
+    if case == "misaligned":
+        base = torch.zeros(n * words + 2, dtype=torch.int32, device=cuda)
+        erased = base[2:].view(n, words).copy_(erased)
+    return c, erased
+
+
+@pytest.mark.parametrize("case", ["headline", "limit", "irregular",
+                                  "misaligned", "above"])
+@pytest.mark.parametrize("max_iters", [0, 1, 50])
+def test_fixed_decode_takes_kernel_d_by_rule(cuda, case, max_iters):
+    # one code: kernel D one block a word where the word fits a block,
+    # else the K2/K3 host loop; either way equal to the plain path and to
+    # the K2/K3 kernels' host loop
+    c, erased = _fixed_case(case, cuda)
+    irr = case == "irregular"
+    view = erasure_bp._phantom_view(c) if irr else c
+    planes = erasure_bp._pad_phantom_row(erased) if irr else erased
+    takes = case != "above"
+    assert erasure_bp.takes_erasure_decode_kernel(view, planes.shape[1]) \
+        is takes
+    wrappers = (erasure_bp.erasure_decode, erasure_bp.check_exactly_one,
+                erasure_bp.variable_or_update)
+    before = [w.launches for w in wrappers]
+    got = erasure_bp.bp_decode_packed_allzero(view, planes, max_iters)
+    torch.cuda.synchronize()
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    if takes:
+        assert launched == [1, 0, 0]
+    else:
+        assert launched[0] == 0 and launched[1] == launched[2] == \
+            got.iterations
+    rounds = erasure_bp._decode_allzero(
+        view, planes, max_iters, erasure_bp.check_exactly_one,
+        erasure_bp.variable_or_update, bitops.per_trial_counts)
+    plain = erasure_bp.bp_decode_packed_allzero_plain(view, planes,
+                                                      max_iters)
+    for want in (rounds, plain):
+        assert torch.equal(got.known, want.known)
+        assert torch.equal(got.error_totals, want.error_totals)
+        assert got.iterations == want.iterations
+
+
+def test_fixed_run_takes_kernel_d(cuda):
+    # the mode-3 BEC run launches kernel D once a chunk and K2/K3 never,
+    # and equals the CPU's run in every counter
+    cfg = SimulationConfig(channel_param=0.42, n=504, code_mode="fixed",
+                           iterations=40, batch=640, num_tests=1920, seed=4,
+                           max_block_errors=10**9)
+    code = _code(504, seed=2)
+    wrappers = (erasure_bp.erasure_decode, erasure_bp.check_exactly_one,
+                erasure_bp.variable_or_update)
+    before = [w.launches for w in wrappers]
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3, 0, 0]
+    cpu = mc.run_simulation(cfg, code, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "bit_errors_sq", "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+@pytest.mark.parametrize("family, dv", [("regular", 3), ("dv5", 5),
+                                        ("irregular", 4)])
+@pytest.mark.parametrize("words, align, vec", [(768, 16, 4), (48, 16, 4),
+                                               (48, 8, 1), (33, 16, 1),
+                                               (1, 16, 1)])
+def test_variable_or_update_kernel_widths(cuda, family, dv, words, align,
+                                          vec):
+    # K3 at N = 4 (16 bytes) and N = 1, at the exact degree 3 and in the
+    # socket loop (dv 5, the irregular phantom view's dv_max 4), on a state
+    # two rounds into a decode, against its plain version
+    n = 1200
+    if family == "irregular":
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+            n, [0, 1 / 3, 0, 2 / 3], [0, 0, 0, 0, 0, 1.0])
+        c = erasure_bp._phantom_view(irregular.sample_irregular_codes(
+            3, 0, 1, spec, "repair").select(0))
+    elif family == "dv5":
+        c = ensemble.sample_codes(3, 0, 1, n, 5, 10, "repair").select(0)
+    else:
+        c = _code(n, seed=5)
+    assert c.var_to_chk.shape[-1] == dv
+    rows = c.var_to_chk.shape[-2]
+    erased = bitops.bernoulli_packed(0.42, (rows, words), seed=words)
+    known = erasure_bp.bp_decode_packed_allzero_plain(c, erased, 2).known
+    ex = erasure_bp.check_exactly_one(c.chk_to_var, known)
+    want_known, want_errors = known.clone(), torch.zeros(3, dtype=torch.int32)
+    erasure_bp.variable_or_update(c.var_to_chk, ex, want_known, want_errors,
+                                  1)
+    off = (16 - align) // 4
+    base = torch.zeros(rows * words + off, dtype=torch.int32, device=cuda)
+    got_known = base[off:].view(rows, words).copy_(known)
+    got_errors = torch.zeros(3, dtype=torch.int32, device=cuda)
+    erasure_bp.variable_or_update(c.var_to_chk.to(cuda), ex.to(cuda),
+                                  got_known, got_errors, 1)
+    assert erasure_bp.variable_or_update.vec == vec
+    assert torch.equal(got_known.cpu(), want_known)
+    assert torch.equal(got_errors.cpu(), want_errors)
+
+
 # ---------------------------------------------------------------------------
 # Irregular codes and Gallager-A/B
 # ---------------------------------------------------------------------------

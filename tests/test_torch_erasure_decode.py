@@ -170,10 +170,11 @@ def _shape_code(num, n, dv, dc, irregular=False):
     (256, 1024, 3, 6, False, 256, True),       # the n = 1024 anchors
     (16, 1024, 3, 6, False, 64, True),         # 4 words a code
     (1, 1024, 3, 6, False, 4, True),           # a batch of one code
-    # phase 9's wpc-24 batch and the fixed code at 768 words keep K2/K3
+    # phase 9's wpc-24 batch keeps K2/K3
     (32, 10_000, 3, 6, False, 768, False),
-    (0, 10_000, 3, 6, False, 768, False),      # one code (no [C] axis)
-    (0, 1024, 3, 6, False, 1, False),
+    # one code (no [C] axis): one block a word, the fixed path at 768 words
+    (0, 10_000, 3, 6, False, 768, True),
+    (0, 1024, 3, 6, False, 1, True),
     # too large for one block at one word a code
     (8, 16_384, 3, 6, False, 8, False),
     # words that do not split over the codes: K2 raises
@@ -181,10 +182,13 @@ def _shape_code(num, n, dv, dc, irregular=False):
 def test_rule(num, n, dv, dc, irregular, words, takes):
     code = _shape_code(num, n, dv, dc, irregular)
     assert eb.takes_erasure_decode_kernel(code, words) is takes
-    if num and words % num == 0:
+    if not num or words % num == 0:
+        wpb = words // num if num else 1
         need = eb._erasure_decode_smem_bytes(
-            code.n, code.chk_to_var.shape[1], dc, words // num)
+            code.n, code.chk_to_var.shape[-2], dc, wpb)
         assert (need <= eb.SMEM_OPTIN_BYTES) is takes
+        assert eb.erasure_decode_block_words(code, words) == \
+            (wpb if takes else 0)
 
 
 def test_rule_at_the_edge_of_shared_memory():
@@ -202,7 +206,8 @@ def test_rule_at_the_edge_of_shared_memory():
 
 def test_rule_on_the_paths(monkeypatch):
     # which decodes reach kernel D's wrapper: the ensemble chunk (twice
-    # when expurgated), not a fixed code, a QC code or the plain decode
+    # when expurgated) and a fixed code (one block a word), not a QC code
+    # or the plain decode
     calls = []
     real = eb.erasure_decode
 
@@ -218,18 +223,19 @@ def test_rule_on_the_paths(monkeypatch):
     mc._bp_chunk(codes, erased, iterations=20, expurgation=1)
     assert len(calls) == 3
     mc._bp_chunk(codes.select(0), erased, iterations=20, expurgation=None)
+    assert len(calls) == 4
     qc_code = qc.sample_qc_code(torch.Generator().manual_seed(0), nb=12,
                                 dv=3, dc=6, Z=10)
     mc._bp_chunk(qc_code, bitops.bernoulli_packed(0.4, (qc_code.n, 1),
                                                   seed=2),
                  iterations=20, expurgation=None)
     eb.bp_decode_packed_allzero_plain(codes, erased, 20)
-    assert len(calls) == 3
+    assert len(calls) == 4
     # a batch of codes too large for one block runs K2/K3
     wide = erased.repeat(1, 300)                 # 300 words a code
     assert not eb.takes_erasure_decode_kernel(codes, wide.shape[1])
     eb.bp_decode_packed_allzero(codes, wide, 5)
-    assert len(calls) == 3
+    assert len(calls) == 4
 
 
 def test_contract_errors():
