@@ -84,13 +84,15 @@ sequential peeling decoder: the QC soft posterior and check kernels (S1,
 S2) against their plain versions in all five (method, type)
 instantiations on the nb = 12 (3,6) base at n = 10,008 (24,576 trials) and
 n = 1,000,008 (1,536) and on the irregular nb = 24 base, and the peel
-kernel (P1) against its plain version on 400 fresh codes of n = 16,384,
-regular and irregular; whole int8 decodes against the plain path and
-kernels B and C on ``expand()``, S2's int8 instantiation also on planes
-drawn from {-128, -127, -1, 0, 1, 127} (saturation and ties), with its
-registers, stack frame, spills and SASS instruction count read from the
-built library and its rate on the bytes it really moves (pm once per
-check socket, messages in and out); GPU runs against CPU runs, every peel's
+kernel (P1) in each of its forms against its plain version on 400 fresh
+(3,6) codes of n = 16,384 and 100 irregular ones (the form the shape rule
+launched, device ms and ms a step per form); whole int8 decodes against
+the plain path and kernels B and C on ``expand()``, S2's int8
+instantiation also on planes drawn from {-128, -127, -1, 0, 1, 127}
+(saturation and ties), with its registers, stack frame, spills and SASS
+instruction count read from the built library and its rate on the bytes it
+really moves (pm once per check socket, messages in and out); GPU runs
+against CPU runs, every peel's
 final set against the batched BP fixed point and the parallel peel against
 its plain version; the int8 min-sum path (AWGN sigma = 0.841 and BSC
 p = 0.04) with S1 and S2 launches equal to the rounds run and counters
@@ -155,7 +157,8 @@ every path of phases 16 and 21.  Kernels G's and D's bounds are their
 shared-memory accesses for the rounds their codes ran, over 132 SMs x 32
 a clock at 1.98 GHz, or their device-memory bytes.
 
-Any failed check raises, and the script exits non-zero without printing a
+Every phase prints its wall time when the next one starts.  Any failed
+check raises, and the script exits non-zero without printing a
 result.  On success the last three lines are the card's name and power
 limit, the per-kernel JSON line, and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it exits non-zero.
@@ -209,6 +212,7 @@ QC_NB_IRR, QC_Z_IRR = 24, 417
 # trials; the peeling R-process at docs/VALIDATION.md's point
 SIGMA_QC = 0.841
 PEEL_N, PEEL_EPS, PEEL_REPEATS, PEEL_REPEATS_BIG = 16_384, 0.42, 400, 4000
+PEEL_CODES_IRR = 100            # the irregular family's P1 check (phase 33)
 # the largest (3,6) n whose 3n sockets the samplers keep in shared memory
 # (models/ensemble.py SHARED_PERM_MAX_SOCKETS); n + 2 takes the global path
 EDGE_SHARED_N = 18_666
@@ -232,8 +236,19 @@ INT8_TENSOR_OPS_S = 1979e12     # dense int8 on the tensor cores
 PHILOX_OPS = 100                # 10 rounds of 4 multiplies, 4 XORs, 2 adds
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASE = {"name": None, "start": 0.0}
+
+
+def phase(name) -> None:
+    """Start phase ``name`` (None: end the last one), printing the wall
+    time of the phase before it."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"== phase {_PHASE['name'].split()[0]} wall time "
+              f"{now - _PHASE['start']:.1f} s", flush=True)
+    _PHASE.update(name=name, start=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3478,8 +3493,9 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     # -- 33 -------------------------------------------------------------------
     phase("33 S1 and S2 against their plain versions in all five "
           "instantiations (n=10,008 / 1,000,008 / irregular nb=24); P1 "
-          f"against its plain version at n={PEEL_N} on {PEEL_REPEATS} fresh "
-          "codes")
+          f"(every form) against its plain version at n={PEEL_N} on "
+          f"{PEEL_REPEATS} fresh codes, the irregular family on "
+          f"{PEEL_CODES_IRR}")
     err = {names[0]: 0.0, names[1]: 0.0}
     single = {}
     g = torch.Generator(device=dev).manual_seed(5)
@@ -3625,39 +3641,63 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
     spec = irregular.IrregularEnsembleSpec.from_lam_rho(PEEL_N, LAM_BEC, RHO6,
                                                         device=dev)
     peel_cases = {}
+    p1 = {}
     for fam in ("regular", "irregular"):
-        codes = ensemble.sample_codes(7, 0, PEEL_REPEATS, PEEL_N, DV, DC,
+        trials = PEEL_REPEATS if fam == "regular" else PEEL_CODES_IRR
+        codes = ensemble.sample_codes(7, 0, trials, PEEL_N, DV, DC,
                                       device=dev) if fam == "regular" else \
-            irregular.sample_irregular_codes(7, 0, PEEL_REPEATS, spec,
-                                             device=dev)
+            irregular.sample_irregular_codes(7, 0, trials, spec, device=dev)
         erased = bitops.unpack_bits(bitops.bernoulli_packed(
-            PEEL_EPS, (PEEL_REPEATS, (PEEL_N + 31) // 32), seed=7,
+            PEEL_EPS, (trials, (PEEL_N + 31) // 32), seed=7,
             device=dev))[:, :PEEL_N].contiguous()
         rx = torch.where(erased, 2, 0)
         got = peeling.peel_decode_batch(codes, rx, seed=7)
+        ruled = peeling.peel_sequential.form
+        chk, var, n, m = peeling._tables(codes)
+        check(ruled == peeling.peel_form(n, m, chk.shape[-1], var.shape[-1])
+              and ruled == "xor", f"P1 ({fam}): the rule launched {ruled}")
+        # the plain version once, timed: plain_ms (regular)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = peeling.peel_decode_batch_plain(codes, rx, seed=7)
         torch.cuda.synchronize()
-        for f in ("unresolved", "one_degree_evolution", "steps",
-                  "num_erasures"):
-            check(torch.equal(getattr(got, f), getattr(want, f)),
-                  f"P1 ({fam}): {f} differs from its plain version")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        peels = int((got.one_degree_evolution > 0).sum(1).max())
+        forms = {}
+        for form in peeling.PEEL_FORMS:
+            launched = peeling.peel_sequential(chk, var, erased, n, m, 7, n,
+                                               form=form)
+            torch.cuda.synchronize()
+            for f, a, b in zip(("unresolved", "one_degree_evolution",
+                                "steps", "num_erasures"), launched, (
+                    want.unresolved, want.one_degree_evolution, want.steps,
+                    want.num_erasures)):
+                check(torch.equal(a, b), f"P1 {form} ({fam}): {f} differs "
+                      "from its plain version")
+            dms = device_ms(lambda form=form: peeling.peel_sequential(
+                chk, var, erased, n, m, 7, n, form=form), "peel", reps=3)
+            forms[form] = dict(device_ms=dms, ms_a_step=dms / peels)
         peel_cases[fam] = (codes, erased, rx, got)
-        print(f"P1 equal to plain ({fam}): {PEEL_REPEATS} codes of n="
-              f"{PEEL_N}, {int(got.steps.sum())} peels, "
-              f"{int((~got.success).sum())} failures", flush=True)
-    codes, erased, rx, got = peel_cases["regular"]
-    chk, var, n, m = peeling._tables(codes)
-    p1 = dict(
-        ms=time_ms(lambda: peeling.peel_decode_batch(codes, rx, seed=7),
-                   reps=3),
-        plain_ms=time_ms(lambda: peeling.peel_decode_batch_plain(
-            codes, rx, seed=7), reps=1, warmup=False),
-        **bound(nbytes(chk, var, erased, got.unresolved,
-                       got.one_degree_evolution, got.steps,
-                       got.num_erasures)))
-    p1["bound_note"] = ("bytes: tables read once, evolution written once; "
-                        f"a chain of {int(got.steps.max())} dependent steps "
-                        "per trial bounds it far above")
+        print(f"P1 equal to plain ({fam}), every form: {trials} codes of n="
+              f"{PEEL_N}, {int(got.steps.sum())} peels (longest {peels}), "
+              f"{int((~got.success).sum())} failures; the rule launched "
+              f"{ruled}; device ms (ms a step) {json.dumps(forms)}; plain "
+              f"{plain_ms:.0f} ms", flush=True)
+        if fam == "regular":
+            p1 = dict(
+                ms=time_ms(lambda: peeling.peel_decode_batch(codes, rx,
+                                                             seed=7), reps=3),
+                plain_ms=plain_ms, form=ruled, longest_peels=peels,
+                forms=forms,
+                **bound(nbytes(chk, var, erased, got.unresolved,
+                               got.one_degree_evolution, got.steps,
+                               got.num_erasures)))
+            p1["ms_a_step"] = p1["ms"] / peels
+            p1["bound_note"] = (
+                "bytes: tables read once, evolution written once; a chain "
+                f"of {peels} dependent steps per trial bounds it far above")
+        else:
+            p1["irregular"] = dict(codes=trials, form=ruled, forms=forms)
     measured[names[2]].update(max_abs_err=0, library_ms=None, **p1)
     print(f"P1 at {PEEL_REPEATS} codes: {json.dumps(p1)}", flush=True)
 
@@ -3721,7 +3761,7 @@ def qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root) -> dict:
         bp = decode(codes, plane, PEEL_N)
         check(torch.equal((bp.known & 1).t() == 0, got.unresolved),
               f"peel ({fam}): a final set differs from BP's fixed point")
-        print(f"peel ({fam}): all {PEEL_REPEATS} final sets == the batched "
+        print(f"peel ({fam}): all {len(got.steps)} final sets == the batched "
               f"BP fixed point ({bp.iterations} rounds)", flush=True)
     codes, erased, rx, got = peel_cases["regular"]
     par, rounds = peeling.peel_decode_parallel(codes.select(0), rx[0])
@@ -5182,6 +5222,7 @@ def main() -> int:
     qc_soft_peel_paths(dev, smi, measured, kernels, scratch_root)
     t_slice7 = time.perf_counter() - t_start
     edge_paths(dev, smi, measured, kernels, scratch_root)
+    phase(None)
     print(f"wall time: phases 1-12 {t_slice2:.1f} s, phases 13-17 "
           f"{t_slice3 - t_slice2:.1f} s, phases 18-22 "
           f"{t_slice4 - t_slice3:.1f} s, phases 23-27 "

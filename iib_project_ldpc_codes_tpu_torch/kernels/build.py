@@ -79,7 +79,7 @@ SIGNATURES = {
     "ldpc_qc_soft_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _F, _P),
     "ldpc_peel_sequential": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _U, _U, _P),
+                             _I, _I, _U, _U, _I, _P),
     "ldpc_edge_candidates": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ldpc_or_reduce_update": (_P, _P, _P, _I, _LL, _P),
 }

@@ -10,11 +10,18 @@ The decoder fails when the degree-1 checks run out with erasures left.
 
 The sequential peel is a chain of dependent steps (the statistic of
 interest IS the one-at-a-time trajectory), so its parallelism is across
-trials: :func:`peel_sequential` (P1, ``csrc/peel_sequential.cu``) runs one
-warp a trial, its residual degrees and bitmaps in shared memory, O(E) a
-trial, for a batch of T trials on one code or on T codes (the experiment's
-fresh code per repeat) in one launch; its plain version does the same steps
-vectorised over the trials.  :func:`peel_decode`,
+trials and a step's latency bounds its time (the bytes, tables read once
+and the evolution written once, take far less): :func:`peel_sequential`
+(P1, ``csrc/peel_sequential.cu``) runs one warp a trial, for a batch of T
+trials on one code or on T codes (the experiment's fresh code per repeat)
+in one launch, in one of two forms that :func:`peel_form` picks by shape
+alone.  "xor" keeps, per check in shared memory, the residual degree and
+the XOR over its unresolved sockets of the variable and of the variable's
+other checks (cyclic row offsets), so at degree 1 they name the variable
+and its checks and no device-memory load sits on a step's chain; "row"
+(n above 16-bit indices, e.g. 300,000) reads the chosen row and the
+variable's row from device memory each step.  The plain version does
+the same steps vectorised over the trials.  :func:`peel_decode`,
 :func:`peel_decode_irregular` and :func:`peel_decode_batch` are JAX's entry
 points on it, each with a ``_plain`` twin.
 
@@ -61,6 +68,11 @@ PEEL_KEY_TAG = 0xA54FF53A      # XORed into key word 0 of the peel's choices
 MAX_DEGREE = 32
 #: the shared memory one block may hold (H100: 227 KB)
 MAX_SHARED_BYTES = 232_448
+#: the "xor" form's limits: a variable, and a check + 1, in a 16-bit
+#: accumulator; residual degrees in 4 bits; a variable's checks in registers
+XOR_MAX_N, XOR_MAX_M, XOR_MAX_DC, XOR_MAX_DV = 65_535, 65_535, 15, 8
+#: P1's forms, as the C entry point numbers them
+PEEL_FORMS = ("row", "xor")
 _DRAW_BLOCK = 256              # steps of Philox draws made at once (plain)
 
 
@@ -173,15 +185,49 @@ def _peel_sequential_plain(chk, var, erased, n: int, m: int, seed: int,
         num_erasures
 
 
+def peel_xor_layout(m: int, dv: int) -> dict:
+    """The "xor" form's shared memory in 32-bit words, as
+    ``csrc/peel_sequential.cu::xor_layout`` lays it out: the degree-1
+    bitmap in 32 runs of ``per`` words (a power of two, at least 4: a
+    lane's run, read 16 bytes at a time), the 4-bit degrees (``mx`` = m
+    rounded up to 8), ``dv`` accumulator planes of ``stride`` words (two
+    16-bit accumulators a word) and the erasure count."""
+    runs = ((m + 31) // 32 + 31) // 32      # bitmap words a lane needs
+    shift = 2
+    while (1 << shift) < runs:
+        shift += 1
+    mx = (m + 7) & ~7
+    stride = mx // 2 + 1
+    words = 32 * (1 << shift) + mx // 8 + dv * stride + 1
+    return dict(per=1 << shift, shift=shift, mx=mx, stride=stride,
+                words=words, bytes=4 * words)
+
+
+def peel_form(n: int, m: int, dc: int, dv: int) -> str:
+    """The P1 form for a code of n variables, m checks and tables of
+    widths dc and dv, by shape alone: "xor" where its 16-bit accumulators,
+    4-bit degrees, registers and shared memory fit (n and m up to 65,535,
+    dc up to 15, dv up to 8, :func:`peel_xor_layout` within one block),
+    else "row"."""
+    if n <= XOR_MAX_N and m <= XOR_MAX_M and dc <= XOR_MAX_DC and \
+            dv <= XOR_MAX_DV and \
+            peel_xor_layout(m, dv)["bytes"] <= MAX_SHARED_BYTES:
+        return "xor"
+    return "row"
+
+
 def peel_sequential(chk: torch.Tensor, var: torch.Tensor,
                     erased: torch.Tensor, n: int, m: int, seed: int,
-                    max_steps: int):
+                    max_steps: int, form: Optional[str] = None):
     """The sequential peel of T trials: ``chk`` int32[(T,) m, dc] and
     ``var`` int32[(T,) n, dv] (one code, or one a trial; entries >= n and
     >= m are padding), ``erased`` bool[T, n].  Returns ``(unresolved
     bool[T, n], evolution int32[T, max_steps+1], steps int32[T],
     num_erasures int32[T])`` in JAX's format (module docstring).  On CUDA
-    tensors one launch of P1; on CPU tensors the plain version."""
+    tensors one launch of P1 in ``form`` (default :func:`peel_form`'s; a
+    form the shape does not fit raises), kept as ``peel_sequential.form``;
+    "xor" reads only ``var``, so both tables must describe one graph, as
+    the samplers' do.  On CPU tensors the plain version."""
     check_int32("chk", chk, chk.dim())
     check_int32("var", var, var.dim())
     if erased.dtype != torch.bool or erased.dim() != 2 or \
@@ -196,6 +242,8 @@ def peel_sequential(chk: torch.Tensor, var: torch.Tensor,
                          f"do not fit {trials} trials of n={n}, m={m}")
     if max_steps < 0:
         raise ValueError("max_steps must be >= 0")
+    if form is not None and form not in PEEL_FORMS:
+        raise ValueError(f"form must be one of {PEEL_FORMS}, got {form!r}")
     if not use_kernel(chk, var, erased):
         return _peel_sequential_plain(chk, var, erased, n, m, seed,
                                       max_steps)
@@ -203,8 +251,13 @@ def peel_sequential(chk: torch.Tensor, var: torch.Tensor,
     if dc > MAX_DEGREE or dv > MAX_DEGREE:
         raise ValueError(f"degrees ({dv}, {dc}) above the kernel's "
                          f"{MAX_DEGREE}")
+    fits = peel_form(n, m, dc, dv)
+    form = form or fits
+    if form == "xor" and fits != "xor":
+        raise ValueError(f"the xor form does not take n={n}, m={m}, "
+                         f"dc={dc}, dv={dv}")
     smem = 4 * ((m + 31) // 32 + (n + 31) // 32) + m
-    if smem > MAX_SHARED_BYTES:
+    if form == "row" and smem > MAX_SHARED_BYTES:
         raise ValueError(f"n={n}, m={m} needs {smem} bytes of shared memory, "
                          f"above {MAX_SHARED_BYTES}")
     device = erased.device
@@ -217,12 +270,15 @@ def peel_sequential(chk: torch.Tensor, var: torch.Tensor,
     launch("ldpc_peel_sequential", device, chk.data_ptr(), var.data_ptr(),
            erased.data_ptr(), unresolved.data_ptr(), evolution.data_ptr(),
            steps.data_ptr(), num_erasures.data_ptr(), trials, n, m, dc, dv,
-           int(batched), max_steps, key0 & MASK32, key1 & MASK32)
+           int(batched), max_steps, key0 & MASK32, key1 & MASK32,
+           PEEL_FORMS.index(form))
     peel_sequential.launches += 1
+    peel_sequential.form = form
     return unresolved, evolution, steps, num_erasures
 
 
 peel_sequential.launches = 0
+peel_sequential.form = None
 
 
 # ---------------------------------------------------------------------------

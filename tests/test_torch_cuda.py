@@ -1962,10 +1962,110 @@ def test_peel_kernel_above_48kb_of_shared_memory(cuda):
     rx = torch.where(bitops.unpack_bits(bitops.bernoulli_packed(
         0.01, (2, 300_000 // 32), seed=1, device=cuda)), 2, 0)
     got = peeling.peel_decode_batch(code, rx, seed=2)
+    assert peeling.peel_sequential.form == "row"
     want = peeling.peel_decode_batch_plain(code, rx, seed=2)
     for f in ("unresolved", "one_degree_evolution", "steps", "num_erasures"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert bool(got.success.all())
+    chk, var, n, m = peeling._tables(code)
+    with pytest.raises(ValueError, match="xor form does not take"):
+        peeling.peel_sequential(chk, var, (rx == 2).contiguous(), n, m, 2,
+                                n, form="xor")
+
+
+PEEL_FIELDS = ("unresolved", "one_degree_evolution", "steps", "num_erasures")
+LAM6 = [0, 0.5, 0, 0, 0, 0.5]                # dv_max 6: the generic width
+
+
+def _peel_forms_against_plain(codes, erased, seed, max_steps):
+    """Both P1 forms against the plain version on the card's tensors;
+    returns the form the rule launched."""
+    chk, var, n, m = peeling._tables(codes)
+    want = peeling._peel_sequential_plain(chk, var, erased, n, m, seed,
+                                          max_steps)
+    peeling.peel_sequential(chk, var, erased, n, m, seed, max_steps)
+    ruled = peeling.peel_sequential.form
+    assert ruled == peeling.peel_form(n, m, chk.shape[-1], var.shape[-1])
+    for form in peeling.PEEL_FORMS:
+        before = peeling.peel_sequential.launches
+        got = peeling.peel_sequential(chk, var, erased, n, m, seed,
+                                      max_steps, form=form)
+        torch.cuda.synchronize()
+        assert peeling.peel_sequential.launches == before + 1
+        assert peeling.peel_sequential.form == form
+        for f, a, b in zip(PEEL_FIELDS, got, want):
+            assert torch.equal(a, b), (form, f)
+    return ruled
+
+
+@pytest.mark.parametrize("family, n, trials, batched", [
+    ("regular", 96, 5, False), ("regular", 600, 33, True),
+    ("irregular", 600, 37, False), ("irregular", 2048, 8, True),
+    ("irregular6", 600, 9, True),            # dv_max 6: the generic width
+    ("regular24", 12_000, 6, True),          # dv 2, 8 bitmap words a lane
+    ("regular", 9_000, 4, True),             # m = 4,500: 8 words a lane
+])
+@pytest.mark.parametrize("max_steps", [None, 0, 7])
+def test_peel_forms_equal_plain(cuda, family, n, trials, batched,
+                                max_steps):
+    if family == "regular":
+        codes = ensemble.sample_codes(n, 0, trials if batched else 1, n, 3,
+                                      6, device=cuda)
+    elif family == "regular24":
+        codes = ensemble.sample_codes(n, 0, trials, n, 2, 4, device=cuda)
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(
+            n, LAM if family == "irregular" else LAM6, RHO, device=cuda)
+        codes = irregular.sample_irregular_codes(
+            n, 0, trials if batched else 1, spec, device=cuda)
+    codes = codes if batched else codes.select(0)
+    rng = np.random.default_rng(n)
+    erased = torch.from_numpy(rng.random((trials, n)) < 0.45).to(cuda)
+    erased[0] = False                         # a trial with no erasure
+    ruled = _peel_forms_against_plain(codes, erased, 5,
+                                      n if max_steps is None else max_steps)
+    assert ruled == "xor"
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_peel_forms_on_multi_edge_codes(cuda, seed):
+    """Unrepaired socket permutations: some variables meet a check twice
+    (two sockets of one check on the update's lanes)."""
+    n, dv, dc = 600, 3, 6
+    m = n * dv // dc
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n * dv)
+    var = torch.from_numpy((perm // dc).reshape(n, dv)).to(torch.int32)
+    chk = np.zeros(m * dc, np.int64)
+    chk[perm] = np.repeat(np.arange(n), dv)
+    chk = torch.from_numpy(chk.reshape(m, dc)).to(torch.int32)
+    assert any(len(set(r.tolist())) < dv for r in var)
+    erased = torch.from_numpy(rng.random((40, n)) < 0.45)
+    want = peeling._peel_sequential_plain(chk, var, erased, n, m, seed, n)
+    for form in peeling.PEEL_FORMS:
+        got = peeling.peel_sequential(chk.to(cuda), var.to(cuda),
+                                      erased.to(cuda), n, m, seed, n,
+                                      form=form)
+        for f, a, b in zip(PEEL_FIELDS, got, want):
+            assert torch.equal(a.cpu(), b), (form, f)
+
+
+@pytest.mark.parametrize("family, trials", [("regular", 400),
+                                            ("irregular", 100)])
+def test_peel_forms_at_the_experiment_shape(cuda, family, trials):
+    """chip_smoke.py phase 33's shape: fresh codes of n = 16,384 at eps =
+    0.42, one trial each; the rule launches "xor"."""
+    n = 16_384
+    if family == "regular":
+        codes = ensemble.sample_codes(7, 0, trials, n, 3, 6, device=cuda)
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, LAM, RHO,
+                                                            device=cuda)
+        codes = irregular.sample_irregular_codes(7, 0, trials, spec,
+                                                 device=cuda)
+    erased = bitops.unpack_bits(bitops.bernoulli_packed(
+        0.42, (trials, n // 32), seed=7, device=cuda)).contiguous()
+    assert _peel_forms_against_plain(codes, erased, 7, n) == "xor"
 
 
 @pytest.mark.parametrize("eps", [0.3, 0.42, 0.5])
