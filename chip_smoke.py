@@ -44,10 +44,15 @@ Phase 33 also reads the registers, stack frame and spills of every
 instantiation of kernel C from the built library.
 
 Phases 23-27 do the same for random-codeword transmit (``transmit=
-"random"``): kernel E (the systematic encoder) and the two value-plane
-round kernels against their plain versions, kernels A, B and the Gallager
-variable kernel with a codeword plane, every encoded word checked against
-H, whole value-plane decodes against the plain path, GPU runs against CPU
+"random"``): kernel E (the systematic encoder), the two value-plane
+round kernels and kernel D's value form (the whole decode, a block a word
+of one code or a block a code, with codewords and with random planes that
+are not, regular and irregular; two cases also against the CPU) against
+their plain versions, kernels A, B and the Gallager variable kernel with a
+codeword plane, every encoded word checked against H, whole value-plane
+decodes against the plain path with their route (D's value form for one
+code at n = 10^4, the round kernels for the ensemble's 24 words a code),
+GPU runs against CPU
 runs, the random paths through the CLI (the fixed (3,6) BEC and Gallager-A
 and irregular BEC paths at n = 10^4, AWGN sum-product and BSC bf16 min-sum
 at n = 8192, and the ensemble BEC and AWGN min-sum paths at the JAX
@@ -55,9 +60,13 @@ package's validation scale, n = 2048, 32 codes of 768 trials a chunk, with
 an encoder derived per code and chunk), each held to its zero-transmit run
 at the same seed, and their timing: kernel E beside its bound (the least
 over a walk of the set map bits, the method of Four Russians and the
-tensor-core product) and a library matmul, chunks against the zero-transmit chunks, and the encoder
-derivation at n = 10^4 and per ensemble chunk.  For kernel E and the two
-value kernels ``launches`` counts the fixed random BEC path.
+tensor-core product) and a library matmul, the value decode by D's value
+form beside the host loop over the round kernels it replaced (in turns),
+D's value form beside its shared-memory bound and its registers, chunks
+against the zero-transmit chunks, and the encoder derivation at n = 10^4
+and per ensemble chunk.  For kernel E and D's value form ``launches``
+counts the fixed random BEC path (the CLI's two chunks), for the two
+value-round kernels the ensemble random BEC path.
 
 Phases 28-32 do the same for quasi-cyclic (QC) codes, whose entry point is
 ``run_simulation(cfg, code=qc)``: the four circulant-index kernels (the BEC
@@ -139,7 +148,9 @@ and 1 rounds and on a batch whose last code to move reaches zero beside a
 stuck one; phases 6, 11 and 16 assert that the BEC paths at n = 10^4
 launch D (once a decode) and never K2/K3; phase 7 times the headline
 decode by D beside the K2/K3 decode and the plain one; phase 12 times D
-beside the K2/K3 decode it replaced and profiles the ensemble chunk.
+beside the K2/K3 decode it replaced and profiles the ensemble chunk.  Its
+value form (``erasure_decode_values``) runs the random-transmit decodes
+whose blocks fit (phases 23-27).
 
 K2 and K3 are held and timed at the fixed-code shape of phase 4 (one
 code, 768 words; K3's device time again at n = 10^6, W = 48, in phase 39),
@@ -167,6 +178,7 @@ Without CUDA, or without the package beside it, it exits non-zero.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import math
 import os
@@ -320,6 +332,14 @@ def rounds_model(seed: int, chunk: int, num: int, sockets: int):
     from iib_project_ldpc_codes_tpu_torch.models import ensemble
 
     return ensemble.first_shuffle_rounds(seed, chunk, num, sockets)
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes, to compare runs and trees."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def max_abs_err(a, b) -> int:
@@ -492,6 +512,34 @@ def erasure_decode_smem_accesses(chk_to_var, rows: int, rounds,
     per_round = (checks * dc + checks) * wpc
     return int(chk_to_var.shape[0] * (2 * rows * wpc + checks * dc)
                + rounds.to(torch.int64).sum() * per_round)
+
+
+def value_decode_smem_accesses(c, erased, tx, rounds) -> int:
+    """The least shared-memory accesses (4 bytes each) of kernel D's value
+    form on one code ``c``, a block a word, for the rounds ``rounds``
+    int[W] its blocks ran: the all-zero form's
+    (:func:`erasure_decode_smem_accesses`), the val plane written at
+    set-up, and in each round the dc val words read for each check word
+    whose exactly-one word is nonzero.  Those words are counted on the
+    plain passes' host loop, which computes what the blocks compute: a
+    block frozen at its fixed point has no such word."""
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
+
+    taught = [0]
+
+    def counting_check(chk, known, val):
+        ex, adopt = erasure_bp._check_exactly_one_xor_plain(chk, known, val)
+        taught[0] += int((ex != 0).sum())
+        return ex, adopt
+
+    erasure_bp._decode_values(
+        c, erased, tx, int(rounds.max()),
+        (counting_check, erasure_bp._variable_or_adopt_plain,
+         bitops._per_trial_counts_plain), False)
+    rows, words = erased.shape
+    return erasure_decode_smem_accesses(
+        c.chk_to_var.expand(words, -1, -1), rows, rounds, 1) \
+        + rows * words + c.chk_to_var.shape[-1] * taught[0]
 
 
 def erasure_decode_phase(dev, batch_codes, erased, kernels) -> dict:
@@ -1761,9 +1809,10 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
             (False, dict(channel="AWGN", decoder="sumproduct",
                          channel_param=SIGMA_SP, lam=LAM_BEC, rho=RHO6,
                          code_mode="ensemble"))):
+        # one chunk a configuration: the CPU references set the phase's time
         cfg = SimulationConfig(**{
             "n": 1024, "iterations": ITERS, "batch": 2048,
-            "num_tests": 2 * 2048, "seed": 7, "codes_per_chunk": 64,
+            "num_tests": 2048, "seed": 7, "codes_per_chunk": 64,
             "max_block_errors": 10**9, **fields})
         code = ensemble.code_for_config(cfg) \
             if cfg.code_mode == "fixed" else None
@@ -2025,7 +2074,8 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
     ulp (as phase 18) and kernel B exactly."""
     import torch
 
-    from iib_project_ldpc_codes_tpu_torch.models import encode, ensemble
+    from iib_project_ldpc_codes_tpu_torch.models import (encode, ensemble,
+                                                         irregular)
     from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
                                                       erasure_bp, gallager,
                                                       soft_bp)
@@ -2049,9 +2099,9 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
         return out, time.perf_counter() - t0
 
     # -- 23 -------------------------------------------------------------------
-    phase("23 kernel E and the value-round kernels against their plain "
-          "versions; kernels A, B and the Gallager variable kernel with a "
-          "codeword plane")
+    phase("23 kernel E, the value-round kernels and kernel D's value form "
+          "against their plain versions; kernels A, B and the Gallager "
+          "variable kernel with a codeword plane")
     planes, derive_s = seconds(lambda: encode.code_encoder_planes(code))
     enc, make_encoder_s = seconds(lambda: encode.make_encoder(code))
     check(torch.equal(encode.encoder_planes(enc, dev).mask, planes.mask),
@@ -2243,16 +2293,87 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
     print(f"Gallager variable kernel with tx equal to plain; "
           f"{measured['gallager_variable']['fixed_ms_tx']:.4f} ms (one code)",
           flush=True)
+    # kernel D's value form against its plain version, on all four outputs:
+    # the headline code a block a word with codewords and with random
+    # planes (not codewords: checks teach clashing values, both ORed in),
+    # the fixed irregular code's phantom view, the ensemble codes a block a
+    # word and, one word each, a block a code; two cases on the CPU too
+    c1, tx1 = txs["one_code"][0], txs["one_code"][3]
+    ec, etx = txs["ensemble"][0], txs["ensemble"][3]
+    erased1 = bitops.bernoulli_packed(EPS_FULL, (N_FULL, WORDS_FULL), seed=7,
+                                      offset=3, device=dev)
+    tx_rand = bitops.bernoulli_packed(0.5, (N_FULL, WORDS_FULL), seed=11,
+                                      device=dev)
+    e_ens = bitops.bernoulli_packed(EPS_RT_ENS, (N_RT_ENS, WORDS_FULL),
+                                    seed=7, offset=3, device=dev)
+    irr = erasure_bp._phantom_view(irregular.sample_irregular_codes(
+        1, 0, 1, irregular.IrregularEnsembleSpec.from_lam_rho(
+            N_FULL, LAM_BEC, RHO6, device=dev), "repair",
+        device=dev).select(0))
+    one = (c1.chk_to_var[None], c1.var_to_chk[None])
+    value_cases = {
+        "one_code_codewords": (erased1, tx1, *one, 1),
+        "one_code_random": (erased1, tx_rand, *one, 1),
+        "irregular_random": (erasure_bp._pad_phantom_row(erased1),
+                             erasure_bp._pad_phantom_row(tx_rand),
+                             irr.chk_to_var[None], irr.var_to_chk[None], 1),
+        "ensemble_block_a_word": (e_ens, etx, ec.chk_to_var, ec.var_to_chk,
+                                  1),
+        "ensemble_block_a_code": (e_ens[:, ::24].contiguous(),
+                                  etx[:, ::24].contiguous(), ec.chk_to_var,
+                                  ec.var_to_chk, None)}
+    on_cpu = ("one_code_random", "ensemble_block_a_code")
+    err_dv = 0
+    for label, (er, t, chk, var, wpb) in value_cases.items():
+        got = erasure_bp.erasure_decode_values(er, t, chk, var, ITERS, wpb)
+        wants = [erasure_bp._erasure_decode_values_plain(er, t, chk, var,
+                                                         ITERS, wpb)]
+        if label in on_cpu:
+            wants.append(erasure_bp.erasure_decode_values(
+                er.cpu(), t.cpu(), chk.cpu(), var.cpu(), ITERS, wpb))
+        torch.cuda.synchronize()
+        for want in wants:
+            err = max(max_abs_err(a, b.to(dev)) for a, b in zip(got, want))
+            check(err == 0, f"kernel D's value form ({label}) differs from "
+                            f"its plain version (max |d| {err})")
+            err_dv = max(err_dv, err)
+        rounds = got[3]
+        print(f"kernel D value form {label}: equal to plain"
+              f"{' and the CPU' if label in on_cpu else ''} on known, val, "
+              f"round_errors and rounds; blocks {rounds.numel()}, rounds max "
+              f"{int(rounds.max())}, mean {float(rounds.float().mean()):.2f}; "
+              f"digest {digest(*got)}", flush=True)
+    measured["erasure_decode_values"]["max_abs_err"] = err_dv
 
     # -- 24 -------------------------------------------------------------------
     phase("24 whole value-plane decodes against the plain path")
+    value_route = ("erasure_decode_values", "check_exactly_one_xor",
+                   "variable_or_adopt")
     for label, (c, pl, info, tx) in txs.items():
         erased = bitops.bernoulli_packed(EPS_FULL, (c.n, WORDS_FULL), seed=7,
                                          offset=3, device=dev)
         res_k, traj_k = erasure_bp.bp_decode_packed_traj(c, erased, tx, ITERS)
         res_p, traj_p = erasure_bp.bp_decode_packed_traj_plain(c, erased, tx,
                                                                ITERS)
+        before = {k: kernels[k]["wrapper"].launches for k in value_route}
         one = erasure_bp.bp_decode_packed(c, erased, tx, ITERS)
+        torch.cuda.synchronize()
+        route = {k: kernels[k]["wrapper"].launches - v
+                 for k, v in before.items()}
+        # one code: kernel D's value form a block a word; the ensemble's 24
+        # words a code do not fit one block: the round kernels' host loop
+        want_route = {"erasure_decode_values": 1, "check_exactly_one_xor": 0,
+                      "variable_or_adopt": 0} if label == "one_code" else {
+            "erasure_decode_values": 0,
+            "check_exactly_one_xor": one.iterations,
+            "variable_or_adopt": one.iterations}
+        check(route == want_route, f"bp_decode_packed ({label}) launched "
+                                   f"{route}, expected {want_route}")
+        check(torch.equal(one.val, res_p.val)
+              and torch.equal(one.known, res_p.known)
+              and torch.equal(one.error_totals, res_p.error_totals)
+              and one.iterations == res_p.iterations,
+              f"bp_decode_packed ({label}) differs from the plain path")
         zero = erasure_bp.bp_decode_packed_allzero(c, erased, ITERS)
         torch.cuda.synchronize()
         check(torch.equal(res_k.val, res_p.val)
@@ -2273,8 +2394,9 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
         print(f"value decode {label} (traj) equal to plain: iterations "
               f"{res_k.iterations}, erasures {int(res_k.error_totals[0])} -> "
               f"{int(res_k.error_totals[-1])}; known and totals equal the "
-              "all-zero decode's; every resolved bit is the codeword's",
-              flush=True)
+              "all-zero decode's; every resolved bit is the codeword's; "
+              f"bp_decode_packed by {route}, digest "
+              f"{digest(one.known, one.val, one.error_totals)}", flush=True)
 
     # -- 25 -------------------------------------------------------------------
     phase("25 random-transmit run_simulation on cuda against cpu")
@@ -2324,8 +2446,10 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
     phase("26 the random-transmit paths through cli.main, each beside its "
           "zero-transmit run")
     rt_uses = ("bernoulli_packed", "encode_packed")
-    bec_uses = rt_uses + ("check_exactly_one_xor", "variable_or_adopt",
-                          "per_trial_counts")
+    # the fixed BEC decodes run kernel D's value form, a block a word; the
+    # ensemble's (24 words a code at n = 2048) the value-round kernels
+    bec_uses = rt_uses + ("erasure_decode_values", "per_trial_counts")
+    value_rounds = ("check_exactly_one_xor", "variable_or_adopt")
     soft_uses = rt_uses + ("soft_posterior", "soft_check")
     paths = {
         "bec_36_fixed": (dict(channel_param=EPS_FULL, n=N_FULL), bec_uses),
@@ -2346,7 +2470,8 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
         "bec_36_ensemble": (dict(code_mode="ensemble", n=N_RT_ENS,
                                  channel_param=EPS_RT_ENS,
                                  codes_per_chunk=CODES_RT_ENS),
-                            bec_uses + ("sample_regular_codes",)),
+                            rt_uses + value_rounds + (
+                                "per_trial_counts", "sample_regular_codes")),
         "awgn_minsum_ensemble": (dict(code_mode="ensemble", n=N_RT_ENS,
                                       channel="AWGN", decoder="minsum",
                                       channel_param=SIGMA_RT_ENS,
@@ -2385,6 +2510,13 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
             if "gallager_decode" in needed:
                 check(launches["gallager_variable"] == 0,
                       f"the round kernels ran on the random {name} path")
+            if "erasure_decode_values" in needed:
+                check(launches["erasure_decode_values"] == 2
+                      and not any(launches[k] for k in value_rounds),
+                      f"the random {name} path launched "
+                      f"{ {k: launches[k] for k in needed + value_rounds} }, "
+                      "expected kernel D's value form once a chunk and no "
+                      "value-round kernel")
             zero = cli_run(tmp, f"{name}_zero", transmit="zero", **common)
             rates = res.error_rate_per_iteration
             check(res.num_trials == common["num_tests"]
@@ -2431,8 +2563,10 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
                   f"{anchor}; launches "
                   f"{ {k: launches[k] for k in needed} }", flush=True)
     print(json.dumps({"random_anchors": anchors}), flush=True)
-    for k in ("encode_packed", "check_exactly_one_xor", "variable_or_adopt"):
+    for k in ("encode_packed", "erasure_decode_values"):
         measured[k]["launches"] = by_path[k]["random_bec_36_fixed"]
+    for k in value_rounds:
+        measured[k]["launches"] = by_path[k]["random_bec_36_ensemble"]
     for k in kernels:
         measured[k].setdefault("launches_by_path", {}).update(by_path[k])
 
@@ -2505,24 +2639,69 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
           f"{e_plain_ms:.2f} ms; {library_call} mod 2: {library_ms:.4f} ms); "
           f"{CODES_RT_ENS} codes of n={N_RT_ENS}: {e_ens_ms:.4f} ms",
           flush=True)
-    # whole decodes of one code (table rows 5 and 6): the value-plane
-    # decode, its _traj form (K4 a round) and the all-zero decode
+    # whole decodes of one code (table rows 5, 6 and 7): the value-plane
+    # decode by its route (kernel D's value form, a block a word) beside
+    # the host loop over the value-round kernels it replaced, in turns; its
+    # _traj form (K4 a round) and the all-zero decode
     erased = bitops.bernoulli_packed(EPS_FULL, (N_FULL, WORDS_FULL), seed=7,
                                      offset=3, device=dev)
+
+    def value_rounds_decode():
+        return erasure_bp._decode_values(c, erased, tx, ITERS,
+                                         erasure_bp._VALUE_KERNELS, False)[0]
+
     decode_ms = {}
     for name, fn in (
             ("allzero", lambda: erasure_bp.bp_decode_packed_allzero(
                 c, erased, ITERS)),
             ("value", lambda: erasure_bp.bp_decode_packed(c, erased, tx,
                                                           ITERS)),
+            ("value_rounds", value_rounds_decode),
+            ("value_rounds", value_rounds_decode),
+            ("value", lambda: erasure_bp.bp_decode_packed(c, erased, tx,
+                                                          ITERS)),
             ("traj", lambda: erasure_bp.bp_decode_packed_traj(
                 c, erased, tx, ITERS)),
             ("traj_plain", lambda: erasure_bp.bp_decode_packed_traj_plain(
                 c, erased, tx, ITERS))):
-        decode_ms[name] = time_ms(fn, reps=1 if name.endswith("plain")
-                                  else 3)
+        decode_ms.setdefault(name, []).append(time_ms(
+            fn, reps=1 if name.endswith("plain") else 3))
     print(f"decodes of one code, 50 rounds, ms: {json.dumps(decode_ms)}",
           flush=True)
+    # kernel D's value form alone at the headline (row 7): its time beside
+    # the plain version and its bound for the rounds this run's blocks ran
+    # (bytes: the table, the erased and tx planes, known and val, the
+    # counts; shared memory: value_decode_smem_accesses)
+    one = (c.chk_to_var[None], c.var_to_chk[None])
+
+    def value_form():
+        return erasure_bp.erasure_decode_values(erased, tx, *one, ITERS, 1)
+
+    vk, vv, vre, vro = value_form()
+    accesses = value_decode_smem_accesses(c, erased, tx, vro)
+    resources = erasure_decode_resources()
+    measured["erasure_decode_values"].update(
+        ms=time_ms(value_form),
+        device_ms=device_ms(value_form, "erasure_decode_values_kernel",
+                            reps=3),
+        plain_ms=time_ms(lambda: erasure_bp._erasure_decode_values_plain(
+            erased, tx, *one, ITERS, 1), reps=1, warmup=False),
+        library_ms=None, rounds_max=int(vro.max()),
+        rounds_mean=float(vro.float().mean()), smem_accesses=accesses,
+        resources={k: v for k, v in resources.items()
+                   if k.startswith("values")},
+        **bound(nbytes(c.chk_to_var, erased, tx, vk, vv, vre, vro), accesses,
+                SMEM_ACCESS_S))
+    measured["erasure_decode"]["resources"] = {
+        k: v for k, v in resources.items() if k.startswith("allzero")}
+    row = measured["erasure_decode_values"]
+    print(f"kernel D's value form at n = {N_FULL}, W = {WORDS_FULL}, a block "
+          f"a word: {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms "
+          f"(rounds max {row['rounds_max']}, mean {row['rounds_mean']:.2f}); "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {accesses} "
+          f"shared-memory accesses); plain {row['plain_ms']:.1f} ms; "
+          f"resources {json.dumps(resources)}", flush=True)
+    decode_ms = {k: sum(v) / len(v) for k, v in decode_ms.items()}
     for name, key in (("check_exactly_one_xor", "check"),
                       ("variable_or_adopt", "variable")):
         t = value_ms["one_code"]
@@ -3014,11 +3193,12 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
         print(f"QC {kind} {cfg.channel} {cfg.decoder}: cuda == cpu == "
               f"expand() run; block_errors {r_gpu.block_errors}, bit_errors "
               f"{r_gpu.bit_errors}", flush=True)
+    # the expanded code's word fits kernel D's block (with random transmit
+    # its value form's): a block a word
     for what, fields, generic in (
             ("random transmit", dict(channel_param=EPS_FULL,
                                      transmit="random"),
-             "check_exactly_one_xor"),
-            # the expanded code's word fits kernel D's block: a block a word
+             "erasure_decode_values"),
             ("expurgated", dict(channel_param=0.45, expurgation=2),
              "erasure_decode"),
             # float soft stays on expand() (int8 min-sum goes by index:
@@ -3252,6 +3432,49 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
         {k: kernels[k] for k in ("qc_gallager_check",)}), flush=True)
 
 
+def _cuobjdump(*flags) -> str:
+    """The toolkit's cuobjdump on the built library."""
+    from iib_project_ldpc_codes_tpu_torch.kernels.build import (find_nvcc,
+                                                                library_path)
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    return subprocess.run([tool, *flags, str(library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
+def _resource_fields(text: str) -> dict:
+    """cuobjdump's REG/STACK/SHARED/LOCAL of one function, with the
+    theoretical occupancy its registers allow at 256 threads a block."""
+    f = {k.lower(): int(v) for k, v in (kv.split(":") for kv in text.split())}
+    warp_regs = -(-f["reg"] * 32 // 256) * 256
+    f["occupancy_from_registers"] = min(65536 // (warp_regs * 8), 8) * 8 / 64
+    return f
+
+
+def erasure_decode_resources() -> dict:
+    """Registers, stack frame and local memory (spills) of kernel D's four
+    kernels: the all-zero ``erasure_decode_kernel<kMaxDc>`` and the value
+    form ``erasure_decode_values_kernel<kMaxDc>`` (21 and 28 letters
+    mangled), kMaxDc 8 the unrolled socket loop, 0 the runtime degree."""
+    import re
+
+    out = {}
+    for name, text in re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
+                                 r"SHARED:\d+ LOCAL:\d+)",
+                                 _cuobjdump("-res-usage")):
+        m = re.search(r"(21erasure_decode_kernel|28erasure_decode_values"
+                      r"_kernel)ILi(\d+)E", name)
+        if m:
+            form = "values" if "values" in m.group(1) else "allzero"
+            dc = int(m.group(2))
+            out[f"{form}_" + (f"dc{dc}" if dc else "loop")] = \
+                _resource_fields(text)
+    check(len(out) == 4, f"kernel D: {sorted(out)} in the library, expected "
+                         "four kernels")
+    return out
+
+
 def kernel_resources(smi: str) -> dict:
     """Registers, stack frame and local memory (spills), read with the
     toolkit's cuobjdump from the built library, of every instantiation of
@@ -3273,32 +3496,16 @@ def kernel_resources(smi: str) -> dict:
     with a few bytes spilled than at 96."""
     import re
 
-    from iib_project_ldpc_codes_tpu_torch.kernels.build import (find_nvcc,
-                                                                library_path)
-
-    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-
-    def dump(*flags):
-        return subprocess.run([tool, *flags, str(library_path())],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-
-    def fields(text):
-        f = {k.lower(): int(v) for k, v in
-             (kv.split(":") for kv in text.split())}
-        warp_regs = -(-f["reg"] * 32 // 256) * 256
-        f["occupancy_from_registers"] = min(65536 // (warp_regs * 8),
-                                            8) * 8 / 64
-        return f
-
     usage = dict(re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
-                            r"SHARED:\d+ LOCAL:\d+)", dump("-res-usage")))
+                            r"SHARED:\d+ LOCAL:\d+)",
+                            _cuobjdump("-res-usage")))
     s2 = {k: v for k, v in usage.items() if "qc_soft_check_kernel_int8" in k}
     check(len(s2) == 3, f"S2 int8: {len(s2)} instantiations in the library, "
           "expected 3")
     sass = {}
     # disassembling only these three keeps the call to seconds
-    for body in dump("-sass", "-fun", ",".join(s2)).split("Function : ")[1:]:
+    dumped = _cuobjdump("-sass", "-fun", ",".join(s2))
+    for body in dumped.split("Function : ")[1:]:
         name = body.split("\n", 1)[0].strip()
         if name in s2:
             sass[name] = [op for op in re.findall(
@@ -3308,7 +3515,7 @@ def kernel_resources(smi: str) -> dict:
     for name, text in s2.items():
         words, max_dc = map(int, re.search(
             r"kernel_int8ILi(\d+)ELi(\d+)E", name).groups())
-        f = fields(text)
+        f = _resource_fields(text)
         ops = len(sass[name])
         f.update(sass_instructions=ops,
                  per_socket_and_word=ops / (max_dc * words))
@@ -3331,7 +3538,7 @@ def kernel_resources(smi: str) -> dict:
             key = ("bf16" if "bfloat16" in m.group(2) else "f32") + \
                 ("_sumproduct" if method else "_minsum") + f"_V{vec}"
         key += f"_dc{max_dc}" if exact else f"_dcmax{max_dc}"
-        f = fields(text)
+        f = _resource_fields(text)
         out["soft_check"][key] = f
         check(f["local"] == 0, f"kernel C {key}: local memory {text}")
     check(len(out["soft_check"]) == 115, f"kernel C: "
@@ -3354,7 +3561,7 @@ def kernel_resources(smi: str) -> dict:
             key = ("bf16" if "bfloat16" in m.group(2) else "f32") + \
                 f"_V{vec}"
         key += f"_dv{max_dv}" if exact else "_generic"
-        out["soft_posterior"][key] = fields(text)
+        out["soft_posterior"][key] = _resource_fields(text)
     check(len(out["soft_posterior"]) == 66, f"kernel B: "
           f"{len(out['soft_posterior'])} instantiations in the library, "
           "expected 66")
@@ -3368,7 +3575,7 @@ def kernel_resources(smi: str) -> dict:
         if not m:
             continue
         args = list(map(int, re.findall(r"L[ib](\d+)E", m.group(2))))
-        f = fields(text)
+        f = _resource_fields(text)
         if m.group(1).endswith("check_kernel"):
             vec, deg = args
             key = f"V{vec}_" + (f"dc{deg}" if deg else "generic")
@@ -3398,7 +3605,7 @@ def kernel_resources(smi: str) -> dict:
         args = list(map(int, re.findall(r"L[ib](\d+)E", m.group(2))))
         key = f"init_N{args[0]}" if m.group(1).endswith("init_kernel") \
             else f"N{args[0]}" + ("_tx" if args[1] else "")
-        f = fields(text)
+        f = _resource_fields(text)
         out["qc_gallager_variable"][key] = f
         check(f["local"] == 0, f"Q4 {key}: local memory {text}")
     check(len(out["qc_gallager_variable"]) == 6,
@@ -3416,7 +3623,7 @@ def kernel_resources(smi: str) -> dict:
                 continue
             values, vec = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
             key = f"N{vec}" + ("_values" if values else "")
-            f = fields(text)
+            f = _resource_fields(text)
             out[kernel][key] = f
             check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
         check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
@@ -3436,7 +3643,7 @@ def kernel_resources(smi: str) -> dict:
                 continue
             vec, exact = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
             key = f"N{vec}_" + (f"{deg}{exact}" if exact else "loop")
-            f = fields(text)
+            f = _resource_fields(text)
             out[kernel][key] = f
             check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
         check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
@@ -4524,6 +4731,10 @@ def main() -> int:
             wrapper=erasure_bp.erasure_decode,
             source="iib_project_ldpc_codes_tpu_torch/csrc/erasure_decode.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:292"),
+        "erasure_decode_values": dict(
+            wrapper=erasure_bp.erasure_decode_values,
+            source="iib_project_ldpc_codes_tpu_torch/csrc/erasure_decode.cu",
+            replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:239"),
         "per_trial_counts": dict(
             wrapper=bitops.per_trial_counts,
             source="iib_project_ldpc_codes_tpu_torch/csrc/per_trial_counts.cu",
@@ -5241,6 +5452,7 @@ def main() -> int:
          **{k: measured[name].get(k) for k in keys},
          **{k: v for k, v in measured[name].items() if k not in keys},
          **({"batched": True} if name in ("erasure_decode",
+                                          "erasure_decode_values",
                                           "gallager_variable",
                                           "gallager_decode",
                                           "soft_posterior", "soft_check")

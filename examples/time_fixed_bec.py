@@ -1,7 +1,10 @@
-"""Time the fixed-code all-zero BEC decode on the card: the headline decode,
-the fixed irregular decode, the peeling and mode-3 chunks at n = 10^4, K3
-``variable_or_update`` (``csrc/variable_or_update.cu``) at its shapes, and
-the n = 10^6 decode that keeps the K2/K3 round loop.
+"""Time the fixed-code BEC decodes on the card: the headline all-zero
+decode, the fixed irregular decode, the peeling and mode-3 chunks at n =
+10^4, the random-transmit (value-plane) decode by the package's route
+beside the host loop over ``check_exactly_one_xor`` / ``variable_or_adopt``
+and the mode-3 random-transmit chunk, K3 ``variable_or_update``
+(``csrc/variable_or_update.cu``) at its shapes, and the n = 10^6 decode
+that keeps the K2/K3 round loop.
 
     python examples/time_fixed_bec.py [--root DIR] [--reps 10]
         [--out results/time_fixed_bec.json]
@@ -22,22 +25,31 @@ Shapes (``chip_smoke.py``'s): the headline decode, (3,6) at n = 10^4, W =
 lambda = x/3 + 2x^3/3, rho = x^5 at the same n, W and eps (phase 17); the
 peeling chunk (``_run_peeling``'s: K1, the decode with an n-round budget,
 the counts, one host read) and the mode-3 BEC chunk (``make_chunk_fn``) at
-n = 10^4, W = 768; the n = 10^6 (3,6) decode at W = 48 (phases 38-40).
+n = 10^4, W = 768; the value decode and the random-transmit mode-3 chunk
+on codewords of the same code (phase 27); the n = 10^6 (3,6) decode at W =
+48 (phases 38-40).
 Decodes are timed by CUDA events around whole decodes (host loop
-included), mean of 3 after a warm-up, with the device time by kernel and
-the idle share of one decode; chunks by the host clock over 3 chunks after
-a warm-up.  K3 is timed after a warm-up, mean of ``reps``, by
+included), mean of ``reps`` after a warm-up, with the device time by
+kernel and the idle share of one decode; chunks by the host clock over 3
+chunks after a warm-up.  K3 is timed after a warm-up, mean of ``reps``, by
 torch.profiler (``device_ms``: the kernel alone) and by CUDA events around
 single launches (``ms``: the wrapper's host work included), at one code of
 n = 10^4 (W = 768, round 1), at 768 codes of one word each (N = 1) and at
 n = 10^6, W = 48, two and ``LATER`` rounds into the decode; ``bound_ms``
 counts its table, the exactly-one plane and ``known`` read once and
-``known`` written once at 3.35 TB/s.
+``known`` written once at 3.35 TB/s.  Where the tree has kernel D's value
+form (``erasure_decode_values``), ``value_form`` holds its device time
+(torch.profiler) on the headline planes, its rounds per block, its bound
+in shared-memory accesses (``chip_smoke.value_decode_smem_accesses``) and
+the registers and spills of both of D's kernels (cuobjdump), and
+``transpose_share`` the plane transposes' share of each decode's device
+time.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import sys
@@ -76,7 +88,8 @@ def main() -> int:
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     from iib_project_ldpc_codes_tpu_torch.kernels import build as kbuild
-    from iib_project_ldpc_codes_tpu_torch.models import ensemble, irregular
+    from iib_project_ldpc_codes_tpu_torch.models import (encode, ensemble,
+                                                         irregular)
     from iib_project_ldpc_codes_tpu_torch.ops import bitops, erasure_bp
     from iib_project_ldpc_codes_tpu_torch.parallel import montecarlo as mc
     from iib_project_ldpc_codes_tpu_torch.utils.config import \
@@ -86,11 +99,14 @@ def main() -> int:
     kbuild.build()
     out = {"root": str(root), "card": cs.smi_line(), "decode_ms": {},
            "info_bits_per_s": {}, "profile": {}, "launches": {},
-           "chunk_ms": {}, "k3": {}, "digest": {}, "vec": {}}
+           "chunk_ms": {}, "k3": {}, "digest": {}, "vec": {},
+           "transpose_share": {}}
     wrappers = {k: {"wrapper": getattr(m, k)} for m, k in (
         (bitops, "bernoulli_packed"), (erasure_bp, "check_exactly_one"),
         (erasure_bp, "variable_or_update"), (erasure_bp, "erasure_decode"),
-        (bitops, "per_trial_counts"))}
+        (bitops, "per_trial_counts"), (erasure_bp, "check_exactly_one_xor"),
+        (erasure_bp, "variable_or_adopt"), (encode, "encode_packed"),
+        (erasure_bp, "erasure_decode_values")) if hasattr(m, k)}
 
     def launches_of(run):
         before = {k: v["wrapper"].launches for k, v in wrappers.items()}
@@ -102,14 +118,24 @@ def main() -> int:
 
     def decode(key, run, k_bits):
         res = run()
-        out["digest"][key] = digest(res.known, res.error_totals,
+        planes = (res.known,) if res.val is None else (res.known, res.val)
+        out["digest"][key] = digest(*planes, res.error_totals,
                                     torch.tensor([res.iterations]))
         out["launches"][key] = launches_of(run)
-        ms = cs.time_ms(run, reps=3)
+        ms = cs.time_ms(run, reps=args.reps)
         out["decode_ms"][key] = ms
         out["info_bits_per_s"][key] = k_bits / (ms / 1e3)
         out["profile"][key] = json.loads(cs.device_time_breakdown(
             lambda: run().iterations, ms, wrappers))
+        by_kernel = out["profile"][key].get("device_us_by_kernel", {})
+        busy = sum(v["us"] for v in by_kernel.values())
+        # the planes' transposes to and from kernel D's block-major layout
+        # are PyTorch's copy kernels (a direct copy or, for a transposed
+        # view, the nocast elementwise copy)
+        out["transpose_share"][key] = sum(
+            v["us"] for k, v in by_kernel.items()
+            if "copy" in k or "gpu_kernel_impl_nocast" in k) / busy \
+            if busy else None
         print(f"{key}: {ms:.3f} ms, {k_bits / (ms / 1e3):.4e} info bits/s, "
               f"{res.iterations} rounds, launches {out['launches'][key]}, "
               f"idle {out['profile'][key].get('device_idle_share')}",
@@ -185,6 +211,51 @@ def main() -> int:
     out["launches"]["fixed_chunk"] = launches_of(lambda: fixed_chunk(0))
     chunk("fixed_chunk", lambda idx: int(fixed_chunk(idx).block_errors))
 
+    # -- n = 10^4, random transmit: the value decode, its chunk -------------
+    enc = encode.code_encoder_planes(code)
+    tx = encode.encode_packed(enc, bitops.info_planes(
+        enc.k, cs.WORDS_FULL, seed=1, offset=0, device=dev))
+    decode("value", lambda: erasure_bp.bp_decode_packed(
+        code, erased, tx, cs.ITERS), k_bits)
+    decode("value_rounds", lambda: erasure_bp._decode_values(
+        code, erased, tx, cs.ITERS, erasure_bp._VALUE_KERNELS, False)[0],
+        k_bits)
+    random_chunk = mc.make_chunk_fn(dataclasses.replace(cfg,
+                                                        transmit="random"),
+                                    code, device=dev)
+    out["launches"]["random_chunk"] = launches_of(lambda: random_chunk(0))
+    out["profile"]["random_chunk"] = json.loads(cs.device_time_breakdown(
+        lambda: int(random_chunk(5).block_errors), float("nan"), wrappers))
+    chunk("random_chunk", lambda idx: int(random_chunk(idx).block_errors))
+    out["profile"]["random_chunk"]["decode_ms"] = out["chunk_ms"][
+        "random_chunk"]
+    busy = out["profile"]["random_chunk"].get("device_busy_ms")
+    if busy is not None and "missing_from_trace" not in \
+            out["profile"]["random_chunk"]:
+        out["profile"]["random_chunk"]["device_idle_share"] = max(
+            0.0, 1 - busy / out["chunk_ms"]["random_chunk"])
+    if hasattr(erasure_bp, "erasure_decode_values"):
+        chk, var = code.chk_to_var[None], code.var_to_chk[None]
+
+        def value_form():
+            return erasure_bp.erasure_decode_values(erased, tx, chk, var,
+                                                    cs.ITERS, 1)
+
+        rounds = value_form()[3]
+        accesses = cs.value_decode_smem_accesses(code, erased, tx, rounds)
+        out["value_form"] = {
+            "device_ms": cs.device_ms(value_form,
+                                      "erasure_decode_values_kernel",
+                                      reps=3),
+            "rounds_max": int(rounds.max()), "rounds_sum": int(rounds.sum()),
+            "rounds_mean": float(rounds.float().mean()),
+            "smem_accesses": accesses,
+            "bound": cs.bound(cs.nbytes(chk, erased, tx, erased, tx)
+                              + 4 * rounds.numel() * (cs.ITERS + 2),
+                              accesses, cs.SMEM_ACCESS_S),
+            "resources": cs.erasure_decode_resources()}
+        print(f"value form: {json.dumps(out['value_form'])}", flush=True)
+
     # -- K3 at n = 10^4: one code (N = 4), 768 codes of one word (N = 1) ----
     codes768 = ensemble.sample_codes(2, 0, cs.CODES_FULL, cs.N_FULL, cs.DV,
                                      cs.DC, "repair", device=dev)
@@ -211,7 +282,8 @@ def main() -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     print(json.dumps({k: out[k] for k in ("card", "decode_ms", "chunk_ms",
-                                          "launches", "vec", "digest")}))
+                                          "launches", "vec", "digest",
+                                          "transpose_share")}))
     print(json.dumps({"k3": out["k3"]}))
     return 0
 

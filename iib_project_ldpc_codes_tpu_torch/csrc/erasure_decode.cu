@@ -1,5 +1,5 @@
-// Kernel D: the whole all-zero erasure-BP decode, one block per block of
-// words of one code.
+// Kernel D: the whole erasure-BP decode, all-zero (and in its value form,
+// below, random-transmit), one block per block of words of one code.
 //
 // Replaces iib_project_ldpc_codes_tpu/ops/erasure_bp.py
 // bp_decode_packed_allzero (:292-306), as the JAX engine runs it under vmap,
@@ -47,18 +47,40 @@
 // On the H100 this scatter was faster than a gather over var_to_chk (K3
 // per variable) and than 16-bit tables (PERF.md, row 7).
 //
+// The value form (erasure_decode_values_kernel, decode_block's kValues;
+// entry point ldpc_erasure_decode_values) is the random-transmit decode,
+// bp_decode_packed (:239-276): the rounds of _packed_iteration (:262-272)
+// with the values of _check_summaries (:222-228).  On the port's host
+// loop this was check_exactly_one_xor and variable_or_adopt per round.  Shared memory also holds the block's value
+// plane val[rows][wpb], set to tx & known (then (2 * rows + checks) * wpb *
+// 4 + 16 + checks * dc * 4 + checks * wpb bytes: 225,016 for a (3,6) code
+// of n = 10^4 at one word a block).  The check pass, where a check's
+// exactly-one word e is nonzero, XORs its sockets' known values, x =
+// XOR_j val[v_j] & known[v_j], and ORs e & ~known[v_j] & x into
+// val[v_j] of each socket it teaches.  That is JAX's val | (adopt &
+// ~known) with the round's old known plane: known does not change during
+// the check pass, and an OR touches only bits where its variable is
+// unknown, so every other check's masked read val & known is stable, and
+// two checks that teach one (variable, trial) in a round both OR their
+// value in, as JAX's OR over the variable's checks does (on a codeword
+// they agree; the tests also feed planes that are not codewords).  A
+// round that leaves a block's count unchanged taught no socket, so its
+// val plane is frozen too, and the per-block stop stays exact.
+//
 // The stop rule per block is _run_to_fixed_point's: start only if the
 // channel erased a bit, go on while it < max_iters, the count changed and
 // the count > 0.  Outputs: the final known plane, round_errors[block][r]
 // (r = 0 the channel's erasures, then the count after each round run, the
 // tail after the stop holding the final count) and rounds[block].
 //
-// Memory: the erased and known planes are block-major [blocks][rows][wpb]
-// (the wrapper transposes), so the one load and the one store of a decode
-// coalesce.  A decode's least time on the H100 is set by shared memory
-// (each socket's known word read and each check's summary written every
-// round, each variable's word written) against ~154 MB of device memory
-// for 768 codes of n = 10^4 (the tables and both planes once).
+// Memory: the erased and known planes (and tx and val) are block-major
+// [blocks][rows][wpb] (the wrapper transposes), so the loads and the
+// stores of a decode coalesce.  A decode's least time on the H100 is set
+// by shared memory (each socket's known word read and each check's summary
+// written every round, each variable's word written; the value form adds
+// its val plane's set-up and dc val words read for each check word that
+// teaches) against ~154 MB of device memory for 768 codes of n = 10^4
+// (the tables and both planes once).
 #include "common.cuh"
 
 namespace {
@@ -75,18 +97,20 @@ __device__ __forceinline__ void block_add(int* dst, int v) {
   if ((threadIdx.x & 31) == 0 && v != 0) atomicAdd(dst, v);
 }
 
-template <int kMaxDc>
-__global__ void __launch_bounds__(kDecodeThreads, 1)
-erasure_decode_kernel(const int32_t* __restrict__ erased,
-                      const int32_t* __restrict__ chk_to_var,
-                      int32_t* __restrict__ known_out,
-                      int32_t* __restrict__ round_errors,
-                      int32_t* __restrict__ rounds, int rows, int checks,
-                      int dc, int wpc, int wpb, int max_iters) {
+// The decode of one block, both forms; tx and val_out are read and
+// written by the value form only.
+template <int kMaxDc, bool kValues>
+__device__ __forceinline__ void decode_block(
+    const int32_t* __restrict__ erased, const int32_t* __restrict__ tx,
+    const int32_t* __restrict__ chk_to_var, int32_t* __restrict__ known_out,
+    int32_t* __restrict__ val_out, int32_t* __restrict__ round_errors,
+    int32_t* __restrict__ rounds, int rows, int checks, int dc, int wpc,
+    int wpb, int max_iters) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int words = rows * wpb;
   uint32_t* known = smem;                                // [rows][wpb]
-  uint32_t* ex = known + words;                          // [checks][wpb]
+  uint32_t* val = known + words;            // [rows][wpb], the value form
+  uint32_t* ex = known + (kValues ? 2 : 1) * words;      // [checks][wpb]
   int* counts = reinterpret_cast<int*>(ex + checks * wpb);  // [4]
   int32_t* c2v = counts + 4;                             // [dc][checks]
   uint8_t* teach_of = reinterpret_cast<uint8_t*>(c2v + checks * dc);
@@ -103,6 +127,8 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
   for (int i = tid; i < words; i += nthreads) {
     const uint32_t e = static_cast<uint32_t>(__ldg(er + i));
     known[i] = ~e;
+    if constexpr (kValues)
+      val[i] = static_cast<uint32_t>(__ldg(tx + block * words + i)) & ~e;
     erasures += __popc(e);
   }
   for (int i = tid; i < checks * dc; i += nthreads) {
@@ -146,7 +172,21 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
           for (int j = 0; j < kMaxDc; ++j)
             teach |= static_cast<uint32_t>((unknown[j] & e) != 0u) << j;
           teach_of[c * wpb + w] = static_cast<uint8_t>(teach);
-          if (e != 0u) ex[c * wpb + w] = e;
+          if (e == 0u) continue;
+          ex[c * wpb + w] = e;
+          if constexpr (kValues) {
+            // the value each taught trial's unknown participant takes
+            uint32_t x = 0u;
+#pragma unroll
+            for (int j = 0; j < kMaxDc; ++j)
+              if (j < dc) x ^= val[var[j] * wpb + w] & ~unknown[j];
+            x &= e;
+#pragma unroll
+            for (int j = 0; j < kMaxDc; ++j) {
+              const uint32_t bits = x & unknown[j];
+              if (bits != 0u) atomicOr(val + var[j] * wpb + w, bits);
+            }
+          }
         }
       } else {
         for (int w = 0; w < wpb; ++w) {
@@ -156,7 +196,22 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
             twice |= once & unknown;
             once |= unknown;
           }
-          ex[c * wpb + w] = once & ~twice;
+          const uint32_t e = once & ~twice;
+          ex[c * wpb + w] = e;
+          if constexpr (kValues) {
+            if (e == 0u) continue;
+            uint32_t x = 0u;
+            for (int j = 0; j < dc; ++j) {
+              const int at = c2v[j * checks + c] * wpb + w;
+              x ^= val[at] & known[at];
+            }
+            x &= e;
+            for (int j = 0; j < dc && x != 0u; ++j) {
+              const int at = c2v[j * checks + c] * wpb + w;
+              const uint32_t bits = x & ~known[at];
+              if (bits != 0u) atomicOr(val + at, bits);
+            }
+          }
         }
       }
     }
@@ -206,23 +261,101 @@ erasure_decode_kernel(const int32_t* __restrict__ erased,
   if (tid == 0) rounds[block] = it;
   int32_t* out = known_out + block * words;
   for (int i = tid; i < words; i += nthreads) out[i] = static_cast<int32_t>(known[i]);
+  if constexpr (kValues) {
+    int32_t* vout = val_out + block * words;
+    for (int i = tid; i < words; i += nthreads)
+      vout[i] = static_cast<int32_t>(val[i]);
+  }
+}
+
+template <int kMaxDc>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+erasure_decode_kernel(const int32_t* __restrict__ erased,
+                      const int32_t* __restrict__ chk_to_var,
+                      int32_t* __restrict__ known_out,
+                      int32_t* __restrict__ round_errors,
+                      int32_t* __restrict__ rounds, int rows, int checks,
+                      int dc, int wpc, int wpb, int max_iters) {
+  decode_block<kMaxDc, false>(erased, nullptr, chk_to_var, known_out,
+                              nullptr, round_errors, rounds, rows, checks, dc,
+                              wpc, wpb, max_iters);
+}
+
+template <int kMaxDc>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+erasure_decode_values_kernel(const int32_t* __restrict__ erased,
+                             const int32_t* __restrict__ tx,
+                             const int32_t* __restrict__ chk_to_var,
+                             int32_t* __restrict__ known_out,
+                             int32_t* __restrict__ val_out,
+                             int32_t* __restrict__ round_errors,
+                             int32_t* __restrict__ rounds, int rows,
+                             int checks, int dc, int wpc, int wpb,
+                             int max_iters) {
+  decode_block<kMaxDc, true>(erased, tx, chk_to_var, known_out, val_out,
+                             round_errors, rounds, rows, checks, dc, wpc, wpb,
+                             max_iters);
 }
 
 template <int kMaxDc>
 int launch_decode(int num_blocks, size_t smem_bytes, cudaStream_t stream,
-                  const int32_t* erased, const int32_t* chk_to_var,
-                  int32_t* known, int32_t* round_errors, int32_t* rounds,
-                  int rows, int checks, int dc, int wpc, int wpb,
-                  int max_iters) {
-  auto kernel = erasure_decode_kernel<kMaxDc>;
-  const cudaError_t opt = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes));
-  if (opt != cudaSuccess) return static_cast<int>(opt);
-  kernel<<<num_blocks, kDecodeThreads, smem_bytes, stream>>>(
-      erased, chk_to_var, known, round_errors, rounds, rows, checks, dc, wpc,
-      wpb, max_iters);
+                  const int32_t* erased, const int32_t* tx,
+                  const int32_t* chk_to_var, int32_t* known, int32_t* val,
+                  int32_t* round_errors, int32_t* rounds, int rows,
+                  int checks, int dc, int wpc, int wpb, int max_iters) {
+  cudaError_t opt;
+  if (tx == nullptr) {
+    opt = cudaFuncSetAttribute(erasure_decode_kernel<kMaxDc>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes));
+    if (opt != cudaSuccess) return static_cast<int>(opt);
+    erasure_decode_kernel<kMaxDc><<<num_blocks, kDecodeThreads, smem_bytes,
+                                    stream>>>(erased, chk_to_var, known,
+                                              round_errors, rounds, rows,
+                                              checks, dc, wpc, wpb,
+                                              max_iters);
+  } else {
+    opt = cudaFuncSetAttribute(erasure_decode_values_kernel<kMaxDc>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes));
+    if (opt != cudaSuccess) return static_cast<int>(opt);
+    erasure_decode_values_kernel<kMaxDc><<<num_blocks, kDecodeThreads,
+                                           smem_bytes, stream>>>(
+        erased, tx, chk_to_var, known, val, round_errors, rounds, rows,
+        checks, dc, wpc, wpb, max_iters);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both entry points: the all-zero form when tx and val are null.
+int decode(const void* erased, const void* tx, const void* chk_to_var,
+           void* known, void* val, void* round_errors, void* rounds,
+           int num_blocks, int rows, int checks, int dc, int wpc, int wpb,
+           int max_iters, void* stream) {
+  if (dc < 1 || wpb < 1 || wpc < wpb || wpc % wpb || rows < 1 ||
+      checks < 1 || max_iters < 0 || (tx == nullptr) != (val == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  const bool values = tx != nullptr;
+  const size_t smem_bytes =
+      ((values ? 2 : 1) * static_cast<size_t>(rows) + checks) * wpb *
+          sizeof(uint32_t) +
+      4 * sizeof(int) + static_cast<size_t>(checks) * dc * sizeof(int32_t) +
+      static_cast<size_t>(checks) * wpb;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* er = static_cast<const int32_t*>(erased);
+  const auto* t = static_cast<const int32_t*>(tx);
+  const auto* c2v = static_cast<const int32_t*>(chk_to_var);
+  auto* kn = static_cast<int32_t*>(known);
+  auto* v = static_cast<int32_t*>(val);
+  auto* re = static_cast<int32_t*>(round_errors);
+  auto* ro = static_cast<int32_t*>(rounds);
+  if (dc <= kUnrolledDc)
+    return launch_decode<kUnrolledDc>(num_blocks, smem_bytes, s, er, t, c2v,
+                                      kn, v, re, ro, rows, checks, dc, wpc,
+                                      wpb, max_iters);
+  return launch_decode<0>(num_blocks, smem_bytes, s, er, t, c2v, kn, v, re,
+                          ro, rows, checks, dc, wpc, wpb, max_iters);
 }
 
 }  // namespace
@@ -237,24 +370,19 @@ extern "C" int ldpc_erasure_decode(const void* erased, const void* chk_to_var,
                                    void* rounds, int num_blocks, int rows,
                                    int checks, int dc, int wpc, int wpb,
                                    int max_iters, void* stream) {
-  if (dc < 1 || wpb < 1 || wpc < wpb || wpc % wpb || rows < 1 ||
-      checks < 1 || max_iters < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (num_blocks <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem_bytes =
-      (static_cast<size_t>(rows) + checks) * wpb * sizeof(uint32_t) +
-      4 * sizeof(int) + static_cast<size_t>(checks) * dc * sizeof(int32_t) +
-      static_cast<size_t>(checks) * wpb;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* er = static_cast<const int32_t*>(erased);
-  const auto* c2v = static_cast<const int32_t*>(chk_to_var);
-  auto* kn = static_cast<int32_t*>(known);
-  auto* re = static_cast<int32_t*>(round_errors);
-  auto* ro = static_cast<int32_t*>(rounds);
-  if (dc <= kUnrolledDc)
-    return launch_decode<kUnrolledDc>(num_blocks, smem_bytes, s, er, c2v, kn,
-                                      re, ro, rows, checks, dc, wpc, wpb,
-                                      max_iters);
-  return launch_decode<0>(num_blocks, smem_bytes, s, er, c2v, kn, re, ro,
-                          rows, checks, dc, wpc, wpb, max_iters);
+  return decode(erased, nullptr, chk_to_var, known, nullptr, round_errors,
+                rounds, num_blocks, rows, checks, dc, wpc, wpb, max_iters,
+                stream);
+}
+
+// The value form: tx and the final val plane beside erased and known, in
+// the same block-major layout; smem_bytes gains rows * wpb * 4 (the val
+// plane).
+extern "C" int ldpc_erasure_decode_values(
+    const void* erased, const void* tx, const void* chk_to_var, void* known,
+    void* val, void* round_errors, void* rounds, int num_blocks, int rows,
+    int checks, int dc, int wpc, int wpb, int max_iters, void* stream) {
+  if (tx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return decode(erased, tx, chk_to_var, known, val, round_errors, rounds,
+                num_blocks, rows, checks, dc, wpc, wpb, max_iters, stream);
 }

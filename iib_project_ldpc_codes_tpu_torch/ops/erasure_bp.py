@@ -47,17 +47,22 @@ phantom check's summary is zero, and K3 counts no erasure for it.
 
 Random-codeword transmit (:func:`bp_decode_packed` and its ``_traj`` and
 ``_irregular`` forms, JAX erasure_bp.py:239-276, 310-334, 383-409) also
-carries the value planes ``val`` (the transmitted bits where known).  Its
-round is two kernels of its own beside K2/K3, which stay the all-zero
-path: the check pass :func:`check_exactly_one_xor`
-(``csrc/check_exactly_one_xor.cu``: exactly_one and exactly_one &
-xor_known) and the variable pass :func:`variable_or_adopt`
-(``csrc/variable_or_adopt.cu``: known |= OR exactly_one, val |= OR
-adopt & ~known, the erasure count).  The ``_traj`` forms add K4's
-per-trial counts of ~known after every round, int32[max_iters+1, B], the
-tail filled with the final counts.  ``known`` evolves as in the all-zero
-decode, whatever ``val`` holds, so the two decodes' erasure counts agree
-bit for bit.
+carries the value planes ``val`` (the transmitted bits where known).  The
+shapes :func:`erasure_decode_block_words` splits into blocks with
+``values=True`` run the value form of kernel D,
+:func:`erasure_decode_values` (the val plane beside known in each block's
+shared memory: the fixed-code decode, (3,6) up to n = 10,330 a block a
+word), the whole decode in one launch and one host read.  The rest, and
+the ``_traj`` forms, which count each trial after every round, run a host
+loop over two round kernels beside K2/K3: the check pass
+:func:`check_exactly_one_xor` (``csrc/check_exactly_one_xor.cu``:
+exactly_one and exactly_one & xor_known) and the variable pass
+:func:`variable_or_adopt` (``csrc/variable_or_adopt.cu``: known |= OR
+exactly_one, val |= OR adopt & ~known, the erasure count).  The ``_traj``
+forms add K4's per-trial counts of ~known after every round,
+int32[max_iters+1, B], the tail filled with the final counts.  ``known``
+evolves as in the all-zero decode, whatever ``val`` holds, so the two
+decodes' erasure counts agree bit for bit.
 """
 
 from __future__ import annotations
@@ -354,21 +359,26 @@ SMEM_OPTIN_BYTES = 232_448
 
 
 def _erasure_decode_smem_bytes(rows: int, checks: int, dc: int,
-                               wpb: int) -> int:
+                               wpb: int, values: bool = False) -> int:
     """Kernel D's shared memory for a block of ``wpb`` words: its known
-    and exactly-one planes, four counters, its code's chk_to_var table
-    (int32) and the scatter's socket masks (a byte per check and word)."""
-    return (rows + checks) * wpb * 4 + 16 + checks * dc * 4 + checks * wpb
+    plane (and with ``values`` its val plane) and its exactly-one plane,
+    four counters, its code's chk_to_var table (int32) and the scatter's
+    socket masks (a byte per check and word)."""
+    return ((2 if values else 1) * rows + checks) * wpb * 4 + 16 \
+        + checks * dc * 4 + checks * wpb
 
 
-def erasure_decode_block_words(code, words: int) -> int:
-    """The rule that picks kernel D (:func:`erasure_decode`) for the packed
-    all-zero decode of ``words`` words on ``code``, by shape alone: the
-    words of a block, or 0 where the host loop over K2/K3 runs.  D takes
-    the generic tables (an :class:`LDPCCode` or an irregular code's phantom
-    view; quasi-cyclic codes keep their circulant-index rounds): a batch of
-    codes (a leading [C] axis, the words split evenly) one block a code,
-    one code one block a word; a block's shared memory must fit one
+def erasure_decode_block_words(code, words: int,
+                               values: bool = False) -> int:
+    """The rule that picks kernel D for the packed decode of ``words``
+    words on ``code`` (:func:`erasure_decode`, or with ``values`` the
+    random-transmit decode's :func:`erasure_decode_values`), by shape
+    alone: the words of a block, or 0 where the host loop over the round
+    kernels runs (K2/K3, or check_exactly_one_xor / variable_or_adopt).  D
+    takes the generic tables (an :class:`LDPCCode` or an irregular code's
+    phantom view; quasi-cyclic codes keep their circulant-index rounds): a
+    batch of codes (a leading [C] axis, the words split evenly) one block a
+    code, one code one block a word; a block's shared memory must fit one
     block's."""
     if not isinstance(code, (LDPCCode, _PhantomView)) or words < 1:
         return 0
@@ -380,23 +390,29 @@ def erasure_decode_block_words(code, words: int) -> int:
     else:
         wpb = 1
     checks, dc = code.chk_to_var.shape[-2:]
-    fits = _erasure_decode_smem_bytes(code.n, checks, dc, wpb) \
+    fits = _erasure_decode_smem_bytes(code.n, checks, dc, wpb, values) \
         <= SMEM_OPTIN_BYTES
     return wpb if fits else 0
 
 
-def takes_erasure_decode_kernel(code, words: int) -> bool:
+def takes_erasure_decode_kernel(code, words: int,
+                                values: bool = False) -> bool:
     """True when :func:`erasure_decode_block_words` sends the decode to
     kernel D."""
-    return erasure_decode_block_words(code, words) > 0
+    return erasure_decode_block_words(code, words, values) > 0
 
 
-def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
-                          var_to_chk: torch.Tensor, max_iters: int,
-                          wpb: Optional[int] = None):
-    """Plain version of kernel D, on any device: the batched plain passes
-    with a count and a stop per block of ``wpb`` words (default: a code's
-    words; a stopped block's words are frozen), no loop over blocks."""
+def _erasure_decode_values_plain(erased: torch.Tensor,
+                                 tx: Optional[torch.Tensor],
+                                 chk_to_var: torch.Tensor,
+                                 var_to_chk: torch.Tensor, max_iters: int,
+                                 wpb: Optional[int] = None):
+    """Plain version of kernel D's value form
+    (:func:`erasure_decode_values`) and, with ``tx`` None, of its all-zero
+    form, on any device: the batched plain passes (the value passes with
+    ``tx``) with a count and a stop per block of ``wpb`` words (default: a
+    code's words; a stopped block's words are frozen), no loop over
+    blocks.  Returns ``(known, val or None, round_errors, rounds)``."""
     if wpb is None:
         wpb = erased.shape[1] // chk_to_var.shape[0]
     blocks = erased.shape[1] // wpb
@@ -408,6 +424,7 @@ def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
             .reshape(blocks, wpb).sum(1)
 
     known = ~erased
+    val = None if tx is None else tx & known
     current = per_block(known)
     round_errors = torch.empty((blocks, max_iters + 1), dtype=torch.int64,
                                device=erased.device)
@@ -416,10 +433,16 @@ def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
     active = current > 0
     it = 0
     while it < max_iters and bool(active.any()):
-        grown = known | _or_by_variable(
-            var_to_chk, _check_exactly_one_plain(chk_to_var, known))
-        known = torch.where(active.repeat_interleave(wpb)[None, :], grown,
-                            known)
+        moving = active.repeat_interleave(wpb)[None, :]
+        if val is None:
+            exactly_one = _check_exactly_one_plain(chk_to_var, known)
+        else:
+            exactly_one, adopt = _check_exactly_one_xor_plain(chk_to_var,
+                                                              known, val)
+            val = torch.where(moving, val | (
+                _or_by_variable(var_to_chk, adopt) & ~known), val)
+        known = torch.where(moving, known | _or_by_variable(
+            var_to_chk, exactly_one), known)
         new = per_block(known)
         rounds += active.to(torch.int32)
         round_errors[:, it + 1] = new
@@ -427,7 +450,47 @@ def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
         current = new
         it += 1
     round_errors[:, it + 1:] = current[:, None]
-    return known, round_errors.to(torch.int32), rounds
+    return known, val, round_errors.to(torch.int32), rounds
+
+
+def _erasure_decode_plain(erased: torch.Tensor, chk_to_var: torch.Tensor,
+                          var_to_chk: torch.Tensor, max_iters: int,
+                          wpb: Optional[int] = None):
+    """Plain version of kernel D (:func:`erasure_decode`)."""
+    known, _, round_errors, rounds = _erasure_decode_values_plain(
+        erased, None, chk_to_var, var_to_chk, max_iters, wpb)
+    return known, round_errors, rounds
+
+
+def _check_decode_args(erased: torch.Tensor, chk_to_var: torch.Tensor,
+                       var_to_chk: torch.Tensor, max_iters: int,
+                       wpb: Optional[int]) -> int:
+    """Check kernel D's arguments (either form); returns ``wpb``."""
+    check_int32("erased", erased, 2)
+    check_int32("chk_to_var", chk_to_var, 3)
+    check_int32("var_to_chk", var_to_chk, 3)
+    rows, words = erased.shape
+    wpc = _words_per_code("chk_to_var", chk_to_var, words)
+    if var_to_chk.shape[:2] != (chk_to_var.shape[0], rows):
+        raise ValueError("chk_to_var, var_to_chk and erased do not fit "
+                         "together")
+    wpb = wpc if wpb is None else wpb
+    if wpb < 1 or wpc % wpb:
+        raise ValueError(f"blocks of {wpb} words do not split a code's "
+                         f"{wpc} words")
+    _check_packed_batch_bits(rows, words)
+    if max_iters < 0:
+        raise ValueError("max_iters must be >= 0")
+    return wpb
+
+
+def _check_decode_smem(erased: torch.Tensor, chk_to_var: torch.Tensor,
+                       wpb: int, values: bool) -> None:
+    need = _erasure_decode_smem_bytes(erased.shape[0], *chk_to_var.shape[1:],
+                                      wpb, values)
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"a block needs {need} bytes of shared memory, "
+                         f"above one block's {SMEM_OPTIN_BYTES}")
 
 
 def erasure_decode(erased: torch.Tensor, chk_to_var: torch.Tensor,
@@ -448,29 +511,12 @@ def erasure_decode(erased: torch.Tensor, chk_to_var: torch.Tensor,
     check's summary into its sockets and reads no ``var_to_chk`` (the
     plain version does): both tables must describe the same graph.  Raises
     when a block does not fit one block's shared memory."""
-    check_int32("erased", erased, 2)
-    check_int32("chk_to_var", chk_to_var, 3)
-    check_int32("var_to_chk", var_to_chk, 3)
-    rows, words = erased.shape
-    wpc = _words_per_code("chk_to_var", chk_to_var, words)
-    num, checks, dc = chk_to_var.shape
-    if var_to_chk.shape[:2] != (num, rows):
-        raise ValueError("chk_to_var, var_to_chk and erased do not fit "
-                         "together")
-    wpb = wpc if wpb is None else wpb
-    if wpb < 1 or wpc % wpb:
-        raise ValueError(f"blocks of {wpb} words do not split a code's "
-                         f"{wpc} words")
-    _check_packed_batch_bits(rows, words)
-    if max_iters < 0:
-        raise ValueError("max_iters must be >= 0")
+    wpb = _check_decode_args(erased, chk_to_var, var_to_chk, max_iters, wpb)
     if not use_kernel(erased, chk_to_var, var_to_chk):
         return _erasure_decode_plain(erased, chk_to_var, var_to_chk,
                                      max_iters, wpb)
-    need = _erasure_decode_smem_bytes(rows, checks, dc, wpb)
-    if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"a block needs {need} bytes of shared memory, "
-                         f"above one block's {SMEM_OPTIN_BYTES}")
+    _check_decode_smem(erased, chk_to_var, wpb, False)
+    rows, words = erased.shape
     blocks = words // wpb
     planes = _plane_to_code_major(erased, blocks)
     known = torch.empty_like(planes)
@@ -479,12 +525,78 @@ def erasure_decode(erased: torch.Tensor, chk_to_var: torch.Tensor,
     rounds = torch.empty(blocks, dtype=torch.int32, device=erased.device)
     launch("ldpc_erasure_decode", erased.device, planes.data_ptr(),
            chk_to_var.data_ptr(), known.data_ptr(), round_errors.data_ptr(),
-           rounds.data_ptr(), blocks, rows, checks, dc, wpc, wpb, max_iters)
+           rounds.data_ptr(), blocks, rows, *chk_to_var.shape[1:],
+           words // chk_to_var.shape[0], wpb, max_iters)
     erasure_decode.launches += 1
     return _code_major_to_plane(known, blocks), round_errors, rounds
 
 
 erasure_decode.launches = 0
+
+
+def erasure_decode_values(erased: torch.Tensor, tx: torch.Tensor,
+                          chk_to_var: torch.Tensor, var_to_chk: torch.Tensor,
+                          max_iters: int, wpb: Optional[int] = None):
+    """Kernel D's value form: the whole random-transmit decode
+    (:func:`bp_decode_packed`'s rounds) of each block of ``wpb`` words,
+    one CUDA block each.  ``tx`` int32[n, W] holds the transmitted planes
+    (any bits: the decode adopts what the checks' known values imply,
+    codeword or not); the rest as :func:`erasure_decode`.
+
+    Returns ``(known, val, round_errors, rounds)``: the final known and
+    value planes int32[n, W] (val is ``tx & known`` grown by the adopted
+    bits, 0 where unknown) and the per-block counts and rounds of
+    :func:`erasure_decode`.  Raises when a block does not fit one block's
+    shared memory."""
+    wpb = _check_decode_args(erased, chk_to_var, var_to_chk, max_iters, wpb)
+    check_int32("tx", tx, 2)
+    if tx.shape != erased.shape:
+        raise ValueError(f"tx {tuple(tx.shape)} and erased "
+                         f"{tuple(erased.shape)} differ in shape")
+    if not use_kernel(erased, tx, chk_to_var, var_to_chk):
+        return _erasure_decode_values_plain(erased, tx, chk_to_var,
+                                            var_to_chk, max_iters, wpb)
+    _check_decode_smem(erased, chk_to_var, wpb, True)
+    rows, words = erased.shape
+    blocks = words // wpb
+    planes = _plane_to_code_major(erased, blocks)
+    tx_planes = _plane_to_code_major(tx, blocks)
+    known, val = torch.empty_like(planes), torch.empty_like(planes)
+    round_errors = torch.empty((blocks, max_iters + 1), dtype=torch.int32,
+                               device=erased.device)
+    rounds = torch.empty(blocks, dtype=torch.int32, device=erased.device)
+    launch("ldpc_erasure_decode_values", erased.device, planes.data_ptr(),
+           tx_planes.data_ptr(), chk_to_var.data_ptr(), known.data_ptr(),
+           val.data_ptr(), round_errors.data_ptr(), rounds.data_ptr(),
+           blocks, rows, *chk_to_var.shape[1:],
+           words // chk_to_var.shape[0], wpb, max_iters)
+    erasure_decode_values.launches += 1
+    return (_code_major_to_plane(known, blocks),
+            _code_major_to_plane(val, blocks), round_errors, rounds)
+
+
+erasure_decode_values.launches = 0
+
+
+def _block_totals(round_errors: torch.Tensor, max_iters: int
+                  ) -> Tuple[torch.Tensor, int]:
+    """``(error_totals, iterations)`` of a decode split into blocks: the
+    sum of the blocks' counts, and the host loop's rule applied to the
+    sum (module docstring), read once."""
+    sums = round_errors.sum(0, dtype=torch.int64).tolist()
+    totals, it = _run_to_fixed_point(lambda t: sums[t + 1], sums[0],
+                                     max_iters)
+    return torch.tensor(totals, dtype=torch.int32,
+                        device=round_errors.device), it
+
+
+def _batch_tables(code) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The code's tables with the leading [C] axis kernel D takes (one
+    code: a batch of one)."""
+    chk, var = code.chk_to_var, code.var_to_chk
+    if chk.dim() == 2:
+        chk, var = chk[None], var[None]
+    return chk, var
 
 
 def _decode_allzero(code: LDPCCode, erased: torch.Tensor, max_iters: int,
@@ -506,18 +618,11 @@ def _decode_allzero(code: LDPCCode, erased: torch.Tensor, max_iters: int,
     wpb = erasure_decode_block_words(code, erased.shape[1]) \
         if whole is not None else 0
     if wpb:
-        chk, var = code.chk_to_var, code.var_to_chk
-        if chk.dim() == 2:                  # one code: a batch of one
-            chk, var = chk[None], var[None]
-        known, round_errors, _ = whole(erased, chk, var, max_iters, wpb)
-        sums = round_errors.sum(0, dtype=torch.int64).tolist()
-        totals, it = _run_to_fixed_point(lambda t: sums[t + 1], sums[0],
-                                         max_iters)
-        return PackedBPResult(
-            known=known,
-            error_totals=torch.tensor(totals, dtype=torch.int32,
-                                      device=erased.device),
-            iterations=it)
+        known, round_errors, _ = whole(erased, *_batch_tables(code),
+                                       max_iters, wpb)
+        totals, it = _block_totals(round_errors, max_iters)
+        return PackedBPResult(known=known, error_totals=totals,
+                              iterations=it)
     known = ~erased
     total0 = int(counts(erased).sum(dtype=torch.int64))
     errors = torch.zeros(max_iters + 1, dtype=torch.int32,
@@ -661,9 +766,15 @@ variable_or_adopt.launches = 0
 
 
 def _decode_values(code, erased: torch.Tensor, tx_bits: torch.Tensor,
-                   max_iters: int, passes, traj: bool):
+                   max_iters: int, passes, traj: bool,
+                   whole: Optional[Callable] = None):
     """The packed value-plane decode, parametrised by its passes (check,
-    variable, counts); returns ``(PackedBPResult, traj or None)``."""
+    variable, counts) and the whole decode ``whole``
+    (:func:`erasure_decode_values`), which runs the shapes
+    :func:`erasure_decode_block_words` gives a block split with
+    ``values=True`` when no trajectory is asked for (as
+    :func:`_decode_allzero`); the rest run the host loop over the passes.
+    Returns ``(PackedBPResult, traj or None)``."""
     check, variable, counts = passes
     check_int32("erased", erased, 2)
     check_int32("tx_bits", tx_bits, 2)
@@ -673,6 +784,15 @@ def _decode_values(code, erased: torch.Tensor, tx_bits: torch.Tensor,
     _check_packed_batch_bits(code.n, erased.shape[1])
     if max_iters < 0:
         raise ValueError("max_iters must be >= 0")
+    wpb = erasure_decode_block_words(code, erased.shape[1], values=True) \
+        if whole is not None and not traj else 0
+    if wpb:
+        known, val, round_errors, _ = whole(erased, tx_bits,
+                                            *_batch_tables(code), max_iters,
+                                            wpb)
+        totals, it = _block_totals(round_errors, max_iters)
+        return PackedBPResult(known=known, val=val, error_totals=totals,
+                              iterations=it), None
     known = ~erased
     val = tx_bits & known
     counts0 = counts(erased)
@@ -712,10 +832,13 @@ def bp_decode_packed(code: LDPCCode, erased: torch.Tensor,
     W] (a codeword per trial) under the erasures ``erased`` int32[n, W],
     on one code or a batch (word w on code ``w // (W // C)``).  The
     result's ``val`` holds the decoded bits where ``known``.  On CUDA
-    tensors each round is :func:`check_exactly_one_xor` and
-    :func:`variable_or_adopt`; on CPU tensors their plain versions."""
+    tensors the shapes :func:`erasure_decode_block_words` splits into
+    blocks (``values=True``) run kernel D's value form, the whole decode in
+    one launch; the rest a host loop whose rounds are
+    :func:`check_exactly_one_xor` and :func:`variable_or_adopt`.  On CPU
+    tensors their plain versions run, by the same rule."""
     return _decode_values(code, erased, tx_bits, max_iters, _VALUE_KERNELS,
-                          False)[0]
+                          False, erasure_decode_values)[0]
 
 
 def bp_decode_packed_plain(code: LDPCCode, erased: torch.Tensor,
@@ -785,12 +908,13 @@ def bp_decode_packed_allzero_irregular(code, erased: torch.Tensor,
         _phantom_view(code), _pad_phantom_row(erased), max_iters))
 
 
-def _irregular_values(code, erased, tx_bits, max_iters, passes, traj):
+def _irregular_values(code, erased, tx_bits, max_iters, passes, traj,
+                      whole=None):
     """A value-plane decode on the phantom view: the phantom row is known,
     its transmitted bit 0."""
     res, rows = _decode_values(_phantom_view(code), _pad_phantom_row(erased),
                                _pad_phantom_row(tx_bits), max_iters, passes,
-                               traj)
+                               traj, whole)
     return _strip_phantom(res), rows
 
 
@@ -800,7 +924,8 @@ def bp_decode_packed_irregular(code, erased: torch.Tensor,
     """:func:`bp_decode_packed` for an irregular code or a batch of them;
     [n, W] planes in and out."""
     return _irregular_values(code, erased, tx_bits, max_iters,
-                             _VALUE_KERNELS, False)[0]
+                             _VALUE_KERNELS, False,
+                             erasure_decode_values)[0]
 
 
 def bp_decode_packed_irregular_plain(code, erased: torch.Tensor,

@@ -1418,6 +1418,151 @@ def test_value_decodes_on_gpu_equal_cpu(cuda, family, wpc, num):
     assert gpu.iterations == cpu.iterations
 
 
+# kernel D's value form: the whole random-transmit decode, a block a word of
+# one code (the fixed decodes) or a block a code (small batches)
+@pytest.mark.parametrize("family", ["regular", "irregular", "dc10"])
+@pytest.mark.parametrize("wpc, num", [(1, 40), (3, 7), (2, 1)])
+@pytest.mark.parametrize("max_iters", [0, 1, 50])
+def test_erasure_decode_values_kernel_equals_plain(cuda, family, wpc, num,
+                                                   max_iters):
+    codes = _erasure_batch(family, num)
+    rows = codes.var_to_chk.shape[1]
+    erased = torch.cat([bitops.bernoulli_packed(
+        float(p), (rows, wpc), seed=3, offset=g)
+        for g, p in enumerate(np.resize([0.0, 1.0, 0.3, 0.42, 0.5], num))],
+        dim=1)
+    # random planes, not codewords: checks teach clashing values
+    tx = bitops.bernoulli_packed(0.5, (rows, wpc * num), seed=4)
+    if family == "irregular":
+        erased[-1], tx[-1] = 0, 0               # the phantom: known, 0
+    out = []
+    for device in (cuda, "cpu"):
+        before = erasure_bp.erasure_decode_values.launches
+        got = erasure_bp.erasure_decode_values(
+            erased.to(device), tx.to(device), codes.chk_to_var.to(device),
+            codes.var_to_chk.to(device), max_iters)
+        assert erasure_bp.erasure_decode_values.launches - before == \
+            (1 if device == cuda else 0)
+        out.append([t.cpu() for t in got])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    rounds = out[1][3]
+    assert rounds[0] == 0 and int(rounds.max()) <= max_iters
+
+
+def test_erasure_decode_values_refuses_a_block_beyond_shared_memory(cuda):
+    # (3,6) at n = 10,332, one word: the all-zero form's block fits, the
+    # value form's does not
+    c = _code(10_332, seed=1).to(cuda)
+    erased = torch.zeros((10_332, 1), dtype=torch.int32, device=cuda)
+    chk, var = c.chk_to_var[None], c.var_to_chk[None]
+    erasure_bp.erasure_decode(erased, chk, var, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        erasure_bp.erasure_decode_values(erased, erased, chk, var, 5)
+
+
+def _value_limit():
+    """The largest (3,6) n whose one word fits the value form's block."""
+    return max(n for n in range(2, 40_000, 2)
+               if erasure_bp._erasure_decode_smem_bytes(n, n // 2, 6, 1, True)
+               <= erasure_bp.SMEM_OPTIN_BYTES)
+
+
+def _value_case(case, cuda):
+    """(the decode's code, erased, tx) on the card for a one-code case of
+    the value decode: the headline shape with codewords and with random
+    planes, the value form's one-word limit and one word above it, an
+    irregular code, and planes 8 bytes past a 16-byte boundary."""
+    if case == "irregular":
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(10_000, LAM, RHO)
+        c = irregular.sample_irregular_codes(5, 0, 1, spec,
+                                             "repair").select(0).to(cuda)
+        n, words = 10_000, 96
+    else:
+        n, words = {"headline_codeword": (10_000, 768),
+                    "headline_random": (10_000, 768),
+                    "limit": (_value_limit(), 40),
+                    "above": (_value_limit() + 2, 8),
+                    "misaligned": (600, 33)}[case]
+        c = _code(n, seed=n).to(cuda)
+    erased = bitops.bernoulli_packed(0.42, (n, words), seed=7, device=cuda)
+    if case in ("headline_codeword", "misaligned"):
+        tx = _encoded(c, words, 8, cuda)[2]
+    else:
+        tx = bitops.bernoulli_packed(0.5, (n, words), seed=8, device=cuda)
+    if case == "misaligned":
+        planes = []
+        for t in (erased, tx):
+            base = torch.zeros(n * words + 2, dtype=torch.int32,
+                               device=cuda)
+            planes.append(base[2:].view(n, words).copy_(t))
+        erased, tx = planes
+    return c, erased, tx
+
+
+@pytest.mark.parametrize("case", ["headline_codeword", "headline_random",
+                                  "limit", "irregular", "misaligned",
+                                  "above"])
+def test_value_decode_takes_kernel_d_by_rule(cuda, case):
+    # one code: the value form one block a word where the word fits a
+    # block, else the host loop over check_exactly_one_xor and
+    # variable_or_adopt; either way equal to the plain host loop and to the
+    # round kernels' host loop
+    c, erased, tx = _value_case(case, cuda)
+    irr = case == "irregular"
+    decode, plain = (erasure_bp.bp_decode_packed_irregular,
+                     erasure_bp.bp_decode_packed_irregular_plain) if irr \
+        else (erasure_bp.bp_decode_packed, erasure_bp.bp_decode_packed_plain)
+    view = erasure_bp._phantom_view(c) if irr else c
+    takes = case != "above"
+    assert erasure_bp.takes_erasure_decode_kernel(
+        view, erased.shape[1], values=True) is takes
+    wrappers = (erasure_bp.erasure_decode_values,
+                erasure_bp.check_exactly_one_xor,
+                erasure_bp.variable_or_adopt)
+    before = [w.launches for w in wrappers]
+    got = decode(c, erased, tx, 50)
+    torch.cuda.synchronize()
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    if takes:
+        assert launched == [1, 0, 0]
+    else:
+        assert launched[0] == 0 and launched[1] == launched[2] == \
+            got.iterations
+    rounds = erasure_bp._irregular_values(
+        c, erased, tx, 50, erasure_bp._VALUE_KERNELS, False)[0] if irr \
+        else erasure_bp._decode_values(c, erased, tx, 50,
+                                       erasure_bp._VALUE_KERNELS, False)[0]
+    for want in (rounds, plain(c, erased, tx, 50)):
+        for field in ("known", "val", "error_totals"):
+            assert torch.equal(getattr(got, field), getattr(want, field))
+        assert got.iterations == want.iterations
+    if case == "headline_random":               # on the CPU as well
+        cpu = erasure_bp.bp_decode_packed(c.to("cpu"), erased.cpu(),
+                                          tx.cpu(), 50)
+        assert torch.equal(got.val.cpu(), cpu.val)
+        assert torch.equal(got.error_totals.cpu(), cpu.error_totals)
+
+
+def test_fixed_random_run_takes_kernel_d(cuda):
+    # the mode-3 random-transmit BEC run launches the value form once a
+    # chunk and the row-5 round kernels never, and equals the CPU's run
+    cfg = SimulationConfig(channel_param=0.42, n=504, code_mode="fixed",
+                           iterations=40, batch=640, num_tests=1920, seed=4,
+                           max_block_errors=10**9, transmit="random")
+    code = _code(504, seed=2)
+    wrappers = (erasure_bp.erasure_decode_values,
+                erasure_bp.check_exactly_one_xor,
+                erasure_bp.variable_or_adopt)
+    before = [w.launches for w in wrappers]
+    gpu = mc.run_simulation(cfg, code, device="cuda")
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3, 0, 0]
+    cpu = mc.run_simulation(cfg, code, device="cpu")
+    for field in ("num_trials", "block_errors", "bit_errors",
+                  "bit_errors_sq", "error_counts_per_iteration"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+
+
 @pytest.mark.parametrize("shape", [(97, 64), (600, 640)])
 def test_awgn_llr_kernel_with_codewords_equals_plain(cuda, shape):
     tx = bitops.bernoulli_packed(0.5, (shape[0], shape[1] // 32), seed=13)
