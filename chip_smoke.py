@@ -45,8 +45,11 @@ instantiation of kernel C from the built library.
 
 Phases 23-27 do the same for random-codeword transmit (``transmit=
 "random"``): kernel E (the systematic encoder), the two value-plane
-round kernels and kernel D's value form (the whole decode, a block a word
-of one code or a block a code, with codewords and with random planes that
+round kernels (K2's and K3's value forms: at S1, the ensemble random
+chunk's rounds, S2, one code at n = 10^4, and S3, n = 10^6, W = 48, random
+planes two rounds in, 16 bytes a thread, and at one word a thread on
+misaligned planes) and kernel D's value form (the whole decode, a block a
+word of one code or a block a code, with codewords and with random planes that
 are not, regular and irregular; two cases also against the CPU) against
 their plain versions, kernels A, B and the Gallager variable kernel with a
 codeword plane, every encoded word checked against H, whole value-plane
@@ -62,11 +65,12 @@ at the same seed, and their timing: kernel E beside its bound (the least
 over a walk of the set map bits, the method of Four Russians and the
 tensor-core product) and a library matmul, the value decode by D's value
 form beside the host loop over the round kernels it replaced (in turns),
-D's value form beside its shared-memory bound and its registers, chunks
-against the zero-transmit chunks, and the encoder derivation at n = 10^4
-and per ensemble chunk.  For kernel E and D's value form ``launches``
-counts the fixed random BEC path (the CLI's two chunks), for the two
-value-round kernels the ensemble random BEC path.
+D's value form beside its shared-memory bound and its registers, the
+value-round kernels' device times at S1-S3 beside their bounds and their
+registers, chunks against the zero-transmit chunks, and the encoder
+derivation at n = 10^4 and per ensemble chunk.  For kernel E and D's
+value form ``launches`` counts the fixed random BEC path (the CLI's two
+chunks), for the two value-round kernels the ensemble random BEC path.
 
 Phases 28-32 do the same for quasi-cyclic (QC) codes, whose entry point is
 ``run_simulation(cfg, code=qc)``: the four circulant-index kernels (the BEC
@@ -166,7 +170,12 @@ and C; the fixed (3,6) Gallager path for the Gallager check and variable
 kernels, which the ensemble paths no longer run) and ``launches_by_path``
 every path of phases 16 and 21.  Kernels G's and D's bounds are their
 shared-memory accesses for the rounds their codes ran, over 132 SMs x 32
-a clock at 1.98 GHz, or their device-memory bytes.
+a clock at 1.98 GHz, or their device-memory bytes.  Kernel A's bound
+counts, beside its bytes, the FP64 instructions of a trip of its main loop
+in the built SASS (``sass_loop_counts``) at 64 lanes an SM; K4's the
+integer operations the counts need (``vertical_count_ops``, a bit-sliced
+counter) at the SM's 128 issue slots a clock, with its own loop's integer
+instructions a word beside it (``kernel_ops_ms``).
 
 Every phase prints its wall time when the next one starts.  Any failed
 check raises, and the script exits non-zero without printing a
@@ -296,15 +305,16 @@ def time_ms(run, prepare=None, reps: int = 5, warmup: bool = True) -> float:
 def device_ms(run, kernel: str, prepare=None, reps: int = 5) -> float:
     """Mean device time in ms of the kernels whose name holds ``kernel``
     over ``reps`` calls of ``run()`` under torch.profiler, after a warm-up
-    step of as many, in up to three traces (a trace can lose its device
-    events): the kernel alone, without the wrapper's host work that
-    :func:`time_ms` includes (40-70 us, as long as a short kernel)."""
+    step of as many, in up to five traces (a trace can lose its device
+    events; NaN when all five did): the kernel alone, without the
+    wrapper's host work that :func:`time_ms` includes (40-70 us, as long
+    as a short kernel)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     times = []
-    for _ in range(3):      # a trace can lose its device events: retry
+    for _ in range(5):      # a trace can lose its device events: retry
         traced = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -1529,6 +1539,8 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
           f"kernel A differs from its plain version: {ulp_max} ulps at most, "
           f"in a share {ulp_share} of the entries")
     count = llr.numel()
+    sass_a = sass_loop_counts("awgn_llr_kernelILb0E")
+    sass_a.pop("span")
     mean, var = float(llr.double().mean()), float(llr.double().var())
     check(abs(mean - 2 / SIGMA_SP ** 2) < 5 * (4 / SIGMA_SP ** 2 / count)
           ** 0.5 and abs(var / (4 / SIGMA_SP ** 2) - 1) < 5 * (2 / count)
@@ -1546,14 +1558,29 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
             SIGMA_SP, shape, key, 3, dev), reps=1, warmup=False),
         library_ms=None,
         torch_randn_ms=time_ms(lambda: torch.randn(shape, device=dev)),
-        # float64: 5 operations an element, a log, sqrt or sincos as one
-        **bound(nbytes(llr), count * 5, FP64_OPS_S))
+        device_ms=device_ms(lambda: channels.awgn_llr(
+            SIGMA_SP, shape, seed=7, offset=3, device=dev),
+            "awgn_llr_kernel"),
+        # float64: the FP64-pipe instructions of a trip of the grid-stride
+        # loop (one Philox block, four elements) in the kernel's SASS, the
+        # math library's log / sqrt / sincos sequences as nvcc emits them;
+        # a few of them run only for special inputs (``fp64_guarded``, and
+        # code a forward branch skips, ``skipped``), so the count is a
+        # little above what an ordinary element runs
+        sass=sass_a,
+        **bound(nbytes(llr), count / 4 * sass_a["fp64"], FP64_INSTR_S))
     del llr_p, ulps
     print(f"kernel A: {ulp_max} ulp at most, share {ulp_share:.3e} of "
           f"{count} entries; mean {mean:.5f} (2/sigma^2 "
           f"{2 / SIGMA_SP ** 2:.5f}), raw BER {raw:.5f} (Q {q_raw:.5f}); "
-          f"{measured['awgn_llr']['ms']:.4f} ms, bound "
-          f"{measured['awgn_llr']['bound_ms']:.4f} ms", flush=True)
+          f"{measured['awgn_llr']['ms']:.4f} ms, device "
+          f"{measured['awgn_llr']['device_ms']:.4f} ms, bound "
+          f"{measured['awgn_llr']['bound_ms']:.4f} ms "
+          f"({measured['awgn_llr']['bound_by']}: {sass_a['fp64']} FP64 "
+          f"instructions a loop trip of 4 elements, {sass_a['fp64_guarded']} "
+          f"of them predicated, {sass_a['total']} in all, "
+          f"{sass_a['skipped']} behind forward branches, {sass_a['calls']} "
+          f"calls)", flush=True)
 
     fixed = ensemble.code_for_config(SimulationConfig(
         n=N_SOFT, dv=DV, dc=DC, code_mode="fixed")).to(dev)
@@ -2074,6 +2101,7 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
     ulp (as phase 18) and kernel B exactly."""
     import torch
 
+    from iib_project_ldpc_codes_tpu_torch.kernels import l2_bytes
     from iib_project_ldpc_codes_tpu_torch.models import (encode, ensemble,
                                                          irregular)
     from iib_project_ldpc_codes_tpu_torch.ops import (bitops, channels,
@@ -2117,7 +2145,47 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
           f"{ens_planes.rank}, k_max {ens_planes.k}; {ens_derive_s:.3f} s",
           flush=True)
     cases = {"one_code": (code, planes), "ensemble": (ens_codes, ens_planes)}
-    txs, err_e, err_x, err_v, value_ms = {}, 0, 0, 0, {}
+    txs, err_e, value_ms, value_planes, value_tiles = {}, 0, {}, {}, {}
+    value_err = {"check": 0, "variable": 0}
+
+    def value_round_against_plain(label, c, known0, val0, align=16, vec=4):
+        """Both value-round kernels (K2's and K3's value forms) on (known0,
+        val0) placed ``align`` bytes past a 16-byte boundary, against their
+        plain versions, and the words a thread they launched (``vec``);
+        returns the plain check pass's planes."""
+        eo, ad = erasure_bp.check_exactly_one_xor(
+            c.chk_to_var, misaligned(known0, align), misaligned(val0, align))
+        launched = [(erasure_bp.check_exactly_one_xor.vec,
+                     erasure_bp.check_exactly_one_xor.tile)]
+        want = erasure_bp._check_exactly_one_xor_plain(c.chk_to_var, known0,
+                                                       val0)
+        err = max(max_abs_err(eo, want[0]), max_abs_err(ad, want[1]))
+        check(err == 0, f"check_exactly_one_xor ({label}) differs from its "
+                        f"plain version (max |d| {err})")
+        value_err["check"] = max(value_err["check"], err)
+        outs = []
+        for fn in (erasure_bp.variable_or_adopt,
+                   erasure_bp._variable_or_adopt_plain):
+            outs.append([misaligned(t, align) for t in (known0, val0)] + [
+                torch.zeros(2, dtype=torch.int32, device=dev)])
+            fn(c.var_to_chk, *(misaligned(t, align) for t in want),
+               *outs[-1], 1)
+            if fn is erasure_bp.variable_or_adopt:
+                launched.append((erasure_bp.variable_or_adopt.vec,
+                                 erasure_bp.variable_or_adopt.tile))
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(*outs))
+        check(err == 0, f"variable_or_adopt ({label}) differs from its plain "
+                        f"version (max |d| {err})")
+        value_err["variable"] = max(value_err["variable"], err)
+        tile = erasure_bp.value_round_tile(*known0.shape, l2_bytes(0))
+        check(launched == [(vec, tile)] * 2, f"the value round ({label}) "
+              f"launched (words a thread, tile) {launched}, expected "
+              f"{(vec, tile)}")
+        value_tiles[label] = tile
+        print(f"value round {label}: both kernels equal to plain, {vec} "
+              f"words a thread, column tiles of {tile} words", flush=True)
+        return want
     for label, (c, pl) in cases.items():
         info = bitops.info_planes(pl.k, WORDS_FULL, seed=1, offset=0,
                                   device=dev)
@@ -2134,13 +2202,8 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
                                          offset=3, device=dev)
         known0 = ~erased
         val0 = tx & known0
-        eo, ad = erasure_bp.check_exactly_one_xor(c.chk_to_var, known0, val0)
-        eo_p, ad_p = erasure_bp._check_exactly_one_xor_plain(
-            c.chk_to_var, known0, val0)
-        err = max(max_abs_err(eo, eo_p), max_abs_err(ad, ad_p))
-        check(err == 0, f"check_exactly_one_xor ({label}) differs from its "
-                        f"plain version (max |d| {err})")
-        err_x = max(err_x, err)
+        eo, ad = value_round_against_plain(label, c, known0, val0)
+        value_planes[label] = (c, known0, val0, eo, ad)
         state = {}
 
         def fresh():
@@ -2151,17 +2214,6 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
             fn(c.var_to_chk, eo, ad, state["known"], state["val"],
                state["errors"], 1)
 
-        fresh()
-        run(erasure_bp.variable_or_adopt)
-        got = (state["known"], state["val"], state["errors"])
-        fresh()
-        run(erasure_bp._variable_or_adopt_plain)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(a, b) for a, b in zip(
-            got, (state["known"], state["val"], state["errors"])))
-        check(err == 0, f"variable_or_adopt ({label}) differs from its plain "
-                        f"version (max |d| {err})")
-        err_v = max(err_v, err)
         value_ms[label] = dict(
             check_ms=time_ms(lambda: erasure_bp.check_exactly_one_xor(
                 c.chk_to_var, known0, val0)),
@@ -2177,11 +2229,27 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
             variable_bound=bound(nbytes(c.var_to_chk, eo, ad, known0, known0,
                                         val0, val0, state["errors"])))
         print(f"{label}: E equal to plain, every word a codeword; value "
-              f"round equal to plain: check "
+              f"round: check "
               f"{value_ms[label]['check_ms']:.4f} ms (plain "
               f"{value_ms[label]['check_plain_ms']:.3f}), variable "
               f"{value_ms[label]['variable_ms']:.4f} ms (plain "
               f"{value_ms[label]['variable_plain_ms']:.3f})", flush=True)
+    # the value round at N = 1 (the one-code planes 4 bytes past a 16-byte
+    # boundary) and at n = 10^6, W = 48, random value planes two rounds in
+    c, known0, val0 = value_planes["one_code"][:3]
+    value_round_against_plain("one_code_N1", c, known0, val0, align=4,
+                              vec=1)
+    big = ensemble.code_for_config(SimulationConfig(
+        n=N_EDGE, dv=DV, dc=DC, code_mode="fixed")).to(dev)
+    big_erased = bitops.bernoulli_packed(EPS_FULL, (N_EDGE, W_EDGE), seed=38,
+                                         device=dev)
+    known0 = erasure_bp.bp_decode_packed_allzero(big, big_erased, 2).known
+    val0 = bitops.bernoulli_packed(0.5, (N_EDGE, W_EDGE), seed=39,
+                                   device=dev) & known0
+    value_planes["n1e6"] = (big, known0, val0,
+                            *value_round_against_plain("n1e6", big, known0,
+                                                       val0))
+    del big_erased
     # kernel A with a codeword plane (any plane will do for the comparison)
     shape = (N_SOFT, COLS_SOFT)
     tx_soft = bitops.info_planes(N_SOFT, COLS_SOFT // 32, seed=2,
@@ -2702,15 +2770,64 @@ def random_paths(dev, smi, measured, kernels, scratch_root, code) -> None:
           f"shared-memory accesses); plain {row['plain_ms']:.1f} ms; "
           f"resources {json.dumps(resources)}", flush=True)
     decode_ms = {k: sum(v) / len(v) for k, v in decode_ms.items()}
+    # the value round's kernels (row 5) by device time at S1 (the ensemble
+    # random chunk's rounds), S2 (one code at n = 10^4) and S3 (n = 10^6,
+    # two rounds in) beside their bounds, and their registers
+    value_device = {}
+    for label, shape in (("ensemble", "s1"), ("one_code", "s2"),
+                         ("n1e6", "s3")):
+        vc, known0, val0, eo, ad = value_planes[label]
+        state = {}
+
+        def fresh():
+            state["known"], state["val"] = known0.clone(), val0.clone()
+            state["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def variable():
+            erasure_bp.variable_or_adopt(vc.var_to_chk, eo, ad,
+                                         state["known"], state["val"],
+                                         state["errors"], 1)
+
+        value_device[shape] = {
+            "tile": value_tiles[label],
+            "check": dict(device_ms=device_ms(
+                lambda: erasure_bp.check_exactly_one_xor(
+                    vc.chk_to_var, known0, val0),
+                "check_exactly_one_xor_kernel"),
+                **bound(nbytes(vc.chk_to_var, known0, val0, eo, ad))),
+            "variable": dict(device_ms=device_ms(
+                variable, "variable_or_adopt_kernel", prepare=fresh),
+                **bound(nbytes(vc.var_to_chk, eo, ad, known0, known0, val0,
+                               val0) + 4))}
+    del value_planes
+    lost = [f"{shape} {key}" for shape, v in value_device.items()
+            for key in ("check", "variable")
+            if not math.isfinite(v[key]["device_ms"])]
+    check(not lost, f"the value round's device time was not measured at "
+                    f"{lost}: the profiler recorded none of its launches")
+    value_resources = round_kernel_resources(
+        _res_usage(), (("check_exactly_one_xor", "dc"),
+                       ("variable_or_adopt", "dv")))
+    print(f"the value round by device time at S1 (ensemble, n = {N_RT_ENS}, "
+          f"{CODES_RT_ENS} codes of {WORDS_FULL // CODES_RT_ENS} words), S2 "
+          f"(n = {N_FULL}, W = {WORDS_FULL}), S3 (n = {N_EDGE}, W = "
+          f"{W_EDGE}, two rounds in): {json.dumps(value_device)}; registers "
+          f"{json.dumps(value_resources)}; card {smi}", flush=True)
     for name, key in (("check_exactly_one_xor", "check"),
                       ("variable_or_adopt", "variable")):
         t = value_ms["one_code"]
         measured[name].update(
-            max_abs_err=err_x if key == "check" else err_v,
+            max_abs_err=value_err[key],
             ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
             library_ms=None, **t[f"{key}_bound"],
             ensemble_ms=value_ms["ensemble"][f"{key}_ms"],
-            ensemble_plain_ms=value_ms["ensemble"][f"{key}_plain_ms"])
+            ensemble_plain_ms=value_ms["ensemble"][f"{key}_plain_ms"],
+            device_ms={k: v[key]["device_ms"]
+                       for k, v in value_device.items()},
+            tiles={k: v["tile"] for k, v in value_device.items()},
+            bound_ms_by_shape={k: v[key]["bound_ms"]
+                               for k, v in value_device.items()},
+            resources=value_resources[name])
 
     def config(**fields):
         return SimulationConfig(**{
@@ -3443,6 +3560,74 @@ def _cuobjdump(*flags) -> str:
                           check=True).stdout
 
 
+# FP64 instructions a second: 64 FP64 lanes an SM at the boost clock (the
+# data sheet's 33.5 TFLOP/s counts a fused multiply-add as two operations).
+# Integer instructions issue on more than one pipe (IMAD on the FMA pipe),
+# so they are held to INT32_OPS_S, the SM's 128 issue slots a clock.
+FP64_INSTR_S = 132 * 64 * 1.98e9
+_INT_ALU = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "IMAD",
+            "IMUL", "ISETP", "LEA", "IABS", "IMNMX", "VIMNMX", "VIADD", "POPC",
+            "FLO", "BMSK", "SGXT", "BREV", "PRMT", "SEL", "I2I", "BFE", "BFI"}
+_FP64 = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+
+
+def sass_loop_counts(kernel: str) -> dict:
+    """SASS instruction counts over one trip of the largest loop (the
+    instructions between a backward branch and its target, each once) of
+    the first function of the built library whose name holds ``kernel``:
+    ``fp64`` the FP64-pipe arithmetic (DADD, DMUL, DFMA, DSETP, DMNMX;
+    ``fp64_guarded`` of them carry a predicate),
+    ``int_alu`` the integer and logic instructions (IADD3, LOP3, SHF,
+    IMAD, ISETP, LEA, ...; no moves, memory, control or uniform-datapath
+    instructions), ``loads`` the global loads, and ``total``.  Code called
+    out of line (the math library's slow paths, after the kernel's EXIT)
+    lies outside the loop and is not counted.  What could make a trip
+    differ from the span: ``skipped`` the instructions of the span that a
+    forward branch inside it jumps over (code a trip may not run, such as
+    a rarely taken path placed inline), ``exits`` the branches out of the
+    span that are not the latch, ``calls`` the calls in it, and ``span``
+    the span's SASS, one instruction a line."""
+    import re
+
+    name = next(k for k in _res_usage() if kernel in k)
+    text = _cuobjdump("-sass", "-fun", name)
+    found = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);", text)
+    ins = [(int(a, 16), op, rest) for a, _, op, rest in found]
+    guard = {int(a, 16): g.strip() for a, g, _, _ in found}
+    targets = {a: int(t.group(1), 16) for a, op, rest in ins
+               if op.startswith("BRA")
+               and (t := re.search(r"0x([0-9a-f]+)", rest))}
+    loops = [(t, a) for a, t in targets.items() if t <= a]
+    check(bool(loops), f"{kernel}: no loop in its SASS")
+    head, latch = max(loops, key=lambda x: x[1] - x[0])
+    span = [(a, op, rest) for a, op, rest in ins if head <= a <= latch]
+    kinds = [op.split(".")[0] for _, op, _ in span]
+    skipped = {a for b, t in targets.items() if head <= b < t <= latch
+               for a, _, _ in span if b < a < t}
+    return {"function": name, "total": len(span),
+            "fp64": sum(k in _FP64 for k in kinds),
+            "fp64_guarded": sum(k.split(".")[0] in _FP64 and bool(guard[a])
+                                for a, k, _ in span),
+            "int_alu": sum(k in _INT_ALU for k in kinds),
+            "loads": sum(k == "LDG" for k in kinds),
+            "skipped": len(skipped),
+            "exits": sum(head <= b < latch and not head <= t <= latch
+                         for b, t in targets.items()),
+            "calls": sum(k.startswith("CALL") for k in kinds),
+            "span": [" ".join(f"{a:04x} {guard[a]} {op}{rest}".split())
+                     for a, op, rest in span]}
+
+
+def vertical_count_ops(rows: int, words: int) -> int:
+    """The integer operations the per-trial counts of an int32[rows, words]
+    plane need: a bit-sliced (carry-save) vertical counter takes each word
+    in with about one full adder, 5 logic operations (2 XOR, 2 AND, 1 OR),
+    and reads the 32 counts of a column out of its bit planes (one a bit of
+    ``rows``) at 3 operations (shift, mask, add) a count a plane."""
+    return 5 * rows * words + 3 * 32 * rows.bit_length() * words
+
+
 def _resource_fields(text: str) -> dict:
     """cuobjdump's REG/STACK/SHARED/LOCAL of one function, with the
     theoretical occupancy its registers allow at 256 threads a block."""
@@ -3475,13 +3660,54 @@ def erasure_decode_resources() -> dict:
     return out
 
 
+# the BEC round's gather kernels and their exact degrees: K2, K3, their
+# value forms (check_exactly_one_xor, variable_or_adopt) and X1
+ROUND_KERNELS = (("check_exactly_one", "dc"), ("variable_or_update", "dv"),
+                 ("check_exactly_one_xor", "dc"),
+                 ("variable_or_adopt", "dv"), ("edge_candidates", "dv"))
+
+
+def _res_usage() -> dict:
+    """cuobjdump -res-usage of the built library: {mangled name: text}."""
+    import re
+
+    return dict(re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
+                           r"SHARED:\d+ LOCAL:\d+)",
+                           _cuobjdump("-res-usage")))
+
+
+def round_kernel_resources(usage: dict, kernels) -> dict:
+    """Registers of the round kernels ``kernels`` ((name, degree letter)
+    pairs of ROUND_KERNELS): each ``<name>_kernel<N, kDeg>`` (degree 0 the
+    socket loop), four instantiations each; fails on local memory in
+    any."""
+    import re
+
+    out = {}
+    for kernel, deg in kernels:
+        out[kernel] = {}
+        for name, text in usage.items():
+            m = re.search(rf"{len(kernel) + 7}{kernel}_kernelI(\w*?)EEv",
+                          name)
+            if not m:
+                continue
+            vec, exact = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
+            key = f"N{vec}_" + (f"{deg}{exact}" if exact else "loop")
+            f = _resource_fields(text)
+            out[kernel][key] = f
+            check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
+        check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
+              "instantiations in the library, expected 4")
+    return out
+
+
 def kernel_resources(smi: str) -> dict:
     """Registers, stack frame and local memory (spills), read with the
     toolkit's cuobjdump from the built library, of every instantiation of
     kernels C (``soft_check``) and B (``soft_posterior``), of the Gallager
     round kernels (``gallager_check``, ``gallager_variable``), of Q1 and Q2
-    (``qc_check_exactly_one``, ``qc_variable_or``), of K2, K3 and X1
-    (``check_exactly_one``, ``variable_or_update``, ``edge_candidates``), of
+    (``qc_check_exactly_one``, ``qc_variable_or``), of K2, K3, their value
+    forms and X1 (ROUND_KERNELS), of
     Q4
     (``qc_gallager_variable``, its first messages too) and of S2's
     int8 instantiations
@@ -3490,15 +3716,13 @@ def kernel_resources(smi: str) -> dict:
     warp's registers allocated in units of 256, at most 64 warps an SM).
     Fails on a stack frame or local memory in S2 int8 and on local memory
     in C, in the round kernels' exact-degree instantiations and in Q1, Q2,
-    K2, K3, X1 and Q4; C's
+    K2, K3, their value forms, X1 and Q4; C's
     stack frames (spill slots) are printed: its int8 instantiations up to
     degree 6 are held to 80 registers for three blocks an SM, measured faster
     with a few bytes spilled than at 96."""
     import re
 
-    usage = dict(re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
-                            r"SHARED:\d+ LOCAL:\d+)",
-                            _cuobjdump("-res-usage")))
+    usage = _res_usage()
     s2 = {k: v for k, v in usage.items() if "qc_soft_check_kernel_int8" in k}
     check(len(s2) == 3, f"S2 int8: {len(s2)} instantiations in the library, "
           "expected 3")
@@ -3628,26 +3852,7 @@ def kernel_resources(smi: str) -> dict:
             check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
         check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
               "instantiations in the library, expected 4")
-    # K2, K3 and X1: check_exactly_one_kernel<N, kDc>,
-    # variable_or_update_kernel<N, kDv> and edge_candidates_kernel<N, kDv>
-    # (24, 25 and 22 letters mangled; degree 0 the socket loop); no local
-    # memory in any
-    for kernel, deg in (("check_exactly_one", "dc"),
-                        ("variable_or_update", "dv"),
-                        ("edge_candidates", "dv")):
-        out[kernel] = {}
-        for name, text in usage.items():
-            m = re.search(rf"{len(kernel) + 7}{kernel}_kernelI(\w*?)EEv",
-                          name)
-            if not m:
-                continue
-            vec, exact = map(int, re.findall(r"L[ib](\d+)E", m.group(1)))
-            key = f"N{vec}_" + (f"{deg}{exact}" if exact else "loop")
-            f = _resource_fields(text)
-            out[kernel][key] = f
-            check(f["local"] == 0, f"{kernel} {key}: local memory {text}")
-        check(len(out[kernel]) == 4, f"{kernel}: {len(out[kernel])} "
-              "instantiations in the library, expected 4")
+    out.update(round_kernel_resources(usage, ROUND_KERNELS))
     print(f"kernel resources (S2 int8: U words a thread, up to dc sockets, "
           f"per_socket_and_word the kernel's SASS over dc * U; kernels C "
           f"and B: type, (C) method, V trials a thread, the exact degree or "
@@ -4782,12 +4987,12 @@ def main() -> int:
         "check_exactly_one_xor": dict(
             wrapper=erasure_bp.check_exactly_one_xor,
             source="iib_project_ldpc_codes_tpu_torch/csrc/"
-                   "check_exactly_one_xor.cu",
+                   "check_exactly_one.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:239"),
         "variable_or_adopt": dict(
             wrapper=erasure_bp.variable_or_adopt,
             source="iib_project_ldpc_codes_tpu_torch/csrc/"
-                   "variable_or_adopt.cu",
+                   "variable_or_update.cu",
             replaces="iib_project_ldpc_codes_tpu/ops/erasure_bp.py:239"),
         "qc_check_exactly_one": dict(
             wrapper=qc_bp.qc_check_exactly_one,
@@ -4952,11 +5157,29 @@ def main() -> int:
     c_p = bitops._per_trial_counts_plain(erased)
     err = max_abs_err(c_k, c_p)
     check(err == 0, f"K4 differs from its plain version (max |d| {err})")
+    # the bound counts the operations the function needs (a bit-sliced
+    # counter, vertical_count_ops); beside it, the integer instructions
+    # this kernel spends a word: a trip of its row loop over the words it
+    # loads, in its SASS
+    sass_k4 = sass_loop_counts("per_trial_counts_kernel")
+    sass_k4.pop("span")
+    k4_ops = vertical_count_ops(*erased.shape)
     measured["per_trial_counts"].update(
         max_abs_err=err,
         ms=time_ms(lambda: bitops.per_trial_counts(erased)),
+        device_ms=device_ms(lambda: bitops.per_trial_counts(erased),
+                            "per_trial_counts_kernel"),
         plain_ms=time_ms(lambda: bitops._per_trial_counts_plain(erased)),
-        **bound(nbytes(erased, c_k)))
+        sass=sass_k4, ops=k4_ops,
+        kernel_ops_ms=erased.numel() * sass_k4["int_alu"] / sass_k4["loads"]
+        / INT32_OPS_S * 1e3,
+        **bound(nbytes(erased, c_k), k4_ops, INT32_OPS_S))
+    row = measured["per_trial_counts"]
+    print(f"K4: {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {k4_ops} integer "
+          f"operations needed); this kernel's {sass_k4['int_alu']} integer "
+          f"instructions a loop trip of {sass_k4['loads']} words take "
+          f"{row['kernel_ops_ms']:.4f} ms at the issue rate", flush=True)
     # whole decodes: kernel D (one block a word, the route of one code
     # whose word fits a block), the K2/K3 host loop and the plain one
     check(erasure_bp.erasure_decode_block_words(code, WORDS_FULL) == 1,
@@ -5143,11 +5366,14 @@ def main() -> int:
     # the layouts' edges (the largest E that keeps the words in shared
     # memory, the smallest that moves them to the global scratch buffer)
     # and the R-process experiment's n = 16,384 (words shared, partners in
-    # the global scratch buffer)
+    # the global scratch buffer); "reject" on one code each, as its plain
+    # version redraws a code about e^5 times
     for n_s, num_s, methods in (
-            (EDGE_SHARED_N, 4, ("raw", "repair", "reject")),
-            (EDGE_SHARED_N + 2, 4, ("raw", "repair", "reject")),
-            (PEEL_N, 400, ("raw", "repair")), (PEEL_N, 2, ("reject",))):
+            (EDGE_SHARED_N, 4, ("raw", "repair")), (EDGE_SHARED_N, 1,
+                                                    ("reject",)),
+            (EDGE_SHARED_N + 2, 4, ("raw", "repair")),
+            (EDGE_SHARED_N + 2, 1, ("reject",)),
+            (PEEL_N, 400, ("raw", "repair")), (PEEL_N, 1, ("reject",))):
         for method in methods:
             got = ensemble.sample_codes(3, 1, num_s, n_s, DV, DC, method,
                                         device=dev)

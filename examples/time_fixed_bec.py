@@ -2,9 +2,12 @@
 decode, the fixed irregular decode, the peeling and mode-3 chunks at n =
 10^4, the random-transmit (value-plane) decode by the package's route
 beside the host loop over ``check_exactly_one_xor`` / ``variable_or_adopt``
-and the mode-3 random-transmit chunk, K3 ``variable_or_update``
-(``csrc/variable_or_update.cu``) at its shapes, and the n = 10^6 decode
-that keeps the K2/K3 round loop.
+and the mode-3 random-transmit chunk, the ``_traj`` decode, the ensemble
+random chunk's decode, K2 ``check_exactly_one`` and K3
+``variable_or_update`` (``csrc/check_exactly_one.cu``,
+``csrc/variable_or_update.cu``) at their shapes, the value round's two
+kernels at three shapes, and the n = 10^6 decode that keeps the K2/K3
+round loop.
 
     python examples/time_fixed_bec.py [--root DIR] [--reps 10]
         [--out results/time_fixed_bec.json]
@@ -37,13 +40,30 @@ single launches (``ms``: the wrapper's host work included), at one code of
 n = 10^4 (W = 768, round 1), at 768 codes of one word each (N = 1) and at
 n = 10^6, W = 48, two and ``LATER`` rounds into the decode; ``bound_ms``
 counts its table, the exactly-one plane and ``known`` read once and
-``known`` written once at 3.35 TB/s.  Where the tree has kernel D's value
+``known`` written once at 3.35 TB/s; K2 the same way at one code and at
+n = 10^6 two rounds in.  The value round (``value_round``):
+``check_exactly_one_xor`` and ``variable_or_adopt`` by torch.profiler
+and by events, with their launched words a thread (``vec``), a digest of
+their outputs and ``bound_ms`` (their tables and planes read once, their
+planes written once), and their grid's column tile (``tile``), at S1, the ensemble random BEC chunk's rounds
+((3,6), n = 2048, 32 codes of 24 words, W = 768, eps = 0.40, codewords,
+the first round), S2, one code at n = 10^4, W = 768, eps = 0.42,
+codewords, the first round, and S3, n = 10^6, W = 48, random value
+planes, two rounds in; ``value_round_resources`` holds the registers of
+their instantiations (cuobjdump).  The ``_traj`` decode (``traj``) runs
+at S2, the ensemble random decode (``ensemble_value``: the host loop over
+the value round, whose blocks do not fit kernel D's value form) at S1.
+Where the tree has kernel D's value
 form (``erasure_decode_values``), ``value_form`` holds its device time
 (torch.profiler) on the headline planes, its rounds per block, its bound
 in shared-memory accesses (``chip_smoke.value_decode_smem_accesses``) and
 the registers and spills of both of D's kernels (cuobjdump), and
 ``transpose_share`` the plane transposes' share of each decode's device
-time.
+time.  ``value_large`` is the random-transmit decode of a fixed (3,6) code
+at n = ``N_LARGE``, W = 768, eps = 0.42, codewords: above D's value-form
+limit, so the host loop over the value round.  ``--value-tile whole``
+runs the value round untiled (its column tile W) instead of by the
+package's rule, so that the two can be compared in turns.
 """
 
 from __future__ import annotations
@@ -61,6 +81,9 @@ import torch
 #: the later state of the n = 10^6 decode: rounds run before it (at eps =
 #: 0.42 the decode stops after about 34 rounds)
 LATER = 16
+#: a fixed (3,6) code above kernel D's value-form limit (one word a block
+#: up to n = 10,330): its random-transmit decode keeps the value round
+N_LARGE = 12_000
 
 
 def digest(*tensors) -> str:
@@ -77,6 +100,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", type=Path,
                     default=Path("results/time_fixed_bec.json"))
+    ap.add_argument("--value-tile", choices=("rule", "whole"),
+                    default="rule",
+                    help="the value round's column tile: the package's rule "
+                         "(value_round_tile), or W, the grid untiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -97,10 +124,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kbuild.build()
-    out = {"root": str(root), "card": cs.smi_line(), "decode_ms": {},
+    if args.value_tile == "whole":
+        erasure_bp.value_round_tile = lambda rows, words, cache_bytes: words
+    out = {"root": str(root), "card": cs.smi_line(),
+           "value_tile": args.value_tile, "decode_ms": {},
            "info_bits_per_s": {}, "profile": {}, "launches": {},
-           "chunk_ms": {}, "k3": {}, "digest": {}, "vec": {},
-           "transpose_share": {}}
+           "chunk_ms": {}, "k2": {}, "k3": {}, "value_round": {},
+           "digest": {}, "vec": {}, "transpose_share": {}}
     wrappers = {k: {"wrapper": getattr(m, k)} for m, k in (
         (bitops, "bernoulli_packed"), (erasure_bp, "check_exactly_one"),
         (erasure_bp, "variable_or_update"), (erasure_bp, "erasure_decode"),
@@ -180,6 +210,81 @@ def main() -> int:
               f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, vec "
               f"{out['vec'][f'k3_{key}']}", flush=True)
 
+    def k2(key, c, known):
+        """K2 on ``known`` of code (or codes) ``c``."""
+        def run():
+            return erasure_bp.check_exactly_one(c.chk_to_var, known)
+
+        ex = run()
+        out["digest"][f"k2_{key}"] = digest(ex)
+        out["vec"][f"k2_{key}"] = getattr(erasure_bp.check_exactly_one,
+                                         "vec", None)
+        row = {"device_ms": cs.device_ms(run, "check_exactly_one_kernel",
+                                         reps=args.reps),
+               "ms": cs.time_ms(run, reps=args.reps),
+               **cs.bound(cs.nbytes(c.chk_to_var, known, ex))}
+        out["k2"][key] = row
+        print(f"K2 {key}: device {row['device_ms']:.4f} ms, events "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, vec "
+              f"{out['vec'][f'k2_{key}']}", flush=True)
+
+    def value_round(key, c, known, val):
+        """The value round's two kernels on the planes (known, val) of code
+        (or codes) ``c``: the check pass, then the variable pass on its
+        outputs."""
+        def check():
+            return erasure_bp.check_exactly_one_xor(c.chk_to_var, known, val)
+
+        ex, ad = check()
+        state = {}
+
+        def fresh():
+            state["known"], state["val"] = known.clone(), val.clone()
+            state["errors"] = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def variable():
+            erasure_bp.variable_or_adopt(c.var_to_chk, ex, ad,
+                                         state["known"], state["val"],
+                                         state["errors"], 1)
+
+        fresh()
+        variable()
+        out["digest"][f"value_round_{key}"] = digest(
+            ex, ad, state["known"], state["val"], state["errors"])
+        row = {}
+        for name, run, prepare, kernel, nbytes in (
+                ("check", check, None, "check_exactly_one_xor_kernel",
+                 cs.nbytes(c.chk_to_var, known, val, ex, ad)),
+                ("variable", variable, fresh, "variable_or_adopt_kernel",
+                 cs.nbytes(c.var_to_chk, ex, ad, known, known, val, val)
+                 + 4)):
+            wrapper = getattr(erasure_bp, kernel[:-len("_kernel")])
+            row[name] = {
+                "device_ms": cs.device_ms(run, kernel, prepare=prepare,
+                                          reps=args.reps),
+                "ms": cs.time_ms(run, prepare=prepare, reps=args.reps),
+                "vec": getattr(wrapper, "vec", None),
+                "tile": getattr(wrapper, "tile", None), **cs.bound(nbytes)}
+        out["value_round"][key] = row
+        print(f"value round {key}: {json.dumps(row)}", flush=True)
+
+    def value_round_resources():
+        """Registers, stack and local memory of the BEC round kernels'
+        instantiations, the value forms' and K2's / K3's (cuobjdump)."""
+        import re
+
+        found = {}
+        for name, text in re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
+                                     r"SHARED:\d+ LOCAL:\d+)",
+                                     cs._cuobjdump("-res-usage")):
+            m = re.search(r"\d+(check_exactly_one(?:_xor)?|variable_or_"
+                          r"(?:update|adopt))_kernel(I\w*?EE)?", name)
+            if m:
+                targs = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+                found[f"{m.group(1)}<{','.join(targs)}>"] = \
+                    cs._resource_fields(text)
+        return found
+
     # -- n = 10^4: the headline, irregular, the chunks ----------------------
     cfg = SimulationConfig(channel_param=cs.EPS_FULL, n=cs.N_FULL, dv=cs.DV,
                            dc=cs.DC, code_mode="fixed", code_number=1,
@@ -256,11 +361,48 @@ def main() -> int:
             "resources": cs.erasure_decode_resources()}
         print(f"value form: {json.dumps(out['value_form'])}", flush=True)
 
-    # -- K3 at n = 10^4: one code (N = 4), 768 codes of one word (N = 1) ----
+    # -- the value round at S2, its _traj decode ------------------------------
+    known0 = ~erased
+    value_round("s2_one_code", code, known0, tx & known0)
+    decode("traj", lambda: erasure_bp.bp_decode_packed_traj(
+        code, erased, tx, cs.ITERS)[0], k_bits)
+
+    # -- a fixed code above the value form's one-word limit: the host loop --
+    large = ensemble.code_for_config(dataclasses.replace(
+        cfg, n=N_LARGE)).to(dev)
+    large_enc = encode.code_encoder_planes(large)
+    large_tx = encode.encode_packed(large_enc, bitops.info_planes(
+        large_enc.k, cs.WORDS_FULL, seed=1, offset=0, device=dev))
+    large_erased = bitops.bernoulli_packed(
+        cs.EPS_FULL, (N_LARGE, cs.WORDS_FULL), seed=7, offset=3, device=dev)
+    decode("value_large", lambda: erasure_bp.bp_decode_packed(
+        large, large_erased, large_tx, cs.ITERS),
+        N_LARGE * (cs.DC - cs.DV) // cs.DC * 32 * cs.WORDS_FULL)
+    del large, large_enc, large_tx, large_erased
+
+    # -- S1: the ensemble random BEC chunk's shape ---------------------------
+    ens = ensemble.sample_codes(1, 0, cs.CODES_RT_ENS, cs.N_RT_ENS, cs.DV,
+                                cs.DC, "repair", device=dev)
+    ens_enc = encode.code_encoder_planes(ens)
+    ens_tx = encode.encode_packed(ens_enc, bitops.info_planes(
+        ens_enc.k, cs.WORDS_FULL, seed=1, offset=0, device=dev))
+    ens_erased = bitops.bernoulli_packed(
+        cs.EPS_RT_ENS, (cs.N_RT_ENS, cs.WORDS_FULL), seed=7, offset=3,
+        device=dev)
+    ens_known = ~ens_erased
+    value_round("s1_ensemble", ens, ens_known, ens_tx & ens_known)
+    decode("ensemble_value", lambda: erasure_bp.bp_decode_packed(
+        ens, ens_erased, ens_tx, cs.ITERS),
+        cs.N_RT_ENS * (cs.DC - cs.DV) // cs.DC * 32 * cs.WORDS_FULL)
+    del ens, ens_enc, ens_tx, ens_erased, ens_known
+
+    # -- K2 and K3 at n = 10^4: one code (N = 4), K3 also at 768 codes of one
+    # word (N = 1) -----------------------------------------------------------
+    k2("one_code", code, known0)
     codes768 = ensemble.sample_codes(2, 0, cs.CODES_FULL, cs.N_FULL, cs.DV,
                                      cs.DC, "repair", device=dev)
-    k3("one_code", code, ~erased)
-    k3("codes768", codes768, ~erased)
+    k3("one_code", code, known0)
+    k3("codes768", codes768, known0)
     del codes768
 
     # -- n = 10^6, W = 48: K3 in the round loop, the whole decode -----------
@@ -276,15 +418,26 @@ def main() -> int:
         known = erasure_bp.bp_decode_packed_allzero(big, big_erased,
                                                     when).known
         k3(f"n1e6_r{when}", big, known)
+        if when == 2:
+            k2("n1e6_r2", big, known)
+            # S3: the value round on random value planes two rounds in
+            val = bitops.bernoulli_packed(0.5, (cs.N_EDGE, cs.W_EDGE),
+                                          seed=39, device=dev) & known
+            value_round("s3_n1e6", big, known, val)
+            del val
         del known
     decode("n1e6", lambda: erasure_bp.bp_decode_packed_allzero(
         big, big_erased, cs.ITERS), (cs.N_EDGE - big.m) * 32 * cs.W_EDGE)
+    out["value_round_resources"] = value_round_resources()
+    print(f"value round resources: {json.dumps(out['value_round_resources'])}",
+          flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     print(json.dumps({k: out[k] for k in ("card", "decode_ms", "chunk_ms",
                                           "launches", "vec", "digest",
                                           "transpose_share")}))
-    print(json.dumps({"k3": out["k3"]}))
+    print(json.dumps({"k2": out["k2"], "k3": out["k3"],
+                      "value_round": out["value_round"]}))
     return 0
 
 

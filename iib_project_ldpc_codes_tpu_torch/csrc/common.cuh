@@ -59,6 +59,24 @@ __device__ __forceinline__ RowItem row_item(const RowGrid& g) {
   return RowItem{row, (i - row * g.groups) * N, row < g.rows};
 }
 
+// The row grid taken in column tiles of `tile` words (a multiple of N that
+// divides W; W itself: row_item's order): tile slowest, then row, then the
+// item in the row's slice of the tile.  The blocks resident at one time work
+// on one or two tiles, so the rows they gather stay in L2 while a plane that
+// is gathered whole would not.
+template <int N>
+__device__ __forceinline__ RowItem tiled_row_item(const RowGrid& g,
+                                                  int tile) {
+  const int i = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
+  const int groups = tile / N;             // items a row of a tile
+  const int per_tile = g.rows * groups;
+  const int t = i / per_tile;
+  const int rem = i - t * per_tile;
+  const int row = rem / groups;
+  return RowItem{row, t * tile + (rem - row * groups) * N,
+                 t < g.groups * N / tile};
+}
+
 // Philox4x32-10 (Salmon et al., SC'11; the Random123 reference rounds):
 // counter (c0, c1, c2, c3), key (k0, k1).  Known answer: counter 0, key 0
 // gives (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8).

@@ -6,9 +6,11 @@
 //   counts[32*w + b] = number of rows r with bit b of words[r, w] set.
 // `failed` is counts > 0; the chunk statistics follow from the counts.
 //
-// Bound on the H100: ALU.  Each 4-byte word feeds 32 shift-and-add
-// counter updates, so the kernel reads n*W*4 bytes once and spends ~64
-// integer ops on every word.  A block is 32 columns x 8 row-walkers: lane
+// Bound on the H100: bytes, n*W*4 read once.  The counts need about 5
+// logic operations a word (a bit-sliced carry-save counter), well under
+// that; this kernel spends 32 shift-and-add counter updates on every word
+// (109 integer instructions in its SASS), so its instruction issue, not
+// the bytes, sets its time.  A block is 32 columns x 8 row-walkers: lane
 // = column, so each warp load is 128 contiguous bytes; each thread keeps
 // its column's 32 counters in registers while it strides down the rows.
 // The 8 walkers are summed in shared memory (padded to 33 to avoid bank

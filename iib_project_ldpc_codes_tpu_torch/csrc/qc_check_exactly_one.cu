@@ -11,7 +11,7 @@
 //   exactly_one[c*Z+z, w] = bits where exactly one known[v_j, w] is 0
 //   adopt[c*Z+z, w]       = exactly_one & XOR_j (val[v_j, w] & known[v_j, w])
 // The second plane (kVal, random-codeword transmit) is the value the unique
-// unknown participant must take, as check_exactly_one_xor.cu writes it; the
+// unknown participant must take, as check_exactly_one_xor writes it; the
 // all-zero instantiation (val == nullptr) neither reads val nor writes adopt.
 // The exactly-one summary is K2's two running masks (a zero seen once, a
 // zero seen twice).

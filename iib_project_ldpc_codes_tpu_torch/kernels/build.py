@@ -67,8 +67,10 @@ SIGNATURES = {
     "ldpc_soft_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _F, _F, _P),
     "ldpc_encode_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ldpc_check_exactly_one_xor": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ldpc_variable_or_adopt": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ldpc_check_exactly_one_xor": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _P),
+    "ldpc_variable_or_adopt": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
     "ldpc_qc_check_exactly_one": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P),
     "ldpc_qc_variable_or": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -54,10 +54,10 @@ shapes :func:`erasure_decode_block_words` splits into blocks with
 shared memory: the fixed-code decode, (3,6) up to n = 10,330 a block a
 word), the whole decode in one launch and one host read.  The rest, and
 the ``_traj`` forms, which count each trial after every round, run a host
-loop over two round kernels beside K2/K3: the check pass
-:func:`check_exactly_one_xor` (``csrc/check_exactly_one_xor.cu``:
+loop over the value forms of K2 and K3: the check pass
+:func:`check_exactly_one_xor` (``csrc/check_exactly_one.cu``:
 exactly_one and exactly_one & xor_known) and the variable pass
-:func:`variable_or_adopt` (``csrc/variable_or_adopt.cu``: known |= OR
+:func:`variable_or_adopt` (``csrc/variable_or_update.cu``: known |= OR
 exactly_one, val |= OR adopt & ~known, the erasure count).  The ``_traj``
 forms add K4's per-trial counts of ~known after every round,
 int32[max_iters+1, B], the tail filled with the final counts.  ``known``
@@ -68,11 +68,12 @@ decodes' erasure counts agree bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from ..kernels import alignment, check_int32, launch, use_kernel
+from ..kernels import alignment, check_int32, l2_bytes, launch, use_kernel
 from ..models.code import LDPCCode
 from .bitops import _per_trial_counts_plain, per_trial_counts, popcount
 from .channels import ERASURE
@@ -669,8 +670,40 @@ def bp_decode_packed_allzero_plain(code: LDPCCode, erased: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Packed value-plane path (random-codeword transmit): its own two kernels
+# Packed value-plane path (random-codeword transmit): K2's and K3's value
+# forms
 # ---------------------------------------------------------------------------
+
+#: the least words of a column tile of the value round's grid: a row's
+#: slice of a tile fills a 128-byte line
+VALUE_TILE_MIN_WORDS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def value_round_tile(rows: int, words: int, cache_bytes: int) -> int:
+    """Words of a column tile of the value round's grid (the value forms of
+    K2 and K3 take the row grid tile after tile): W itself where the two
+    planes the check pass gathers (``rows`` x ``words`` words each, known
+    and val) fit a third of ``cache_bytes`` (the card's L2), else the
+    largest divisor of W that is a multiple of 8 words (so of either N), at
+    least :data:`VALUE_TILE_MIN_WORDS`, whose slices of both planes fit a
+    third of it; W where there is none.  The variable pass takes the same
+    tile."""
+    budget = cache_bytes // 3
+    if 2 * rows * words * 4 <= budget:
+        return words
+    fits = [t for t in range(VALUE_TILE_MIN_WORDS, words, 8)
+            if words % t == 0 and 2 * rows * t * 4 <= budget]
+    return max(fits, default=words)
+
+
+def _value_round_launch(wpc: int, *planes) -> Tuple[int, int]:
+    """The value round's (vec, tile) on the CUDA ``planes`` (known
+    first)."""
+    known = planes[0]
+    return (check_exactly_one_vector(wpc, alignment(*planes)),
+            value_round_tile(*known.shape, l2_bytes(known.device.index)))
+
 
 def _check_exactly_one_xor_plain(chk_to_var: torch.Tensor,
                                  known: torch.Tensor, val: torch.Tensor
@@ -692,7 +725,11 @@ def check_exactly_one_xor(chk_to_var: torch.Tensor, known: torch.Tensor,
     """(exactly_one, adopt), each int32[m, W]: per check and trial,
     whether exactly one participant is unknown, and that bit AND the XOR
     of the known participants' values (the value the unknown one must
-    take).  Tables and batches as :func:`check_exactly_one`."""
+    take).  Tables and batches as :func:`check_exactly_one`; the kernel
+    is K2's value form (``csrc/check_exactly_one.cu``), whose words a
+    thread (:func:`check_exactly_one_vector` over all four planes) and
+    column tile (:func:`value_round_tile`) the wrapper keeps in ``.vec``
+    and ``.tile``."""
     check_int32("known", known, 2)
     check_int32("val", val, 2)
     if val.shape != known.shape:
@@ -705,14 +742,17 @@ def check_exactly_one_xor(chk_to_var: torch.Tensor, known: torch.Tensor,
     exactly_one = torch.empty((m, words), dtype=torch.int32,
                               device=known.device)
     adopt = torch.empty_like(exactly_one)
+    vec, tile = _value_round_launch(wpc, known, val, exactly_one, adopt)
     launch("ldpc_check_exactly_one_xor", known.device, known.data_ptr(),
            val.data_ptr(), chk_to_var.data_ptr(), exactly_one.data_ptr(),
-           adopt.data_ptr(), m, dc, words, wpc)
+           adopt.data_ptr(), known.shape[0], m, dc, words, wpc, vec, tile)
     check_exactly_one_xor.launches += 1
+    check_exactly_one_xor.vec, check_exactly_one_xor.tile = vec, tile
     return exactly_one, adopt
 
 
 check_exactly_one_xor.launches = 0
+check_exactly_one_xor.vec = check_exactly_one_xor.tile = None
 
 
 def _variable_or_adopt_plain(var_to_chk: torch.Tensor,
@@ -736,7 +776,10 @@ def variable_or_adopt(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
     """In place: ``val |= OR_j adopt[var_to_chk[:, j]] & ~known``, then
     ``known |= OR_j exactly_one[var_to_chk[:, j]]``, and ``errors[slot]``
     = erasures left (``errors[slot]`` must be 0 on entry).  Tables and
-    batches as :func:`variable_or_update`."""
+    batches as :func:`variable_or_update`; the kernel is K3's value form
+    (``csrc/variable_or_update.cu``), whose words a thread and column tile
+    (as :func:`check_exactly_one_xor`'s) the wrapper keeps in ``.vec`` and
+    ``.tile``."""
     for name, t in (("known", known), ("val", val),
                     ("exactly_one", exactly_one), ("adopt", adopt)):
         check_int32(name, t, 2)
@@ -755,14 +798,17 @@ def variable_or_adopt(var_to_chk: torch.Tensor, exactly_one: torch.Tensor,
                                  errors, slot)
         return
     n, dv = var_to_chk.shape[-2:]
+    vec, tile = _value_round_launch(wpc, known, val, exactly_one, adopt)
     launch("ldpc_variable_or_adopt", known.device, known.data_ptr(),
            val.data_ptr(), exactly_one.data_ptr(), adopt.data_ptr(),
-           var_to_chk.data_ptr(), errors[slot:].data_ptr(), n, dv,
-           known.shape[1], wpc)
+           var_to_chk.data_ptr(), errors[slot:].data_ptr(), n,
+           exactly_one.shape[0], dv, known.shape[1], wpc, vec, tile)
     variable_or_adopt.launches += 1
+    variable_or_adopt.vec, variable_or_adopt.tile = vec, tile
 
 
 variable_or_adopt.launches = 0
+variable_or_adopt.vec = variable_or_adopt.tile = None
 
 
 def _decode_values(code, erased: torch.Tensor, tx_bits: torch.Tensor,

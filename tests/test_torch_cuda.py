@@ -1395,6 +1395,208 @@ def test_value_round_kernels_equal_plain(cuda, wpc, num, eps):
         assert torch.equal(a, b)
 
 
+def _value_round_against_plain(c, known, val, align=16):
+    """The value round's two kernels on (known, val) of code (or codes)
+    ``c``, the planes ``align`` bytes past a 16-byte boundary, against
+    their plain versions on the same planes; returns the launched words a
+    thread and column tile, the same for both."""
+    known_dev, val_dev = (_misaligned(t, align) for t in (known, val))
+    got = erasure_bp.check_exactly_one_xor(c.chk_to_var, known_dev, val_dev)
+    launched = (erasure_bp.check_exactly_one_xor.vec,
+                erasure_bp.check_exactly_one_xor.tile)
+    want = erasure_bp._check_exactly_one_xor_plain(c.chk_to_var, known, val)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    states = [[_misaligned(t, align) for t in (known, val)]
+              + [torch.zeros(3, dtype=torch.int32, device=known.device)]
+              for _ in range(2)]
+    erasure_bp.variable_or_adopt(
+        c.var_to_chk, *(_misaligned(t, align) for t in want), *states[0], 1)
+    assert (erasure_bp.variable_or_adopt.vec,
+            erasure_bp.variable_or_adopt.tile) == launched
+    erasure_bp._variable_or_adopt_plain(c.var_to_chk, *want, *states[1], 1)
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+    return launched
+
+
+def _value_round_family(family, n, device):
+    """(the tables the round reads, the code whose codewords it carries):
+    an irregular code's phantom view and the code, else the code twice."""
+    if family == "irregular":
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(n, LAM, RHO)
+        code = irregular.sample_irregular_codes(3, 0, 1, spec, "repair") \
+            .select(0).to(device)
+        return erasure_bp._phantom_view(code), code
+    if family == "dc10":
+        code = ensemble.sample_codes(3, 0, 1, n, 5, 10, "repair") \
+            .select(0).to(device)
+    else:
+        code = _code(n, seed=5, device=device)
+    return code, code
+
+
+@pytest.mark.parametrize("family, dv, dc", [("regular", 3, 6),
+                                            ("dc10", 5, 10),
+                                            ("irregular", 4, 6)])
+@pytest.mark.parametrize("words, align, vec", [(768, 16, 4), (48, 16, 4),
+                                               (48, 8, 1), (96, 8, 1),
+                                               (33, 16, 1), (1, 16, 1)])
+@pytest.mark.parametrize("tx", ["codeword", "random"])
+@pytest.mark.parametrize("cache", ["card", "small"])
+def test_value_round_kernels_widths(cuda, monkeypatch, family, dv, dc, words,
+                                    align, vec, tx, cache):
+    # K2's and K3's value forms at N = 4 (16 bytes) and N = 1 (a misaligned
+    # plane, an odd W, one word), at the exact degrees (dc 6, dv 3) and in
+    # the socket loops (dc 10 and dv 5, the irregular phantom view's dv_max
+    # 4), two rounds into a value decode, against their plain versions; on
+    # the card's L2 these planes take no column tiles, and with the tile
+    # rule given a 1 MB cache, W = 768 and 96 take tiles of 32 words
+    n = 1200
+    l2 = erasure_bp.l2_bytes(cuda.index or 0) if cache == "card" \
+        else 10 ** 6
+    monkeypatch.setattr(erasure_bp, "l2_bytes", lambda index: l2)
+    c, code = _value_round_family(family, n, cuda)
+    assert tuple(c.var_to_chk.shape[-1:] + c.chk_to_var.shape[-1:]) == \
+        (dv, dc)
+    erased = bitops.bernoulli_packed(0.42, (n, words), seed=words,
+                                     device=cuda)
+    tx_bits = _encoded(code, words, 2, cuda)[2] if tx == "codeword" else \
+        bitops.bernoulli_packed(0.5, (n, words), seed=1, device=cuda)
+    if family == "irregular":                # the phantom row: known, 0
+        erased, tx_bits = (erasure_bp._pad_phantom_row(t)
+                           for t in (erased, tx_bits))
+    res = erasure_bp._decode_values(c, erased, tx_bits, 2,
+                                    erasure_bp._VALUE_PLAIN, False)[0]
+    tile = erasure_bp.value_round_tile(res.known.shape[0], words, l2)
+    assert tile == (32 if cache == "small" and words in (768, 96) else words)
+    assert _value_round_against_plain(c, res.known, res.val, align) == \
+        (vec, tile)
+
+
+@pytest.mark.parametrize("shape", ["s1_ensemble", "s2_one_code",
+                                   "s3_n1e6"])
+def test_value_round_kernels_at_the_main_shapes(cuda, shape):
+    # S1: the ensemble random BEC chunk's rounds, (3,6), n = 2048, 32 codes
+    # of 24 words, eps 0.40, codewords; S2: one code, n = 10^4, W = 768,
+    # eps 0.42, codewords; S3: n = 10^6, W = 48, random value planes two
+    # rounds in.  Both kernels launch 16 bytes a thread (S2 in column tiles
+    # of its planes, which overflow the L2), bit for bit equal to their
+    # plain versions round after round
+    if shape == "s1_ensemble":
+        c = ensemble.sample_codes(1, 0, 32, 2048, 3, 6, "repair",
+                                  device=cuda)
+        words, eps, rounds = 768, 0.40, 3
+        tx_bits = _encoded(c, words, 1, cuda)[2]
+    elif shape == "s2_one_code":
+        c = ensemble.code_for_config(SimulationConfig(
+            n=10_000, dv=3, dc=6, code_mode="fixed")).to(cuda)
+        words, eps, rounds = 768, 0.42, 3
+        tx_bits = _encoded(c, words, 1, cuda)[2]
+    else:
+        c = ensemble.code_for_config(SimulationConfig(
+            n=1_000_000, dv=3, dc=6, code_mode="fixed")).to(cuda)
+        words, eps, rounds = 48, 0.42, 1
+        tx_bits = bitops.bernoulli_packed(0.5, (c.n, words), seed=39,
+                                          device=cuda)
+    erased = bitops.bernoulli_packed(eps, (c.n, words), seed=7, offset=3,
+                                     device=cuda)
+    known, val = ~erased, tx_bits & ~erased
+    if shape == "s3_n1e6":
+        res = erasure_bp._decode_values(c, erased, tx_bits, 2,
+                                        erasure_bp._VALUE_PLAIN, False)[0]
+        known, val = res.known, res.val
+    tile = erasure_bp.value_round_tile(c.n, words, erasure_bp.l2_bytes(
+        cuda.index or 0))
+    assert (tile < words) == (shape == "s2_one_code")
+    for _ in range(rounds):
+        assert _value_round_against_plain(c, known, val) == (4, tile)
+        ex, adopt = erasure_bp._check_exactly_one_xor_plain(c.chk_to_var,
+                                                            known, val)
+        erasure_bp._variable_or_adopt_plain(
+            c.var_to_chk, ex, adopt, known, val,
+            torch.zeros(2, dtype=torch.int32, device=cuda), 1)
+
+
+def test_value_round_entry_points_refuse_shapes(cuda):
+    # the shapes ldpc_check_exactly_one_xor and ldpc_variable_or_adopt do
+    # not take return cudaErrorInvalidValue, which the launch raises
+    c = _code(120, seed=3, device=cuda)
+    words = 8
+    known = torch.zeros((120, words), dtype=torch.int32, device=cuda)
+    val, plane = known.clone(), torch.zeros((60, words), dtype=torch.int32,
+                                            device=cuda)
+    adopt, errors = plane.clone(), torch.zeros(2, dtype=torch.int32,
+                                               device=cuda)
+    off = _misaligned(known, 8)
+
+    def check(k=known, n=120, m=60, dc=6, w=words, wpc=words, vec=4,
+              tile=words):
+        erasure_bp.launch("ldpc_check_exactly_one_xor", cuda, k.data_ptr(),
+                          val.data_ptr(), c.chk_to_var.data_ptr(),
+                          plane.data_ptr(), adopt.data_ptr(), n, m, dc, w,
+                          wpc, vec, tile)
+
+    def variable(k=known, n=120, m=60, dv=3, w=words, wpc=words, vec=4,
+                 tile=words):
+        erasure_bp.launch("ldpc_variable_or_adopt", cuda, k.data_ptr(),
+                          val.data_ptr(), plane.data_ptr(), adopt.data_ptr(),
+                          c.var_to_chk.data_ptr(), errors.data_ptr(), n, m,
+                          dv, w, wpc, vec, tile)
+
+    for fn in (check, variable):
+        fn()                                  # taken: 16 bytes a thread
+        fn(vec=1)
+        fn(tile=4)                            # two column tiles
+        fn(vec=1, tile=2)
+        torch.cuda.synchronize()
+        for bad in (dict(vec=2), dict(wpc=3, vec=1),   # W % wpc != 0
+                    dict(tile=0), dict(tile=6, vec=1),  # W % tile != 0
+                    dict(tile=2),                       # tile % vec != 0
+                    dict(wpc=6, w=6, vec=4),           # wpc % 4 != 0
+                    dict(k=off),                       # misaligned, N = 4
+                    dict(w=7, wpc=7, vec=4),           # 4 does not divide W
+                    dict(n=2 ** 27, w=8, vec=1),       # a plane >= 2^30
+                    dict(wpc=0, vec=1)):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fn(**bad)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        check(m=2 ** 26, dc=64, vec=1)        # (W / wpc) * m * dc >= 2^31
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        variable(n=2 ** 25, dv=64, vec=1)     # (W / wpc) * n * dv >= 2^31
+
+
+@pytest.mark.parametrize("case", ["s1_ensemble", "one_code_n1",
+                                  "irregular"])
+def test_traj_decode_on_gpu_equals_plain_and_cpu(cuda, case):
+    # bp_decode_packed_traj on the card (the host loop over the value
+    # round, K4 a round) against its plain version on the card and the CPU
+    if case == "s1_ensemble":
+        code = ensemble.sample_codes(1, 0, 32, 2048, 3, 6, "repair")
+        words, eps = 768, 0.40
+        fn, plain = erasure_bp.bp_decode_packed_traj, \
+            erasure_bp.bp_decode_packed_traj_plain
+    elif case == "one_code_n1":
+        code, words, eps = _code(600, seed=9), 9, 0.42
+        fn, plain = erasure_bp.bp_decode_packed_traj, \
+            erasure_bp.bp_decode_packed_traj_plain
+    else:
+        spec = irregular.IrregularEnsembleSpec.from_lam_rho(600, LAM, RHO)
+        code = irregular.sample_irregular_codes(9, 0, 1, spec).select(0)
+        words, eps = 32, 0.42
+        fn, plain = erasure_bp.bp_decode_packed_traj_irregular, \
+            erasure_bp.bp_decode_packed_traj_irregular_plain
+    _, _, tx_bits = _encoded(code, words, 11)
+    erased = bitops.bernoulli_packed(eps, (code.n, words), seed=12)
+    gpu = fn(code.to(cuda), erased.to(cuda), tx_bits.to(cuda), 50)
+    for want in (plain(code.to(cuda), erased.to(cuda), tx_bits.to(cuda), 50),
+                 fn(code, erased, tx_bits, 50)):
+        assert torch.equal(gpu[1].cpu(), want[1].cpu())
+        for field in ("known", "val", "error_totals"):
+            assert torch.equal(getattr(gpu[0], field).cpu(),
+                               getattr(want[0], field).cpu())
+        assert gpu[0].iterations == want[0].iterations
+
+
 @pytest.mark.parametrize("family", ["regular", "irregular"])
 @pytest.mark.parametrize("wpc, num", [(9, 1), (1, 24)])
 def test_value_decodes_on_gpu_equal_cpu(cuda, family, wpc, num):
