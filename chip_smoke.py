@@ -170,12 +170,17 @@ and C; the fixed (3,6) Gallager path for the Gallager check and variable
 kernels, which the ensemble paths no longer run) and ``launches_by_path``
 every path of phases 16 and 21.  Kernels G's and D's bounds are their
 shared-memory accesses for the rounds their codes ran, over 132 SMs x 32
-a clock at 1.98 GHz, or their device-memory bytes.  Kernel A's bound
-counts, beside its bytes, the FP64 instructions of a trip of its main loop
-in the built SASS (``sass_loop_counts``) at 64 lanes an SM; K4's the
-integer operations the counts need (``vertical_count_ops``, a bit-sliced
-counter) at the SM's 128 issue slots a clock, with its own loop's integer
-instructions a word beside it (``kernel_ops_ms``).
+a clock at 1.98 GHz, or their device-memory bytes.  Kernel A's bound is
+its plane written once, beside the Philox products it needs
+(``philox_ms``), with its own loop's FP64 instructions (from the built
+SASS, ``sass_loop_counts``) at 64 lanes an SM beside it
+(``kernel_ops_ms``); phase 18 also holds its transform and its division
+against the math library and ``__fdiv_rn`` over every 32-bit word
+(``awgn_word_checks``).  K4's bound is its bytes beside the integer
+operations the counts need (``vertical_count_ops``, a bit-sliced counter)
+at the SM's 128 issue slots a clock, with its own innermost loop's integer
+instructions a word beside it (``kernel_ops_ms``); phase 4 holds it to its
+plain version on every plane shape the paths give it.
 
 Every phase prints its wall time when the next one starts.  Any failed
 check raises, and the script exits non-zero without printing a
@@ -255,6 +260,7 @@ BF16_TENSOR_OPS_S = 989e12      # dense bf16 on the tensor cores
 SMEM_ACCESS_S = 132 * 32 * 1.98e9
 INT8_TENSOR_OPS_S = 1979e12     # dense int8 on the tensor cores
 PHILOX_OPS = 100                # 10 rounds of 4 multiplies, 4 XORs, 2 adds
+PHILOX_PRODUCTS = 20            # 10 rounds of two 32 x 32 -> 64-bit products
 
 
 _PHASE = {"name": None, "start": 0.0}
@@ -550,6 +556,40 @@ def value_decode_smem_accesses(c, erased, tx, rounds) -> int:
     return erasure_decode_smem_accesses(
         c.chk_to_var.expand(words, -1, -1), rows, rounds, 1) \
         + rows * words + c.chk_to_var.shape[-1] * taught[0]
+
+
+def k4_exact_on_path_planes(dev, erased) -> bool:
+    """K4 against its plain version on the planes the paths give it: the
+    headline erasures and an all-ones plane (n = 10^4, W = 768: the fixed
+    and ensemble BEC and Gallager chunks), the random BEC's ``~known |
+    ((val ^ tx) & known)`` on random planes, the ensemble random chunk's
+    n = 2048, the edge path's n = 10^6, W = 48, one word, and odd widths
+    with rows on both sides of the 16-row step and of a block's runs."""
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.ops import bitops
+
+    def planes():
+        yield "headline", erased
+        yield "ones", torch.full_like(erased, -1)
+        known, val, tx = (bitops.bernoulli_packed(p, erased.shape, seed=s,
+                                                  device=dev)
+                          for p, s in ((0.6, 41), (0.5, 42), (0.5, 43)))
+        yield "random_bec", ~known | ((val ^ tx) & known)
+        yield "n2048", bitops.bernoulli_packed(0.4, (N_RT_ENS, WORDS_FULL),
+                                               seed=44, device=dev)
+        yield "edge", bitops.bernoulli_packed(EPS_FULL, (N_EDGE, W_EDGE),
+                                              seed=45, device=dev)
+        for n, w in ((N_FULL, 1), (1025, 3), (1023, 5), (129, 48), (17, 5),
+                     (1, 1)):
+            yield f"n{n}_w{w}", bitops.bernoulli_packed(
+                0.5, (n, w), seed=n + w, device=dev)
+
+    equal = {name: torch.equal(bitops.per_trial_counts(x),
+                               bitops._per_trial_counts_plain(x))
+             for name, x in planes()}
+    print(f"K4 == plain on the paths' planes: {equal}", flush=True)
+    return all(equal.values())
 
 
 def erasure_decode_phase(dev, batch_codes, erased, kernels) -> dict:
@@ -1501,6 +1541,58 @@ def posterior_cases(dev, llr, batch) -> dict:
     return out
 
 
+def awgn_blocks_a_trip() -> int:
+    """The Philox blocks kernel A draws on each trip of its main loop
+    (``kPerTrip`` in its source): its SASS counts are per trip."""
+    import re
+
+    from iib_project_ldpc_codes_tpu_torch.kernels.build import SOURCE_DIR
+
+    return int(re.search(r"constexpr int kPerTrip = (\d+);",
+                         (SOURCE_DIR / "awgn_llr.cu").read_text()).group(1))
+
+
+def awgn_word_checks(dev, sigmas) -> dict:
+    """Kernel A's transform and division against the math library and
+    ``__fdiv_rn`` over every 32-bit word (``ldpc_awgn_llr_check``, in 16
+    slices of 2^28 words): r(a) within 2^-50 relative of sqrt(-2 log u1),
+    cos and sin of b within 2^-50 of sincos(theta), theta = RN(2 pi u2) as
+    the plain version rounds it, and the float32 quotient 2y / sigma^2 equal
+    to ``__fdiv_rn``'s for every numerator the kernel can meet, at each of
+    ``sigmas`` (the transform at the first).  Fails on any word outside
+    them; returns the counts, the words whose float32 rounding of r
+    differs, and the largest errors."""
+    import numpy as np
+    import torch
+
+    from iib_project_ldpc_codes_tpu_torch.kernels import launch
+
+    out = {}
+    for k, sigma in enumerate(sigmas):
+        sigma_sq = float(np.float32(sigma) * np.float32(sigma))
+        counts = torch.zeros(7, dtype=torch.int64, device=dev)
+        start = time.perf_counter()
+        for piece in range(16):
+            launch("ldpc_awgn_llr_check", dev, counts.data_ptr(),
+                   piece << 28, 1 << 28, sigma_sq, 3 if k == 0 else 2)
+        c = counts.cpu().tolist()
+        as_double = np.array(c[5:], np.int64).view(np.float64)
+        row = {"division_differ": c[3], "division_compared": c[4],
+               "seconds": time.perf_counter() - start}
+        if k == 0:
+            row.update(r_out=c[0], r_float32_differ=c[1], cos_sin_out=c[2],
+                       r_max_rel_err=float(as_double[0]),
+                       cos_sin_max_abs_err=float(as_double[1]))
+            check(c[0] == 0 and c[2] == 0,
+                  f"kernel A's transform: {c[0]} words of r and {c[2]} of "
+                  "cos / sin outside 2^-50 of the math library")
+        check(c[3] == 0, f"kernel A's division at sigma {sigma}: {c[3]} of "
+                         f"{c[4]} numerators differ from __fdiv_rn")
+        out[f"sigma_{sigma:.6g}"] = row
+    print(f"kernel A over all 2^32 words: {json.dumps(out)}", flush=True)
+    return out
+
+
 def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
     """Phases 18-22: soft-decision BP (module docstring).  Tolerances:
     kernel A to one float32 ulp in under 1e-5 of the entries (float64
@@ -1539,8 +1631,15 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
           f"kernel A differs from its plain version: {ulp_max} ulps at most, "
           f"in a share {ulp_share} of the entries")
     count = llr.numel()
-    sass_a = sass_loop_counts("awgn_llr_kernelILb0E")
+    # the instantiation the paths launch: no codeword plane, sigma^2 in
+    # [2^-60, 2^60] (the division by products)
+    sass_a = sass_loop_counts("awgn_llr_kernelILb0ELb1E")
     sass_a.pop("span")
+    per_trip = awgn_blocks_a_trip()
+    check(sass_a["calls"] == 0 and sass_a["fp64_guarded"] == 0,
+          f"kernel A's loop holds {sass_a['calls']} calls and "
+          f"{sass_a['fp64_guarded']} predicated FP64 instructions")
+    words_a = awgn_word_checks(dev, (SIGMA_SP, sigma_int8))
     mean, var = float(llr.double().mean()), float(llr.double().var())
     check(abs(mean - 2 / SIGMA_SP ** 2) < 5 * (4 / SIGMA_SP ** 2 / count)
           ** 0.5 and abs(var / (4 / SIGMA_SP ** 2) - 1) < 5 * (2 / count)
@@ -1561,26 +1660,30 @@ def soft_paths(dev, smi, measured, kernels, scratch_root) -> None:
         device_ms=device_ms(lambda: channels.awgn_llr(
             SIGMA_SP, shape, seed=7, offset=3, device=dev),
             "awgn_llr_kernel"),
-        # float64: the FP64-pipe instructions of a trip of the grid-stride
-        # loop (one Philox block, four elements) in the kernel's SASS, the
-        # math library's log / sqrt / sincos sequences as nvcc emits them;
-        # a few of them run only for special inputs (``fp64_guarded``, and
-        # code a forward branch skips, ``skipped``), so the count is a
-        # little above what an ordinary element runs
-        sass=sass_a,
-        **bound(nbytes(llr), count / 4 * sass_a["fp64"], FP64_INSTR_S))
+        # the bound counts what the function needs: the plane written once,
+        # and beside it the Philox4x32-10 products (10 rounds of two 32 x 32
+        # -> 64-bit products a block of four elements); the kernel's own
+        # FP64 instructions a loop trip (``per_trip`` Philox blocks) at the
+        # FP64 rate stand beside the bound (``kernel_ops_ms``), as K4's do
+        sass=sass_a, words=words_a, blocks_a_trip=per_trip,
+        philox_ms=count / 4 * PHILOX_PRODUCTS / INT32_OPS_S * 1e3,
+        kernel_ops_ms=count / (4 * per_trip) * sass_a["fp64"] / FP64_INSTR_S
+        * 1e3,
+        **bound(nbytes(llr), count / 4 * PHILOX_PRODUCTS, INT32_OPS_S))
     del llr_p, ulps
+    row = measured["awgn_llr"]
     print(f"kernel A: {ulp_max} ulp at most, share {ulp_share:.3e} of "
           f"{count} entries; mean {mean:.5f} (2/sigma^2 "
           f"{2 / SIGMA_SP ** 2:.5f}), raw BER {raw:.5f} (Q {q_raw:.5f}); "
-          f"{measured['awgn_llr']['ms']:.4f} ms, device "
-          f"{measured['awgn_llr']['device_ms']:.4f} ms, bound "
-          f"{measured['awgn_llr']['bound_ms']:.4f} ms "
-          f"({measured['awgn_llr']['bound_by']}: {sass_a['fp64']} FP64 "
-          f"instructions a loop trip of 4 elements, {sass_a['fp64_guarded']} "
-          f"of them predicated, {sass_a['total']} in all, "
-          f"{sass_a['skipped']} behind forward branches, {sass_a['calls']} "
-          f"calls)", flush=True)
+          f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the Philox "
+          f"products {row['philox_ms']:.4f} ms); its {sass_a['fp64']} FP64 "
+          f"instructions a loop trip of {4 * per_trip} elements take "
+          f"{row['kernel_ops_ms']:.4f} ms at the FP64 rate ({sass_a['total']} "
+          f"instructions in all, {sass_a['quarter']} conversions and special "
+          f"functions, {sass_a['skipped']} behind forward branches, "
+          f"{sass_a['calls']} calls, {sass_a['fp64_guarded']} predicated FP64)",
+          flush=True)
 
     fixed = ensemble.code_for_config(SimulationConfig(
         n=N_SOFT, dv=DV, dc=DC, code_mode="fixed")).to(dev)
@@ -3549,13 +3652,14 @@ def qc_paths(dev, smi, measured, kernels, fer_fixed_36) -> None:
         {k: kernels[k] for k in ("qc_gallager_check",)}), flush=True)
 
 
-def _cuobjdump(*flags) -> str:
-    """The toolkit's cuobjdump on the built library."""
+def _cuobjdump(*flags, library=None) -> str:
+    """The toolkit's cuobjdump on ``library`` (default: the built
+    library)."""
     from iib_project_ldpc_codes_tpu_torch.kernels.build import (find_nvcc,
                                                                 library_path)
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    return subprocess.run([tool, *flags, str(library_path())],
+    return subprocess.run([tool, *flags, str(library or library_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
 
@@ -3569,14 +3673,18 @@ _INT_ALU = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "IMAD",
             "IMUL", "ISETP", "LEA", "IABS", "IMNMX", "VIMNMX", "VIADD", "POPC",
             "FLO", "BMSK", "SGXT", "BREV", "PRMT", "SEL", "I2I", "BFE", "BFI"}
 _FP64 = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+_QUARTER = {"MUFU", "F2F", "I2F", "F2I"}
 
 
-def sass_loop_counts(kernel: str) -> dict:
+def sass_loop_counts(kernel: str, library=None, innermost: bool = False
+                     ) -> dict:
     """SASS instruction counts over one trip of the largest loop (the
     instructions between a backward branch and its target, each once) of
-    the first function of the built library whose name holds ``kernel``:
-    ``fp64`` the FP64-pipe arithmetic (DADD, DMUL, DFMA, DSETP, DMNMX;
-    ``fp64_guarded`` of them carry a predicate),
+    the first function of ``library`` (default: the built library) whose
+    name holds ``kernel``: ``fp64`` the FP64-pipe arithmetic (DADD, DMUL,
+    DFMA, DSETP, DMNMX; ``fp64_guarded`` of them carry a predicate),
+    ``quarter`` the conversions and special functions (MUFU, F2F, I2F,
+    F2I: 16 a clock an SM),
     ``int_alu`` the integer and logic instructions (IADD3, LOP3, SHF,
     IMAD, ISETP, LEA, ...; no moves, memory, control or uniform-datapath
     instructions), ``loads`` the global loads, and ``total``.  Code called
@@ -3586,11 +3694,13 @@ def sass_loop_counts(kernel: str) -> dict:
     forward branch inside it jumps over (code a trip may not run, such as
     a rarely taken path placed inline), ``exits`` the branches out of the
     span that are not the latch, ``calls`` the calls in it, and ``span``
-    the span's SASS, one instruction a line."""
+    the span's SASS, one instruction a line.  ``innermost``: the largest of
+    the loops that hold no other loop."""
     import re
 
-    name = next(k for k in _res_usage() if kernel in k)
-    text = _cuobjdump("-sass", "-fun", name)
+    kw = {"library": library} if library else {}
+    name = next(k for k in _res_usage(**kw) if kernel in k)
+    text = _cuobjdump("-sass", "-fun", name, **kw)
     found = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
                        r"([A-Z][A-Z0-9_.]*)([^;]*);", text)
     ins = [(int(a, 16), op, rest) for a, _, op, rest in found]
@@ -3599,6 +3709,10 @@ def sass_loop_counts(kernel: str) -> dict:
                if op.startswith("BRA")
                and (t := re.search(r"0x([0-9a-f]+)", rest))}
     loops = [(t, a) for a, t in targets.items() if t <= a]
+    if innermost:
+        loops = [(t, a) for t, a in loops
+                 if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
+                            for t2, a2 in loops)]
     check(bool(loops), f"{kernel}: no loop in its SASS")
     head, latch = max(loops, key=lambda x: x[1] - x[0])
     span = [(a, op, rest) for a, op, rest in ins if head <= a <= latch]
@@ -3609,6 +3723,7 @@ def sass_loop_counts(kernel: str) -> dict:
             "fp64": sum(k in _FP64 for k in kinds),
             "fp64_guarded": sum(k.split(".")[0] in _FP64 and bool(guard[a])
                                 for a, k, _ in span),
+            "quarter": sum(k in _QUARTER for k in kinds),
             "int_alu": sum(k in _INT_ALU for k in kinds),
             "loads": sum(k == "LDG" for k in kinds),
             "skipped": len(skipped),
@@ -3667,13 +3782,14 @@ ROUND_KERNELS = (("check_exactly_one", "dc"), ("variable_or_update", "dv"),
                  ("variable_or_adopt", "dv"), ("edge_candidates", "dv"))
 
 
-def _res_usage() -> dict:
-    """cuobjdump -res-usage of the built library: {mangled name: text}."""
+def _res_usage(library=None) -> dict:
+    """cuobjdump -res-usage of ``library`` (default: the built library):
+    {mangled name: text}."""
     import re
 
     return dict(re.findall(r"Function (\S+):\s*(REG:\d+ STACK:\d+ "
                            r"SHARED:\d+ LOCAL:\d+)",
-                           _cuobjdump("-res-usage")))
+                           _cuobjdump("-res-usage", library=library)))
 
 
 def round_kernel_resources(usage: dict, kernels) -> dict:
@@ -5157,11 +5273,13 @@ def main() -> int:
     c_p = bitops._per_trial_counts_plain(erased)
     err = max_abs_err(c_k, c_p)
     check(err == 0, f"K4 differs from its plain version (max |d| {err})")
+    check(k4_exact_on_path_planes(dev, erased),
+          "K4 differs from its plain version on a path's plane")
     # the bound counts the operations the function needs (a bit-sliced
     # counter, vertical_count_ops); beside it, the integer instructions
-    # this kernel spends a word: a trip of its row loop over the words it
-    # loads, in its SASS
-    sass_k4 = sass_loop_counts("per_trial_counts_kernel")
+    # this kernel spends a word: a trip of its innermost row loop over the
+    # words it loads, in its SASS
+    sass_k4 = sass_loop_counts("per_trial_counts_kernel", innermost=True)
     sass_k4.pop("span")
     k4_ops = vertical_count_ops(*erased.shape)
     measured["per_trial_counts"].update(

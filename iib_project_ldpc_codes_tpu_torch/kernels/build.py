@@ -62,6 +62,7 @@ SIGNATURES = {
     "ldpc_erasure_decode_values": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _P),
     "ldpc_awgn_llr": (_P, _LL, _U, _U, _U, _U, _F, _P, _P),
+    "ldpc_awgn_llr_check": (_P, _LL, _LL, _F, _I, _P),
     "ldpc_soft_posterior": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "ldpc_soft_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -21,9 +21,11 @@ word pairs (0, 1) and (2, 3): u1 = (x + 0.5) 2^-32, u2 = y 2^-32, r =
 sqrt(-2 ln u1), lanes (r cos 2 pi u2, r sin 2 pi u2), rounded to float32.
 Then JAX's float32 arithmetic (ops/channels.py:86-93), one rounding a step:
 noise = z sigma, y = (1 - 2b) + noise, llr = (2 y) / (sigma sigma), b the
-transmitted bit (0 without a codeword plane).  The kernel's
-float64 ``log``/``sincos`` and the CPU's may round differently, so a CPU
-and a GPU plane agree to one float32 ulp, equal in all but a tiny share of
+transmitted bit (0 without a codeword plane).  The kernel computes the
+float64 transform without the math library (a table log from the word's
+bits, polynomial sin / cos, ``csrc/awgn_llr.cu``) to within 2^-50 of it,
+and the plain version calls ``log`` / ``cos`` / ``sin``, so a CPU and a
+GPU plane agree to one float32 ulp, equal in all but a tiny share of
 entries.
 """
 

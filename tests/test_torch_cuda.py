@@ -2634,3 +2634,71 @@ def test_nccl_group_of_every_card_equals_one_process(cuda, tmp_path):
         assert torch.equal(o["error_totals"], alone.error_totals.cpu())
         assert o["iterations"] == alone.iterations
         assert o["run"] == want
+
+
+# -- kernel A's own transform and division, K4's bit-sliced counter ---------
+
+@pytest.mark.parametrize("sigma", [0.8, 0.841, 3.7, 2.0 ** -29.9, 1e-12,
+                                   2.0 ** 31])
+@pytest.mark.parametrize("with_tx", [False, True])
+def test_awgn_llr_kernel_every_division_path_equals_plain(cuda, sigma,
+                                                          with_tx):
+    """sigma^2 in [2^-60, 2^60] divides by products, outside it by
+    __fdiv_rn (1e-12 and 2^31): both against the plain version on the
+    card, the same float64 steps but the math library's log / sincos."""
+    shape = (257, 320)
+    tx = bitops.info_planes(shape[0], shape[1] // 32, seed=4,
+                            device=cuda) if with_tx else None
+    got = channels.awgn_llr(sigma, shape, seed=21, offset=5, device=cuda,
+                            tx=tx)
+    want = channels._awgn_llr_plain(sigma, shape, channels.awgn_key(21), 5,
+                                    cuda, tx)
+    ulps = _ulps(got.abs(), want.abs())
+    assert torch.equal(got < 0, want < 0) and int(ulps.max()) <= 1
+    assert int((ulps > 0).sum()) <= max(1, got.numel() // 10**5)
+
+
+@pytest.mark.parametrize("first, mode", [
+    (0, 1), ((1 << 32) - (1 << 22), 1), ((1 << 31) - (1 << 21), 1),
+    (0x3F800000 - (1 << 21), 2), (0xBF800000 - (1 << 21), 2),
+    (0x4F000000 - (1 << 21), 2)])
+def test_awgn_llr_check_finds_no_word_outside(cuda, first, mode):
+    """The check entry on slices of 2^22 words: the transform at both ends
+    and the middle of the words, the division by products on numerators
+    around +-1 and 2^31 (every one of them compared)."""
+    from iib_project_ldpc_codes_tpu_torch.kernels import launch
+
+    counts = torch.zeros(7, dtype=torch.int64, device=cuda)
+    sigma_sq = float(np.float32(0.8) * np.float32(0.8))
+    launch("ldpc_awgn_llr_check", cuda, counts.data_ptr(), first, 1 << 22,
+           sigma_sq, mode)
+    c = counts.cpu().tolist()
+    if mode == 1:
+        assert c[0] == 0 and c[2] == 0
+        assert c[1] <= 2        # words whose float32 rounding of r differs
+    else:
+        assert c[3] == 0 and c[4] == 1 << 22
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 127, 128, 129, 1023, 1024,
+                               1025, 16_385, 70_000])
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 48, 768])
+def test_per_trial_counts_kernel_across_runs_and_widths(cuda, n, w):
+    for prob in (0.42, 1.0):
+        words = bitops.bernoulli_packed(prob, (n, w), seed=n * 7 + w,
+                                        device=cuda)
+        assert torch.equal(bitops.per_trial_counts(words),
+                           bitops._per_trial_counts_plain(words))
+
+
+def test_per_trial_counts_kernel_on_a_view_and_many_runs(cuda):
+    """A plane view that starts one word in (4-byte aligned only), and
+    more runs than the grid's 65,535 rows of blocks."""
+    base = bitops.bernoulli_packed(0.3, (3001, 9), seed=3, device=cuda)
+    view = base.reshape(-1)[1:1 + 3000 * 9].view(3000, 9)
+    assert torch.equal(bitops.per_trial_counts(view),
+                       bitops._per_trial_counts_plain(view))
+    tall = bitops.bernoulli_packed(0.5, (70_000_000, 1), seed=8,
+                                   device=cuda)
+    assert torch.equal(bitops.per_trial_counts(tall),
+                       bitops._per_trial_counts_plain(tall))
